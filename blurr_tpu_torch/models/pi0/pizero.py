@@ -1,0 +1,260 @@
+"""Pi-0 VLA model as an ``nn.Module``: the prefix-cached control step.
+
+Counterpart of ``blurr_tpu/models/pi0/pizero.py`` (``PiZeroSpec``,
+``spec_from_config``, ``PiZero`` with ``_embed_merge``,
+``_encode_proprio``, ``_encode_action``, ``_time_embedding``,
+``_decode_action`` and ``infer_action``). One control step:
+
+    embed merge (SigLIP + projector) -> proprio encoder
+    -> joint prefill over the image/text + proprio prefix (KV cache)
+    -> num_inference_steps Euler steps: action encoder -> joint decode of
+       the action tokens over the cache -> action decoder
+    -> clip
+
+The proprio mixture IS the action mixture module (the JAX package's
+``tie_action_proprio_weights``). Quantization modes and the adaptive
+(adaLN) action expert are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from blurr_tpu_torch.models.pi0 import joint as joint_lib
+from blurr_tpu_torch.models.pi0.joint import JointSpec, Mixture
+from blurr_tpu_torch.models.pi0.siglip import SiglipVisionModel, projector
+from blurr_tpu_torch.ops import masks as mask_lib
+from blurr_tpu_torch.ops.activations import silu
+from blurr_tpu_torch.ops.embeddings import sinusoidal_pos_emb
+
+_QUANT_KEYS = ("action_quantization", "kv_quantization", "vlm_quantization")
+
+
+@dataclass(frozen=True)
+class PiZeroSpec:
+    max_image_text_tokens: int
+    num_proprio_tokens: int  # cond_steps
+    num_action_tokens: int  # horizon_steps
+    action_dim: int
+    proprio_dim: int
+    num_inference_steps: int
+    final_action_clip_value: Optional[float]
+    image_token_index: int
+    pad_token_id: int
+    vocab_size: int
+    time_max_period: float
+
+
+def spec_from_config(cfg: dict) -> PiZeroSpec:
+    """The fields of the JAX ``spec_from_config`` that the control step
+    reads. Raises on what is not ported: adaLN and quantization."""
+    if cfg.get("action_expert_adaptive_mode"):
+        raise NotImplementedError(
+            "action_expert_adaptive_mode (adaLN) is not ported yet"
+        )
+    for key in _QUANT_KEYS:
+        mode = str((cfg.get(key) or {}).get("mode") or "").lower()
+        if mode not in ("", "none"):
+            raise NotImplementedError(f"{key}.mode {mode!r} is not ported yet")
+    return PiZeroSpec(
+        max_image_text_tokens=cfg["max_image_text_tokens"],
+        num_proprio_tokens=cfg["cond_steps"],
+        num_action_tokens=cfg["horizon_steps"],
+        action_dim=cfg["action_dim"],
+        proprio_dim=cfg["proprio_dim"],
+        num_inference_steps=cfg["num_inference_steps"],
+        final_action_clip_value=cfg.get("final_action_clip_value"),
+        image_token_index=cfg["image_token_index"],
+        pad_token_id=cfg["pad_token_id"],
+        vocab_size=cfg["vocab_size"],
+        time_max_period=float(cfg.get("time_max_period", 10000.0)),
+    )
+
+
+class PiZero(nn.Module):
+    """Pi-0 with random or loaded weights on an explicit device and dtype.
+
+    The modules are built on the meta device and then given uninitialized
+    storage on ``device``: no default initialization runs (it would draw
+    3B values, from the process-wide generator). Set the weights with
+    ``init_params`` or ``checkpoint.load_jax_params`` before use.
+    Weight names follow the PyTorch habit (``nn.Linear`` stores [out, in]);
+    ``load_jax_params`` maps a JAX parameter tree onto them.
+    """
+
+    def __init__(self, cfg: dict, *, device, dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.spec = s = spec_from_config(cfg)
+        self.joint_spec = JointSpec.from_config(dict(cfg["joint"]["config"]))
+        self.vision_cfg = dict(cfg["vision"]["config"])
+        mix = self.joint_spec.mixtures
+        if mix["proprio"] != mix["action"]:
+            raise ValueError(
+                "the proprio mixture is tied to the action mixture, so their "
+                f"specs must be equal: {mix['proprio']} vs {mix['action']}"
+            )
+        self.vlm_hidden = mix["vlm"].hidden_size
+        self.action_hidden = aw = mix["action"].hidden_size
+        kw = dict(device="meta", dtype=dtype)
+
+        # a plain parameter, not nn.Embedding: the default init of that
+        # (normal_) runs Python meta-tensor code too
+        self.embed_tokens = nn.Parameter(
+            torch.empty(s.vocab_size, self.vlm_hidden, **kw)
+        )
+        self.vision_tower = SiglipVisionModel(self.vision_cfg, **kw)
+        self.multi_modal_projector = projector(
+            dict(cfg["vision_projector"]["config"]), **kw
+        )
+        self.joint = nn.ModuleDict({
+            "vlm": Mixture(mix["vlm"], self.joint_spec, **kw),
+            "action": Mixture(mix["action"], self.joint_spec, **kw),
+        })
+        self.joint["proprio"] = self.joint["action"]  # tied: one module
+        # action encoder: the time embedding (action width) is concatenated
+        # FIRST, then the projected action
+        self.action_encoder_w1 = nn.Linear(s.action_dim, aw, **kw)
+        self.action_encoder_w2 = nn.Linear(2 * aw, aw, **kw)
+        self.action_encoder_w3 = nn.Linear(aw, aw, **kw)
+        self.proprio_encoder = nn.Linear(
+            s.proprio_dim, mix["proprio"].hidden_size, **kw
+        )
+        self.action_decoder = nn.Linear(aw, s.action_dim, **kw)
+        # what ``self.to_empty(device=device)`` does, without the Python
+        # meta-tensor code it runs (its first use imports sympy: seconds)
+        for mod in self.modules():  # each module once: the tie survives
+            for name, p in list(mod.named_parameters(recurse=False)):
+                w = torch.empty(p.shape, dtype=p.dtype, device=device)
+                setattr(mod, name, nn.Parameter(w))
+
+    # ------------------------------------------------------------------
+    # Parameters
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "PiZero":
+        """Random weights drawn in place, on the parameters' device and in
+        their dtype, from ``generator`` (which lives on that device): dense
+        weights N(0, 1/fan_in), biases and Gemma norm scales 0, LayerNorm
+        scales 1 — the JAX ``init_params`` distributions."""
+
+        def dense(w: torch.Tensor, fan_in: int):
+            w.normal_(0.0, fan_in**-0.5, generator=generator)
+
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                dense(mod.weight, mod.in_features)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, (joint_lib.MixtureLayer, Mixture)):
+                for p in mod.parameters(recurse=False):
+                    p.zero_()
+        dense(self.embed_tokens, self.vlm_hidden)
+        pos = self.vision_tower.position_embedding
+        dense(pos, pos.shape[1])
+        return self
+
+    # ------------------------------------------------------------------
+    # Encoders
+    # ------------------------------------------------------------------
+
+    def _embed_merge(self, input_ids, pixel_values) -> torch.Tensor:
+        """Text embedding with the scaled image features written at the
+        image-token slots (always the first positions of the prompt)."""
+        s = self.spec
+        text_embeds = F.embedding(input_ids, self.embed_tokens)
+        feats = self.multi_modal_projector(self.vision_tower(pixel_values))
+        feats = feats / torch.tensor(
+            self.vlm_hidden**0.5, dtype=feats.dtype, device=feats.device
+        )
+        n_img = feats.shape[1]
+        text_mask = (input_ids != s.image_token_index) & (
+            input_ids != s.pad_token_id
+        )
+        merged = torch.where(text_mask[..., None], text_embeds, 0.0)
+        img_mask_head = (input_ids[:, :n_img] == s.image_token_index)[..., None]
+        head = torch.where(img_mask_head, feats.to(merged.dtype), merged[:, :n_img])
+        return torch.cat([head, merged[:, n_img:]], dim=1)
+
+    def _encode_proprio(self, proprios: torch.Tensor) -> torch.Tensor:
+        return self.proprio_encoder(proprios)
+
+    def _encode_action(self, action, time_emb) -> torch.Tensor:
+        emb = self.action_encoder_w1(action)
+        t_full = time_emb[:, None, :].expand(-1, emb.shape[1], -1)
+        emb = silu(self.action_encoder_w2(torch.cat([t_full, emb], dim=-1)))
+        return self.action_encoder_w3(emb)
+
+    def _time_embedding(self, t: torch.Tensor) -> torch.Tensor:
+        return sinusoidal_pos_emb(t, self.action_hidden, self.spec.time_max_period)
+
+    def _decode_action(self, hidden: torch.Tensor) -> torch.Tensor:
+        return self.action_decoder(hidden)
+
+    # ------------------------------------------------------------------
+    # Inference
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def infer_action(
+        self,
+        input_ids: torch.Tensor,  # [B, S] int
+        attention_mask: torch.Tensor,  # [B, S] int
+        pixel_values: torch.Tensor,  # [B, C, H, W] preprocessed floats
+        proprios: torch.Tensor,  # [B, cond_steps, proprio_dim]
+        noise: torch.Tensor,  # [B, horizon, action_dim]
+        num_inference_steps: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Prefix-cached flow integration; ``noise`` is passed explicitly."""
+        s = self.spec
+        steps = num_inference_steps or s.num_inference_steps
+        bsz = input_ids.shape[0]
+        prefix_mask = mask_lib.pi0_prefix_mask(
+            attention_mask, s.max_image_text_tokens, s.num_proprio_tokens
+        )
+        action_mask = mask_lib.pi0_action_mask(
+            attention_mask, s.max_image_text_tokens, s.num_proprio_tokens,
+            s.num_action_tokens,
+        )
+        vlm_pos, proprio_pos, action_pos = mask_lib.pi0_position_ids(
+            bsz, s.max_image_text_tokens, s.num_proprio_tokens,
+            s.num_action_tokens, device=input_ids.device,
+        )
+        cache = joint_lib.prefill(
+            {"vlm": self.joint["vlm"], "proprio": self.joint["proprio"]},
+            self.joint_spec,
+            {
+                "vlm": self._embed_merge(input_ids, pixel_values),
+                "proprio": self._encode_proprio(proprios),
+            },
+            {"vlm": vlm_pos, "proprio": proprio_pos},
+            prefix_mask,
+        )
+        # t and the step size live in the MODEL dtype, as in JAX (and the
+        # reference's Euler loop): bf16 presets carry bf16 time
+        dtype = noise.dtype
+        delta_t = torch.tensor(1.0 / steps, dtype=dtype, device=noise.device)
+        action = noise
+        t = torch.zeros(bsz, dtype=dtype, device=noise.device)
+        for _ in range(steps):
+            time_emb = self._time_embedding(t).to(dtype)
+            hidden = joint_lib.decode(
+                self.joint["action"], self.joint_spec,
+                self._encode_action(action, time_emb), action_pos, cache,
+                action_mask,
+            )
+            action = action + delta_t * self._decode_action(hidden)
+            t = t + delta_t
+        if s.final_action_clip_value is not None:
+            c = s.final_action_clip_value
+            action = torch.clamp(action, -c, c)
+        return action

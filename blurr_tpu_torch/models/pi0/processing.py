@@ -1,0 +1,125 @@
+"""VLA input processing: prompt tokenization (numpy) and image
+normalization (on the device).
+
+Counterpart of ``blurr_tpu/models/pi0/processing.py`` (``StubTokenizer``,
+``VLAProcessor``, ``process_images``), which imports ``jax.numpy`` and so
+cannot be shared. Tokenization stays on the host in numpy; the prompt is
+the PaliGemma format ``<image>*N + BOS + text + "\\n"``, padded to
+``max_seq_len``, with the image tokens always first. The real PaliGemma
+tokenizer is not in the repository; ``build_processor`` uses the stub.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+IMAGENET_STANDARD_MEAN = 0.5
+IMAGENET_STANDARD_STD = 0.5
+
+
+def add_image_tokens_to_prompt(
+    prefix_prompt: str, bos_token: str, image_seq_len: int, image_token: str
+) -> str:
+    return f"{image_token * image_seq_len}{bos_token}{prefix_prompt}\n"
+
+
+def process_images(images: torch.Tensor) -> torch.Tensor:
+    """uint8 [B, 3, H, W] -> float32 ``(x / 255 - 0.5) / 0.5``, on the
+    images' device."""
+    x = images.float()
+    return (x / 255.0 - IMAGENET_STANDARD_MEAN) / IMAGENET_STANDARD_STD
+
+
+class StubTokenizer:
+    """Dependency-free tokenizer without the real PaliGemma vocabulary: it
+    hashes words into ids below ``vocab_size`` (the same ids as the JAX
+    package's stub within one process) and honours the special-token
+    surface ``VLAProcessor`` uses."""
+
+    def __init__(self, vocab_size: int = 1000, image_token_id: int = 257152):
+        self.vocab_size = vocab_size
+        self._image_token_id = image_token_id
+        self.bos_token = "<bos>"
+        self.bos_token_id = 2
+        self.eos_token_id = 1
+        self.pad_token_id = 0
+
+    def convert_tokens_to_ids(self, tok: str) -> int:
+        if tok == "<image>":
+            return self._image_token_id
+        return self._word_id(tok)
+
+    def _word_id(self, word: str) -> int:
+        return abs(hash(word)) % (self.vocab_size - 3) + 3
+
+    def __call__(self, texts: Sequence[str], max_length=None,
+                 padding="max_length", truncation=True) -> dict:
+        img_tok = "<image>"
+        rows, masks = [], []
+        for t in texts:
+            n_img = 0
+            while t.startswith(img_tok):
+                n_img += 1
+                t = t[len(img_tok):]
+            ids = [self._image_token_id] * n_img
+            if t.startswith(self.bos_token):
+                t = t[len(self.bos_token):]
+                ids.append(self.bos_token_id)
+            ids += [self._word_id(w) for w in t.split()]
+            ids.append(self._word_id("\n"))
+            if truncation and max_length:
+                ids = ids[:max_length]
+            mask = [1] * len(ids)
+            if padding == "max_length" and max_length:
+                pad = max_length - len(ids)
+                ids += [self.pad_token_id] * pad
+                mask += [0] * pad
+            rows.append(ids)
+            masks.append(mask)
+        return {
+            "input_ids": np.array(rows, np.int32),
+            "attention_mask": np.array(masks, np.int32),
+        }
+
+
+class VLAProcessor:
+    """Prompt processor for PaliGemma-format VLAs: ``num_image_tokens``
+    image tokens first, then BOS, the instruction and a newline, padded to
+    ``max_seq_len``."""
+
+    IMAGE_TOKEN = "<image>"
+
+    def __init__(self, tokenizer, num_image_tokens: int, max_seq_len: int,
+                 tokenizer_padding: str = "max_length"):
+        self.tokenizer = tokenizer
+        self.image_seq_length = num_image_tokens
+        self.max_seq_len = max_seq_len
+        self.tokenizer_padding = tokenizer_padding
+        self.image_token_id = tokenizer.convert_tokens_to_ids(self.IMAGE_TOKEN)
+
+    def tokenize(self, text: List[str], truncation: bool = True) -> dict:
+        """-> numpy int32 ``input_ids`` and ``attention_mask`` [B, max_seq_len]."""
+        prompts = [
+            add_image_tokens_to_prompt(
+                t, self.tokenizer.bos_token, self.image_seq_length,
+                self.IMAGE_TOKEN,
+            )
+            for t in text
+        ]
+        return self.tokenizer(
+            prompts, max_length=self.max_seq_len,
+            padding=self.tokenizer_padding, truncation=truncation,
+        )
+
+
+def build_processor(cfg) -> VLAProcessor:
+    """The processor of a Pi-0 config, on the stub tokenizer."""
+    return VLAProcessor(
+        StubTokenizer(image_token_id=cfg["image_token_index"]),
+        cfg["vision"]["config"]["num_image_tokens"],
+        cfg["max_seq_len"],
+        tokenizer_padding=cfg.get("tokenizer_padding", "max_length"),
+    )

@@ -1,0 +1,274 @@
+"""Action server for the port: the Pi-0 control step over TCP.
+
+Counterpart of ``blurr_tpu/serving/server.py:ActionServer`` on its
+single-request path (``max_batch == 1``): ``predict``, ``stats``,
+``serve_forever``, ``stop`` and the connection handler. The wire protocol
+(4-byte big-endian length + UTF-8 JSON, images as base64) is the JAX
+package's own ``send_msg``/``recv_msg``, so
+``blurr_tpu.serving.client.ActionClient`` drives this server unchanged.
+
+Each request: validate, tokenize the instruction (cached), move the image
+to the device and normalize it there, draw the flow noise from a
+``torch.Generator`` seeded from (seed, request index), run
+``PiZero.infer_action`` under the device lock, return the raw action chunk
+[horizon, action_dim]. Dynamic batching, tensor/data parallelism, hot
+reload, backpressure and the lanczos resize of off-size images are not
+ported yet: an image that is not ``image_size`` square is refused.
+"""
+
+from __future__ import annotations
+
+import base64
+import collections
+import logging
+import socket
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from blurr_tpu.serving.server import ProtocolError, recv_msg, send_msg
+from blurr_tpu_torch.models.pi0.pizero import PiZero
+from blurr_tpu_torch.models.pi0.processing import build_processor, process_images
+
+log = logging.getLogger(__name__)
+
+
+def noise_generator(seed: int, request_idx: int, device) -> torch.Generator:
+    """The generator of one request's flow noise, on ``device``."""
+    state = np.random.SeedSequence([seed, request_idx]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+class ActionServer:
+    """Serves Pi-0 action chunks from the port's model on ``device``.
+
+    ``checkpoint_path`` "random" draws the weights on the device from a
+    generator seeded with ``seed``; loading a real checkpoint is not ported
+    yet. The model dtype follows the config's ``use_bf16``.
+    """
+
+    def __init__(self, cfg, checkpoint_path: str = "random", *, device,
+                 seed: int = 42):
+        if str(checkpoint_path).lower() not in ("random", "none", ""):
+            raise NotImplementedError(
+                "the port serves random weights only; loading "
+                f"{checkpoint_path!r} is not ported yet"
+            )
+        if not cfg.get("use_prefix_kv_cache", True):
+            raise NotImplementedError(
+                "the naive (no prefix cache) control step is not ported yet"
+            )
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.dtype = torch.bfloat16 if cfg.get("use_bf16") else torch.float32
+        self.seed = int(seed)
+        self.model = PiZero(cfg, device=self.device, dtype=self.dtype)
+        self.model.init_params(
+            torch.Generator(device=self.device).manual_seed(self.seed)
+        )
+        self.model.eval()
+        self.processor = build_processor(cfg)
+        self._image_size = int(cfg["vision"]["config"]["image_size"])
+        self._proprio_dim = int(cfg["proprio_dim"])
+        self._noise_shape = (
+            1, self.model.spec.num_action_tokens, self.model.spec.action_dim
+        )
+        self._checkpoint_desc = str(checkpoint_path or "random")
+        self._req_idx = 0
+        self._lock = threading.Lock()  # device stream + request index
+        self._tok_cache = {}
+        self._tok_lock = threading.Lock()
+        self._sock: Optional[socket.socket] = None
+        self._closed = False
+        self._stats_lock = threading.Lock()
+        self._t_start = time.monotonic()
+        self._n_requests = 0
+        self._n_errors = 0
+        self._latencies_ms: "collections.deque[float]" = collections.deque(
+            maxlen=4096
+        )
+
+    # ------------------------------------------------------------------
+
+    def _tokens(self, instruction: str):
+        with self._tok_lock:
+            cached = self._tok_cache.get(instruction)
+        if cached is None:
+            out = self.processor.tokenize([instruction])
+            cached = (out["input_ids"], out["attention_mask"])
+            with self._tok_lock:
+                if len(self._tok_cache) >= 1024:  # bound daemon memory
+                    self._tok_cache.pop(next(iter(self._tok_cache)), None)
+                self._tok_cache[instruction] = cached
+        return cached
+
+    def _prepare(self, image: np.ndarray, instruction: str, proprio):
+        """Validate one request on the host and move it to the device:
+        (ids, attention mask, pixel values, proprio), batch dim 1."""
+        proprio = np.asarray(proprio, np.float32)
+        if proprio.shape != (self._proprio_dim,):
+            raise ValueError(
+                f"proprio must have shape ({self._proprio_dim},), got "
+                f"{proprio.shape}"
+            )
+        size = self._image_size
+        if image.dtype != np.uint8 or image.shape != (size, size, 3):
+            raise ValueError(
+                f"image must be uint8 [{size}, {size}, 3] (the model's "
+                f"image_size; resizing is not ported yet), got {image.dtype} "
+                f"{list(image.shape)}"
+            )
+        ids, am = self._tokens(instruction)
+        dev = self.device
+        chw = torch.from_numpy(np.ascontiguousarray(image.transpose(2, 0, 1)))
+        px = process_images(chw[None].to(dev)).to(self.dtype)
+        pr = torch.from_numpy(proprio[None, None]).to(dev, self.dtype)
+        ids = torch.from_numpy(ids).to(dev, torch.long)
+        am = torch.from_numpy(am).to(dev)
+        return ids, am, px, pr
+
+    def _step(self, ids, am, px, pr, request_idx: int) -> np.ndarray:
+        gen = noise_generator(self.seed, request_idx, self.device)
+        noise = torch.randn(
+            self._noise_shape, generator=gen, device=self.device, dtype=self.dtype
+        )
+        actions = self.model.infer_action(ids, am, px, pr, noise)
+        return actions[0].float().cpu().numpy()  # waits for the device
+
+    def warmup(self) -> float:
+        """Run one dummy request (builds the kernels on first use); returns
+        the seconds it took. It does not count as a request."""
+        t0 = time.monotonic()
+        size = self._image_size
+        inputs = self._prepare(
+            np.zeros((size, size, 3), np.uint8), "warmup",
+            [0.0] * self._proprio_dim,
+        )
+        with self._lock:
+            self._step(*inputs, request_idx=0)
+        return time.monotonic() - t0
+
+    def predict(self, image: np.ndarray, instruction: str, proprio) -> np.ndarray:
+        """One control step; counts requests and errors and records the
+        end-to-end (prepare + device + fetch) latency for ``stats()``."""
+        t0 = time.monotonic()
+        try:
+            inputs = self._prepare(image, instruction, proprio)
+            with self._lock:
+                idx = self._req_idx
+                self._req_idx += 1
+                result = self._step(*inputs, request_idx=idx)
+        except Exception:
+            with self._stats_lock:
+                self._n_errors += 1
+            raise
+        with self._stats_lock:
+            self._n_requests += 1
+            self._latencies_ms.append((time.monotonic() - t0) * 1000.0)
+        return result
+
+    def stats(self) -> dict:
+        """Server-side counters (JSON-safe); the health-check answer."""
+        with self._stats_lock:
+            lat = list(self._latencies_ms)
+            n_req, n_err = self._n_requests, self._n_errors
+            uptime = time.monotonic() - self._t_start
+        out = {
+            "requests_total": n_req,
+            "errors_total": n_err,
+            "uptime_s": round(uptime, 3),
+            "max_batch": 1,
+            "closed": self._closed,
+            "latency_window": len(lat),
+            "checkpoint": self._checkpoint_desc,
+            "device": str(self.device),
+        }
+        if lat:
+            p50, p95, p99 = np.percentile(lat, [50, 95, 99])
+            out.update(
+                latency_ms_p50=round(float(p50), 3),
+                latency_ms_p95=round(float(p95), 3),
+                latency_ms_p99=round(float(p99), 3),
+                latency_ms_mean=round(float(np.mean(lat)), 3),
+            )
+        return out
+
+    # ------------------------------------------------------------------
+
+    def serve_forever(self, host: str = "127.0.0.1", port: int = 8787,
+                      ready_event: Optional[threading.Event] = None) -> None:
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(8)
+        self.port = self._sock.getsockname()[1]
+        log.info("ActionServer listening on %s:%d", host, self.port)
+        if ready_event is not None:
+            ready_event.set()
+        try:
+            while True:
+                conn, _ = self._sock.accept()
+                threading.Thread(
+                    target=self._handle, args=(conn,), daemon=True
+                ).start()
+        except OSError:
+            pass  # socket closed by stop()
+
+    def stop(self) -> None:
+        self._closed = True
+        if self._sock is not None:
+            try:  # wakes the accept() of serve_forever (close alone does not)
+                self._sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            self._sock.close()
+
+    def _handle(self, conn: socket.socket) -> None:
+        with conn:
+            while True:
+                try:
+                    req = recv_msg(conn)
+                except ProtocolError as exc:
+                    log.warning("protocol error from client: %s", exc)
+                    try:
+                        send_msg(conn, {"error": f"ProtocolError: {exc}"})
+                    except OSError:
+                        return
+                    if not exc.recoverable:
+                        return  # framing lost: drop the connection
+                    continue
+                except OSError:
+                    return
+                if req is None:
+                    return
+                try:
+                    send_msg(conn, self._respond(req))
+                except OSError:
+                    return
+
+    def _respond(self, req) -> dict:
+        """The reply to one decoded request (errors become {"error": ...})."""
+        if not isinstance(req, dict):
+            return {"error": "request must be a JSON object, got "
+                             f"{type(req).__name__}"}
+        kind = req.get("kind", "predict")
+        if kind == "stats":
+            return self.stats()
+        if kind != "predict":
+            return {"error": f"unknown request kind: {kind!r}"}
+        try:
+            image = np.frombuffer(
+                base64.b64decode(req["image"]), np.uint8
+            ).reshape(tuple(req["image_shape"]))
+            t0 = time.monotonic()
+            actions = self.predict(image, req["instruction"], req["proprio"])
+            return {
+                "actions": actions.tolist(),
+                "latency_ms": (time.monotonic() - t0) * 1000.0,
+            }
+        except Exception as exc:  # keep the connection alive
+            log.exception("request failed")
+            return {"error": f"{type(exc).__name__}: {exc}"}

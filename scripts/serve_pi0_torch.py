@@ -1,0 +1,57 @@
+#!/usr/bin/env python3
+"""Run the Pi-0 action server of the PyTorch port (blurr_tpu_torch).
+
+    python scripts/serve_pi0_torch.py --device cuda \\
+        --config config/eval/bridge.yaml --preset blurr --port 8787
+
+The port's counterpart of scripts/serve_pi0.py, on the single-request path.
+Clients: blurr_tpu.serving.ActionClient.predict(image_u8_hw3, instruction,
+proprio) -> raw normalized action chunk [horizon, action_dim]; the image
+must be image_size square (224x224x3 for bridge.yaml). The weights are
+random, drawn on the device from --seed. Prefill attention runs through
+the port's CUDA flash kernel only when the config sets
+joint.config.use_flash_attn.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+from pathlib import Path
+
+REPO_ROOT = Path(__file__).resolve().parents[1]
+if str(REPO_ROOT) not in sys.path:
+    sys.path.insert(0, str(REPO_ROOT))
+
+
+def main():
+    from blurr_tpu_torch.presets import ALIASES, PRESETS, apply_preset, load_config
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", type=str, default="config/eval/bridge.yaml")
+    p.add_argument("--checkpoint", type=str, default="random",
+                   choices=["random"])
+    p.add_argument("--preset", type=str, default="blurr",
+                   choices=sorted({*PRESETS, *ALIASES}))
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8787)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", type=str, required=True,
+                   help="torch device to serve on, e.g. cuda or cuda:1 "
+                        "(cpu runs the plain versions of the kernels)")
+    args = p.parse_args()
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(message)s")
+    from blurr_tpu_torch.serving.server import ActionServer
+
+    cfg = load_config(args.config)
+    apply_preset(cfg, args.preset)
+    server = ActionServer(cfg, args.checkpoint, device=args.device,
+                          seed=args.seed)
+    logging.info("warmup took %.1f s", server.warmup())
+    server.serve_forever(args.host, args.port)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,98 @@
+"""The port's ActionServer (blurr_tpu_torch.serving) over a real socket on the
+CPU, driven by the JAX package's unchanged ActionClient.
+
+bridge_tiny.yaml, not tiny_pi0_cfg: the stub tokenizer emits ids up to 999,
+past that config's vocab of 64 (torch's embedding raises on them).
+"""
+
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+
+from blurr_tpu.paths import repo_root
+from blurr_tpu.serving.client import ActionClient
+from blurr_tpu_torch.presets import ALIASES, PRESETS, apply_preset, load_config
+from blurr_tpu_torch.serving.server import ActionServer
+
+
+@pytest.fixture(scope="module")
+def server():
+    cfg = load_config("config/eval/bridge_tiny.yaml")
+    apply_preset(cfg, "prefix_cache")
+    cfg["num_inference_steps"] = 2
+    srv = ActionServer(cfg, "random", device="cpu", seed=0)
+    ready = threading.Event()
+    t = threading.Thread(
+        target=srv.serve_forever, kwargs={"port": 0, "ready_event": ready},
+        daemon=True,
+    )
+    t.start()
+    assert ready.wait(30)
+    yield srv
+    srv.stop()
+    t.join(10)
+    assert not t.is_alive()
+
+
+def test_two_requests_roundtrip(server):
+    size = server.cfg["vision"]["config"]["image_size"]
+    image = np.random.RandomState(0).randint(0, 256, (size, size, 3), np.uint8)
+    with ActionClient(port=server.port) as client:
+        outs = [
+            client.predict(image, "put the spoon on the towel", [0.1] * 7)
+            for _ in range(2)
+        ]
+        stats = client.stats()
+    for a in outs:
+        assert a.shape == (4, 7)
+        assert np.isfinite(a).all()
+        assert (np.abs(a) <= 1.0).all()
+    # per-request noise: the two answers to the same request differ
+    assert not np.array_equal(outs[0], outs[1])
+    assert stats["requests_total"] == 2
+    assert stats["errors_total"] == 0
+    assert stats["device"] == "cpu"
+
+
+def test_bad_requests_keep_the_connection(server):
+    size = server.cfg["vision"]["config"]["image_size"]
+    with ActionClient(port=server.port) as client:
+        with pytest.raises(RuntimeError, match="proprio"):
+            client.predict(np.zeros((size, size, 3), np.uint8), "x", [0.0] * 3)
+        with pytest.raises(RuntimeError, match="image must be uint8"):
+            client.predict(np.zeros((size + 4, size, 3), np.uint8), "x", [0.0] * 7)
+        out = client.predict(np.zeros((size, size, 3), np.uint8), "x", [0.0] * 7)
+    assert out.shape == (4, 7)
+
+
+def test_presets_equal_the_eval_cli_table():
+    sys.path.insert(0, str(repo_root() / "scripts"))
+    try:
+        import eval_pi0_simpler
+    finally:
+        sys.path.remove(str(repo_root() / "scripts"))
+    assert PRESETS == eval_pi0_simpler.PRESETS
+    assert ALIASES == eval_pi0_simpler.ALIASES
+
+
+def test_server_requires_what_is_ported():
+    cfg = load_config("config/eval/bridge_tiny.yaml")
+    apply_preset(cfg, "baseline")
+    with pytest.raises(NotImplementedError, match="naive"):
+        ActionServer(cfg, "random", device="cpu")
+    apply_preset(cfg, "blurr")
+    with pytest.raises(NotImplementedError, match="random weights only"):
+        ActionServer(cfg, "/some/checkpoint.pt", device="cpu")
+
+
+def test_cli_requires_a_device():
+    proc = subprocess.run(
+        [sys.executable, str(repo_root() / "scripts" / "serve_pi0_torch.py"),
+         "--config", "config/eval/bridge_tiny.yaml"],
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 2
+    assert "--device" in proc.stderr
