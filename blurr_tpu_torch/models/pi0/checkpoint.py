@@ -8,6 +8,13 @@ axis). ``load_jax_params`` unstacks the layers into the per-layer modules
 and transposes the matrices into ``nn.Linear``'s [out, in]. The port always
 ties the proprio mixture to the action mixture, so a tree whose proprio
 arrays differ from its action arrays is refused.
+
+A quantized tree (``enable_action_quantization`` / ``enable_vlm_quantization``
+in JAX) has dict leaves, stacked per layer: w4a8 ``{"q4" [L, NB, K//2, BN],
+"s" [L, G, N]}`` and w8a8 ``{"q8a" [L, K, N], "s" [L, N]}``. They load into a
+model quantized the same way (its ``enable_*_quantization`` run first):
+the int8 bytes are copied as they are and the scales stay fp32. A dict
+whose kind differs from the model's module there is refused.
 """
 
 from __future__ import annotations
@@ -16,8 +23,10 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from blurr_tpu_torch.models.pi0.pizero import PiZero
+from blurr_tpu_torch.ops.quant import W4A8Linear, W8A8Linear
 
 _MIXTURE_MATRICES = {
     "q_w": "q_proj", "k_w": "k_proj", "v_w": "v_proj", "o_w": "o_proj",
@@ -29,9 +38,42 @@ _SIGLIP_LAYER = {
 }
 
 
-def _linear(mod, tree: Dict, w: str, b: str):
-    yield mod.weight, tree[w].T
-    yield mod.bias, tree[b]
+# the tensors of each kind of weight, by the module that holds them
+_KINDS = ((W4A8Linear, ("q4", "s")), (W8A8Linear, ("q8a", "s")))
+
+
+def _weight(mod, leaf, i=None):
+    """(tensor, array) pairs of one linear's weight: a plain JAX [in, out]
+    matrix into an ``nn.Linear``, a quantized dict into the module of its
+    kind. ``i`` picks one layer of a stacked leaf."""
+    pick = (lambda a: a) if i is None else (lambda a: a[i])
+    if not isinstance(leaf, dict):
+        if type(mod) is not nn.Linear:
+            raise ValueError(
+                f"the tree holds a plain weight where the model has a "
+                f"{type(mod).__name__}: quantize the tree as the model is"
+            )
+        yield mod.weight, pick(leaf).T
+        return
+    for cls, keys in _KINDS:
+        if set(leaf) == set(keys):
+            if not isinstance(mod, cls):
+                raise ValueError(
+                    f"the tree holds a {cls.__name__} weight {sorted(leaf)} "
+                    f"where the model has a {type(mod).__name__}"
+                )
+            for key in keys:
+                yield getattr(mod, key), pick(leaf[key])
+            return
+    raise NotImplementedError(
+        f"weight dict with keys {sorted(leaf)}: only the w4a8 {{q4, s}} and "
+        "w8a8 {q8a, s} kinds are ported"
+    )
+
+
+def _linear(mod, tree: Dict, w: str, b: str, i=None):
+    yield from _weight(mod, tree[w], i)
+    yield mod.bias, tree[b] if i is None else tree[b][i]
 
 
 def _pairs(model: PiZero, tree: Dict) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
@@ -42,13 +84,13 @@ def _pairs(model: PiZero, tree: Dict) -> Iterator[Tuple[torch.Tensor, np.ndarray
     vt = model.vision_tower
     yield from _linear(vt.patch_embedding, sg, "patch_w", "patch_b")
     yield vt.position_embedding, sg["pos_embed"]
+    lp = sg["layers"]
     for i, layer in enumerate(vt.layers):
-        lp = {k: v[i] for k, v in sg["layers"].items()}
         for ln, key in ((layer.layer_norm1, "ln1"), (layer.layer_norm2, "ln2")):
-            yield ln.weight, lp[f"{key}_w"]
-            yield ln.bias, lp[f"{key}_b"]
+            yield ln.weight, lp[f"{key}_w"][i]
+            yield ln.bias, lp[f"{key}_b"][i]
         for key, attr in _SIGLIP_LAYER.items():
-            yield from _linear(getattr(layer, attr), lp, f"{key}_w", f"{key}_b")
+            yield from _linear(getattr(layer, attr), lp, f"{key}_w", f"{key}_b", i)
     yield vt.post_layernorm.weight, sg["post_ln_w"]
     yield vt.post_layernorm.bias, sg["post_ln_b"]
 
@@ -59,7 +101,7 @@ def _pairs(model: PiZero, tree: Dict) -> Iterator[Tuple[torch.Tensor, np.ndarray
         mixture = model.joint[name]
         for i, layer in enumerate(mixture.layers):
             for key, attr in _MIXTURE_MATRICES.items():
-                yield getattr(layer, attr).weight, mp[key][i].T
+                yield from _weight(getattr(layer, attr), mp[key], i)
             yield layer.input_norm, mp["input_norm"]["scale"][i]
             yield layer.post_norm, mp["post_norm"]["scale"][i]
         if mixture.final_norm is not None:
@@ -99,15 +141,21 @@ def check_tied(tree: Dict) -> None:
 
 @torch.no_grad()
 def load_jax_params(model: PiZero, tree: Dict) -> PiZero:
-    """Copy the numpy JAX tree into ``model`` in place (each array cast to
-    the parameter's device and dtype). Raises on an untied tree, on a shape
-    mismatch, and when a parameter of the model is left unset."""
+    """Copy the numpy JAX tree into ``model`` in place (each float array cast
+    to the tensor's device and dtype, int8 bytes copied as they are). Raises
+    on an untied tree, on a shape mismatch, on a quantized dict of another
+    kind than the model's module, and when a parameter or buffer of the
+    model is left unset."""
     check_tied(tree)
     seen = set()
     for param, arr in _pairs(model, tree):
         arr = np.asarray(arr)
-        if arr.dtype.kind != "f" or arr.dtype.itemsize < 4:
+        if arr.dtype != np.int8 and (arr.dtype.kind != "f" or arr.dtype.itemsize < 4):
             arr = arr.astype(np.float32)  # e.g. ml_dtypes bfloat16 (exact)
+        if (arr.dtype == np.int8) != (param.dtype == torch.int8):
+            raise ValueError(
+                f"dtype mismatch: JAX {arr.dtype} for a port tensor of {param.dtype}"
+            )
         if tuple(arr.shape) != tuple(param.shape):
             raise ValueError(
                 f"shape mismatch: JAX {arr.shape} for a port parameter of "
@@ -115,7 +163,10 @@ def load_jax_params(model: PiZero, tree: Dict) -> PiZero:
             )
         param.copy_(torch.from_numpy(np.array(arr)))  # a writable copy
         seen.add(id(param))
-    missing = [n for n, p in model.named_parameters() if id(p) not in seen]
+    missing = [
+        n for n, p in [*model.named_parameters(), *model.named_buffers()]
+        if id(p) not in seen
+    ]
     if missing:
         raise ValueError(f"parameters not set by the tree: {missing}")
     return model

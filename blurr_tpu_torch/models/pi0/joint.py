@@ -11,13 +11,16 @@ pairs [B, KVH, P, D], with K stored after RoPE.
 Numerics kept from JAX: embeds scaled by sqrt(hidden) rounded in the
 compute dtype, Gemma RMSNorm, fp32 RoPE, the tanh soft clamp 50. The last
 prefill layer computes only K/V: its attention and MLP output is never read.
+A layer's linears are ``nn.Linear``s or, once a mixture is quantized, the
+w8a8 / w4a8 modules of ``ops/quant.py``; each mixture clamps the activations
+of its quantized linears with its own ``activation_clip`` (JAX ``_clip_for``).
 The adaptive (adaLN) mixtures are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,6 +34,7 @@ from blurr_tpu_torch.ops.attention import (
 )
 from blurr_tpu_torch.ops.flash_attention import flash_attention
 from blurr_tpu_torch.ops.norms import rms_norm
+from blurr_tpu_torch.ops.quant import linear
 from blurr_tpu_torch.ops.rotary import apply_rope, rope_cos_sin
 
 KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -46,6 +50,9 @@ class MixtureSpec:
     intermediate_size: int
     rope_theta: float = 10000.0
     use_final_norm: bool = False
+    # clamp before this mixture's quantized matmuls (PiZero sets it from
+    # the action / vlm quantization config; it never leaks across mixtures)
+    activation_clip: Optional[float] = None
 
 
 @dataclass(frozen=True)
@@ -68,11 +75,13 @@ class JointSpec:
                     f"mixture {name!r}: adaptive_mode {m['adaptive_mode']!r} "
                     "(adaLN) is not ported yet"
                 )
+            clip = m.get("activation_clip")
             mixtures[name] = MixtureSpec(
                 hidden_size=m["hidden_size"],
                 intermediate_size=m["intermediate_size"],
                 rope_theta=float(m.get("rope_theta", 10000.0)),
                 use_final_norm=bool(m.get("use_final_norm", False)),
+                activation_clip=float(clip) if clip is not None else None,
             )
         return JointSpec(
             num_hidden_layers=cfg["num_hidden_layers"],
@@ -106,23 +115,24 @@ class MixtureLayer(nn.Module):
         self.up_proj = nn.Linear(h, inter, **kw)
         self.down_proj = nn.Linear(inter, h, **kw)
 
-    def qkv(self, h, cos, sin, joint: JointSpec):
+    def qkv(self, h, cos, sin, joint: JointSpec, clip: Optional[float] = None):
         """Norm, project and rope: q [B,NH,S,D], k [B,KVH,S,D] (roped), v."""
         nh, kvh, hd = (
             joint.num_attention_heads, joint.num_key_value_heads, joint.head_dim
         )
         x = rms_norm(h, self.input_norm, joint.rms_norm_eps)
-        q = apply_rope(split_heads(self.q_proj(x), nh, hd), cos, sin)
-        k = apply_rope(split_heads(self.k_proj(x), kvh, hd), cos, sin)
-        v = split_heads(self.v_proj(x), kvh, hd)
+        q = apply_rope(split_heads(linear(self.q_proj, x, clip), nh, hd), cos, sin)
+        k = apply_rope(split_heads(linear(self.k_proj, x, clip), kvh, hd), cos, sin)
+        v = split_heads(linear(self.v_proj, x, clip), kvh, hd)
         return q, k, v
 
-    def finish(self, h, attn, eps: float):
+    def finish(self, h, attn, eps: float, clip: Optional[float] = None):
         """Output projection + residual, then the GeGLU MLP + residual;
         ``attn`` is this mixture's slice of the merged attention output."""
-        h = h + self.o_proj(attn)
+        h = h + linear(self.o_proj, attn, clip)
         x = rms_norm(h, self.post_norm, eps)
-        return h + self.down_proj(geglu(self.gate_proj(x), self.up_proj(x)))
+        inner = geglu(linear(self.gate_proj, x, clip), linear(self.up_proj, x, clip))
+        return h + linear(self.down_proj, inner, clip)
 
 
 class Mixture(nn.Module):
@@ -149,6 +159,11 @@ def _attention(spec: JointSpec, q, k, v, mask):
     if spec.use_flash_attn and q.shape[2] >= FLASH_MIN_QUERIES:
         return flash_attention(q, k, v, mask, softclamp=DEFAULT_SOFTCLAMP)
     return grouped_attention(q, k, v, mask, DEFAULT_SOFTCLAMP)
+
+
+def _clip_for(spec: JointSpec, name: str) -> Optional[float]:
+    """The activation clip of mixture ``name``."""
+    return spec.mixtures[name].activation_clip
 
 
 def scale_embeds(x: torch.Tensor) -> torch.Tensor:
@@ -178,7 +193,9 @@ def prefill(
     cache: KVCache = []
     for i in range(spec.num_hidden_layers):
         layers = {n: mixtures[n].layers[i] for n in names}
-        parts = [layers[n].qkv(hs[n], *ropes[n], spec) for n in names]
+        parts = [
+            layers[n].qkv(hs[n], *ropes[n], spec, _clip_for(spec, n)) for n in names
+        ]
         q, k, v = (torch.cat(t, dim=2) for t in zip(*parts))
         cache.append((k, v))
         if i == spec.num_hidden_layers - 1:
@@ -186,7 +203,9 @@ def prefill(
         attn = merge_heads(_attention(spec, q, k, v, prefix_mask))
         offset = 0
         for n, s in zip(names, lens):
-            hs[n] = layers[n].finish(hs[n], attn[:, offset : offset + s], eps)
+            hs[n] = layers[n].finish(
+                hs[n], attn[:, offset : offset + s], eps, _clip_for(spec, n)
+            )
             offset += s
     return cache
 
@@ -203,14 +222,15 @@ def decode(
     each layer is the cache concatenated with the fresh action K/V. Returns
     the final-normed action hidden states."""
     eps = spec.rms_norm_eps
+    clip = _clip_for(spec, "action")
     cos, sin = rope_cos_sin(
         action_position_ids, spec.head_dim, action.spec.rope_theta
     )
     h = scale_embeds(action_embeds)
     for layer, (kc, vc) in zip(action.layers, cache):
-        q, k, v = layer.qkv(h, cos, sin, spec)
+        q, k, v = layer.qkv(h, cos, sin, spec, clip)
         k_full = torch.cat([kc, k], dim=2)
         v_full = torch.cat([vc, v], dim=2)
         attn = _attention(spec, q, k_full, v_full, action_mask)
-        h = layer.finish(h, merge_heads(attn), eps)
+        h = layer.finish(h, merge_heads(attn), eps, clip)
     return rms_norm(h, action.final_norm, eps)

@@ -12,12 +12,15 @@ Counterpart of ``blurr_tpu/models/pi0/pizero.py`` (``PiZeroSpec``,
     -> clip
 
 The proprio mixture IS the action mixture module (the JAX package's
-``tie_action_proprio_weights``). Quantization modes and the adaptive
-(adaLN) action expert are not ported yet and raise.
+``tie_action_proprio_weights``). The w8a8 and w4a8 quantization tiers are
+in-place methods (``enable_action_quantization``,
+``enable_vlm_quantization``); the int8 weight-only tiers, the int8 KV cache
+and the adaptive (adaLN) action expert are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -31,8 +34,37 @@ from blurr_tpu_torch.models.pi0.siglip import SiglipVisionModel, projector
 from blurr_tpu_torch.ops import masks as mask_lib
 from blurr_tpu_torch.ops.activations import silu
 from blurr_tpu_torch.ops.embeddings import sinusoidal_pos_emb
+from blurr_tpu_torch.ops.quant import (
+    quantize_mixture_w4a8,
+    quantize_mixture_w8a8,
+    quantize_vit_w8a8,
+)
 
-_QUANT_KEYS = ("action_quantization", "kv_quantization", "vlm_quantization")
+# the modes the JAX package knows, per quantization key, and those ported
+_QUANT_MODES = {
+    "action_quantization": {"int8", "int8_cached", "bnb_int8", "w8a8", "w4a8"},
+    "vlm_quantization": {"w8a8", "w4a8"},
+    "kv_quantization": {"int8"},
+}
+_PORTED_MODES = {"w8a8", "w4a8"}
+
+
+def _checked_mode(qcfg: dict, name: str) -> Optional[str]:
+    """Normalized quantization mode of config key ``name``: ''/'none' ->
+    None. An unknown mode raises ValueError, as in the JAX package; a known
+    one that is not ported yet raises NotImplementedError."""
+    mode = str(qcfg.get("mode") or "").lower()
+    if mode in ("", "none"):
+        return None
+    allowed = _QUANT_MODES[name]
+    if mode not in allowed:
+        raise ValueError(
+            f"{name}.mode {mode!r} is not supported; expected one of "
+            f"{sorted(allowed)} (or empty to disable)"
+        )
+    if mode not in _PORTED_MODES:
+        raise NotImplementedError(f"{name}.mode {mode!r} is not ported yet")
+    return mode
 
 
 @dataclass(frozen=True)
@@ -52,15 +84,14 @@ class PiZeroSpec:
 
 def spec_from_config(cfg: dict) -> PiZeroSpec:
     """The fields of the JAX ``spec_from_config`` that the control step
-    reads. Raises on what is not ported: adaLN and quantization."""
+    reads. Checks the quantization modes (``_checked_mode``) and raises on
+    what is not ported: adaLN, the int8 tiers, the int8 KV cache."""
     if cfg.get("action_expert_adaptive_mode"):
         raise NotImplementedError(
             "action_expert_adaptive_mode (adaLN) is not ported yet"
         )
-    for key in _QUANT_KEYS:
-        mode = str((cfg.get(key) or {}).get("mode") or "").lower()
-        if mode not in ("", "none"):
-            raise NotImplementedError(f"{key}.mode {mode!r} is not ported yet")
+    for key in _QUANT_MODES:
+        _checked_mode(cfg.get(key) or {}, key)
     return PiZeroSpec(
         max_image_text_tokens=cfg["max_image_text_tokens"],
         num_proprio_tokens=cfg["cond_steps"],
@@ -93,6 +124,28 @@ class PiZero(nn.Module):
         self.spec = s = spec_from_config(cfg)
         self.joint_spec = JointSpec.from_config(dict(cfg["joint"]["config"]))
         self.vision_cfg = dict(cfg["vision"]["config"])
+        # quantization (the JAX PiZero's mode fields)
+        aq = cfg.get("action_quantization") or {}
+        vq = cfg.get("vlm_quantization") or {}
+        self.action_quant_mode = _checked_mode(aq, "action_quantization")
+        self.action_w4a8_group_size = int(aq.get("group_size", 512) or 512)
+        self.action_w4a8_int8_keys = tuple(aq.get("int8_keys") or ())
+        self.vlm_quant_mode = _checked_mode(vq, "vlm_quantization")
+        self.vlm_quant_vision = bool(vq.get("include_vision", False))
+        self.vlm_w4a8_group_size = int(vq.get("group_size", 512) or 512)
+        self.vlm_w4a8_int8_keys = tuple(vq.get("int8_keys") or ())
+        # activation clips are per mixture: the action clip goes to the
+        # action and proprio mixtures, the vlm clip to the vlm mixture, each
+        # only when its tier is on. The encoders keep the action clip, as in
+        # JAX; they stay fp under w8a8/w4a8, where it changes nothing.
+        a_clip = self._clip(aq, self.action_quant_mode)
+        v_clip = self._clip(vq, self.vlm_quant_mode)
+        self.encoder_activation_clip = a_clip
+        mixtures = dict(self.joint_spec.mixtures)
+        for name, c in (("action", a_clip), ("proprio", a_clip), ("vlm", v_clip)):
+            if c is not None and name in mixtures:
+                mixtures[name] = dataclasses.replace(mixtures[name], activation_clip=c)
+        self.joint_spec = dataclasses.replace(self.joint_spec, mixtures=mixtures)
         mix = self.joint_spec.mixtures
         if mix["proprio"] != mix["action"]:
             raise ValueError(
@@ -133,6 +186,11 @@ class PiZero(nn.Module):
                 w = torch.empty(p.shape, dtype=p.dtype, device=device)
                 setattr(mod, name, nn.Parameter(w))
 
+    @staticmethod
+    def _clip(qcfg: dict, mode: Optional[str]) -> Optional[float]:
+        c = qcfg.get("activation_clip")
+        return float(c) if (mode is not None and c is not None) else None
+
     # ------------------------------------------------------------------
     # Parameters
     # ------------------------------------------------------------------
@@ -161,6 +219,40 @@ class PiZero(nn.Module):
         dense(self.embed_tokens, self.vlm_hidden)
         pos = self.vision_tower.position_embedding
         dense(pos, pos.shape[1])
+        return self
+
+    @torch.no_grad()
+    def enable_action_quantization(self) -> "PiZero":
+        """Quantize the action mixture in place under a w8a8 or w4a8
+        ``action_quantization.mode`` (the proprio mixture is the same module).
+        The action and proprio encoders and the action decoder stay fp, as in
+        the JAX package's w8a8/w4a8 branch."""
+        layers = self.joint["action"].layers
+        if self.action_quant_mode == "w8a8":
+            quantize_mixture_w8a8(layers)
+        elif self.action_quant_mode == "w4a8":
+            quantize_mixture_w4a8(
+                layers, self.action_w4a8_group_size, self.action_w4a8_int8_keys
+            )
+        return self
+
+    @torch.no_grad()
+    def enable_vlm_quantization(self) -> "PiZero":
+        """Quantize the vlm mixture in place under a w8a8 or w4a8
+        ``vlm_quantization.mode``; with ``include_vision`` the SigLIP layer
+        linears go to w8a8 (under w4a8 too). The projector and the token
+        embedding stay fp."""
+        if self.vlm_quant_mode is None:
+            return self
+        layers = self.joint["vlm"].layers
+        if self.vlm_quant_mode == "w8a8":
+            quantize_mixture_w8a8(layers)
+        else:
+            quantize_mixture_w4a8(
+                layers, self.vlm_w4a8_group_size, self.vlm_w4a8_int8_keys
+            )
+        if self.vlm_quant_vision:
+            quantize_vit_w8a8(self.vision_tower.layers)
         return self
 
     # ------------------------------------------------------------------

@@ -6,7 +6,10 @@ with the (pi, pj, c) flattening order of the JAX ``patchify``. The tower is
 pre-LN: 27 layers of ``mha_flat`` (16 heads x 72 at full width) and a
 gelu-tanh MLP, then a final LayerNorm. Linear weights are stored as
 ``nn.Linear`` ([out, in]); ``checkpoint.load_jax_params`` transposes the
-JAX [in, out] arrays.
+JAX [in, out] arrays. Under ``vlm_quantization.include_vision`` the six
+linears of each encoder layer become ``ops.quant.W8A8Linear``s (the JAX
+``quantize_vit_w8a8``), called the same way; the patch embedding and the
+norms stay fp.
 """
 
 from __future__ import annotations

@@ -47,7 +47,10 @@ class ActionServer:
 
     ``checkpoint_path`` "random" draws the weights on the device from a
     generator seeded with ``seed``; loading a real checkpoint is not ported
-    yet. The model dtype follows the config's ``use_bf16``.
+    yet. The model dtype follows the config's ``use_bf16``. Then the
+    quantization tiers of the config (w8a8, w4a8) quantize the weights in
+    place on the device, as the JAX ``_build_params`` does after loading;
+    the modes that are not ported raise when the model is built.
     """
 
     def __init__(self, cfg, checkpoint_path: str = "random", *, device,
@@ -69,6 +72,8 @@ class ActionServer:
         self.model.init_params(
             torch.Generator(device=self.device).manual_seed(self.seed)
         )
+        self.model.enable_action_quantization()
+        self.model.enable_vlm_quantization()
         self.model.eval()
         self.processor = build_processor(cfg)
         self._image_size = int(cfg["vision"]["config"]["image_size"])

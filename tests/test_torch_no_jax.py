@@ -1,6 +1,6 @@
 """The port never imports JAX: in a subprocess where ``import jax`` fails,
 import blurr_tpu_torch, run a tiny random infer_action on the CPU and build
-the port's ActionServer."""
+the port's ActionServer, bf16 and w4a8."""
 
 import os
 import subprocess
@@ -35,6 +35,9 @@ SCRIPT = textwrap.dedent(
     )
     assert act.shape == (1, 4, 7) and torch.isfinite(act).all()
     ActionServer(cfg, "random", device="cpu")
+    cfg["vlm_quantization"] = {"mode": "w4a8", "include_vision": True}
+    cfg["action_quantization"] = {"mode": "w4a8"}
+    ActionServer(cfg, "random", device="cpu")  # quantizes: ops.quant, int4
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert all(sys.modules[m] is None for m in loaded), loaded
     print("NO_JAX_OK")

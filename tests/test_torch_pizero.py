@@ -6,7 +6,8 @@ load_jax_params. Tolerances: fp32 actions atol 1e-4 (the same fp32
 formulas summed in another order through 3 joint layers and 2 SigLIP
 layers); bf16 actions atol 5e-2 (bf16 rounds at the same places on both
 sides, but each rounding can land one ulp apart, ~4e-3 relative, and a few
-compound).
+compound). The w8a8 / w4a8 tiers run on JAX's quantized bytes, carried over
+by load_jax_params, at the same tolerances.
 """
 
 import numpy as np
@@ -24,6 +25,7 @@ from blurr_tpu_torch.models.pi0 import joint as t_joint
 from blurr_tpu_torch.models.pi0.checkpoint import load_jax_params
 from blurr_tpu_torch.models.pi0.pizero import PiZero
 from blurr_tpu_torch.ops import masks as t_masks
+from tests import test_golden
 from tests.util import tiny_inputs, tiny_pi0_cfg
 
 
@@ -187,11 +189,162 @@ def test_load_rejects_untied_tree():
 
 
 def test_unported_modes_raise():
-    cfg = _cfg(False)
-    cfg["action_quantization"] = {"mode": "w8a8"}
-    with pytest.raises(NotImplementedError, match="action_quantization"):
-        PiZero(cfg, device="cpu", dtype=torch.float32)
+    """Modes the JAX package knows but the port has not ported yet: the int8
+    weight-only tiers and the int8 KV cache; and adaLN."""
+    for key, mode in (("action_quantization", "int8"),
+                      ("action_quantization", "int8_cached"),
+                      ("action_quantization", "bnb_int8"),
+                      ("kv_quantization", "int8")):
+        cfg = _cfg(False)
+        cfg[key] = {"mode": mode}
+        with pytest.raises(NotImplementedError, match=key):
+            PiZero(cfg, device="cpu", dtype=torch.float32)
     cfg = _cfg(False)
     cfg.joint.config.mixture.action.adaptive_mode = "adaLN"
     with pytest.raises(NotImplementedError, match="adaLN"):
         PiZero(cfg, device="cpu", dtype=torch.float32)
+
+
+@pytest.mark.parametrize("key,mode", [("action_quantization", "w4a4"),
+                                      ("vlm_quantization", "int8"),
+                                      ("kv_quantization", "w8a8")])
+def test_unknown_modes_raise_value_error(key, mode):
+    """A mode the JAX package does not know raises ValueError, as JAX's
+    _checked_mode does (a misspelt mode is not "not ported yet")."""
+    cfg = _cfg(False)
+    cfg[key] = {"mode": mode}
+    with pytest.raises(ValueError, match=f"{key}.mode"):
+        JPiZero(cfg)
+    with pytest.raises(ValueError, match=f"{key}.mode"):
+        PiZero(cfg, device="cpu", dtype=torch.float32)
+
+
+def _np(x):
+    """A JAX leaf as numpy: int8 bytes as they are, floats as fp32."""
+    return np.asarray(x if x.dtype == jnp.int8 else x.astype(jnp.float32))
+
+
+def _quant_cfg(mode, clip=None, **overrides):
+    cfg = _cfg(False, **overrides)
+    cfg["vlm_quantization"] = {"mode": mode, "include_vision": True,
+                               "activation_clip": clip}
+    cfg["action_quantization"] = {"mode": mode, "activation_clip": clip}
+    return cfg
+
+
+def _quant_pair(cfg, dtype=jnp.float32):
+    """(JAX model, JAX quantized params, port model holding the same
+    quantized weights, carried over by load_jax_params)."""
+    jm = JPiZero(cfg)
+    params = jax.tree.map(lambda x: x.astype(dtype), jm.init_params(jax.random.PRNGKey(0)))
+    params = jm.tie_action_proprio_weights(params)  # tied after the cast
+    params = jm.enable_vlm_quantization(jm.enable_action_quantization(params))
+    t_dtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    tm = PiZero(cfg, device="cpu", dtype=t_dtype)
+    tm.init_params(torch.Generator().manual_seed(0))
+    tm.enable_action_quantization()
+    tm.enable_vlm_quantization()
+    load_jax_params(tm, jax.tree.map(_np, params))
+    return jm, params, tm
+
+
+@pytest.mark.parametrize("clip", [None, 1.0])
+@pytest.mark.parametrize("mode", ["w8a8", "w4a8"])
+def test_quantized_infer_action_fp32(mode, clip):
+    """vlm + action quantized (SigLIP w8a8 under include_vision), on JAX's
+    quantized bytes; the clip of 1.0 bites on the tiny model's activations.
+    atol 1e-4 as for the fp32 model: the int8 activations round alike."""
+    cfg = _quant_cfg(mode, clip)
+    jm, params, tm = _quant_pair(cfg)
+    j_in, t_in = _inputs(cfg)
+    ref = np.asarray(jm.infer_action(params, **j_in))
+    out = tm.infer_action(**t_in)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=0)
+    if clip is not None:  # the clamp bites: the same weights without it differ
+        unclipped = JPiZero(_quant_cfg(mode)).infer_action(params, **j_in)
+        assert not np.allclose(np.asarray(unclipped), ref, atol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["w8a8", "w4a8"])
+def test_quantized_preset_bf16(mode):
+    """The quantized presets' dtype: bf16 weights quantized, one flow step."""
+    cfg = _quant_cfg(mode, use_bf16=True, num_inference_steps=1)
+    jm, params, tm = _quant_pair(cfg, jnp.bfloat16)
+    j_in, t_in = _inputs(cfg, jnp.bfloat16)
+    ref = np.asarray(jm.infer_action(params, **j_in).astype(jnp.float32))
+    out = tm.infer_action(**t_in)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=5e-2, rtol=0)
+
+
+@pytest.mark.parametrize("mode,golden_a00,golden_sum", [
+    ("w8a8", test_golden.GOLDEN_W8A8_A00, test_golden.GOLDEN_W8A8_SUM),
+    ("w4a8", test_golden.GOLDEN_W4A8_A00, test_golden.GOLDEN_W4A8_SUM),
+])
+def test_quantized_goldens(mode, golden_a00, golden_sum):
+    """The port quantizes the fp32 JAX weights itself and reproduces the JAX
+    package's quantized goldens (tests/test_golden.py) at their tolerance."""
+    cfg = _cfg(False)
+    cfg["vlm_quantization"] = {"mode": mode}
+    cfg["action_quantization"] = {"mode": mode}
+    _, _, tm = _pair(cfg)
+    tm.enable_action_quantization()
+    tm.enable_vlm_quantization()
+    _, t_in = _inputs(cfg)
+    a = tm.infer_action(**t_in).numpy()
+    np.testing.assert_allclose(a[0, 0], golden_a00, atol=0.02)
+    np.testing.assert_allclose(float(a.sum()), golden_sum, rtol=0.02)
+
+
+def test_clips_stay_with_their_mixture():
+    """The action clip goes to the action and proprio mixtures only, the vlm
+    clip to the vlm mixture only, and a clip without its mode is dropped."""
+    cfg = _cfg(False)
+    cfg["action_quantization"] = {"mode": "w4a8", "activation_clip": 1.5}
+    cfg["vlm_quantization"] = {"mode": "w8a8"}
+    mix = PiZero(cfg, device="cpu", dtype=torch.float32).joint_spec.mixtures
+    assert (mix["action"].activation_clip, mix["proprio"].activation_clip,
+            mix["vlm"].activation_clip) == (1.5, 1.5, None)
+    cfg["action_quantization"] = {"mode": None, "activation_clip": 1.5}
+    cfg["vlm_quantization"] = {"mode": "w4a8", "activation_clip": 0.5}
+    tm = PiZero(cfg, device="cpu", dtype=torch.float32)
+    mix = tm.joint_spec.mixtures
+    assert (mix["action"].activation_clip, mix["vlm"].activation_clip) == (None, 0.5)
+    assert tm.encoder_activation_clip is None
+    jm = JPiZero(cfg)
+    assert {n: m.activation_clip for n, m in jm.joint_spec.mixtures.items()} == {
+        n: m.activation_clip for n, m in mix.items()}
+
+
+def test_quantization_replaces_the_fp_weights():
+    """After enable_*_quantization no mixture or SigLIP layer holds an fp
+    matrix: the resident bytes of those linears are the int8 ones."""
+    cfg = _quant_cfg("w4a8")
+    tm = PiZero(cfg, device="cpu", dtype=torch.float32)
+    tm.init_params(torch.Generator().manual_seed(0))
+    fp_bytes = sum(p.numel() * p.element_size() for p in tm.parameters())
+    tm.enable_action_quantization()
+    tm.enable_vlm_quantization()
+    layers = [*tm.joint["vlm"].layers, *tm.joint["action"].layers, *tm.vision_tower.layers]
+    assert not any(type(m) is torch.nn.Linear for layer in layers for m in layer.children())
+    q_bytes = sum(t.numel() * t.element_size()
+                  for t in [*tm.parameters(), *tm.buffers()])
+    assert q_bytes < fp_bytes
+
+
+def test_load_rejects_another_kind_of_weight():
+    cfg = _quant_cfg("w4a8")
+    jm = JPiZero(cfg)
+    params = jm.tie_action_proprio_weights(jm.init_params(jax.random.PRNGKey(0)))
+    qtree = jax.tree.map(_np, jm.enable_action_quantization(params))
+    tm = PiZero(cfg, device="cpu", dtype=torch.float32)
+    with pytest.raises(ValueError, match="W4A8Linear"):
+        load_jax_params(tm, qtree)  # the model is not quantized
+    tm.enable_action_quantization()
+    with pytest.raises(ValueError, match="plain weight"):
+        load_jax_params(tm, jax.tree.map(_np, params))  # the tree is not
+    cfg8 = _quant_cfg("w8a8")
+    tm8 = PiZero(cfg8, device="cpu", dtype=torch.float32)
+    tm8.enable_action_quantization()
+    with pytest.raises(ValueError, match="W8A8Linear"):
+        load_jax_params(tm8, qtree)

@@ -14,6 +14,7 @@ import pytest
 
 from blurr_tpu.paths import repo_root
 from blurr_tpu.serving.client import ActionClient
+from blurr_tpu_torch.ops.quant import W4A8Linear, W8A8Linear
 from blurr_tpu_torch.presets import ALIASES, PRESETS, apply_preset, load_config
 from blurr_tpu_torch.serving.server import ActionServer
 
@@ -96,3 +97,45 @@ def test_cli_requires_a_device():
     )
     assert proc.returncode == 2
     assert "--device" in proc.stderr
+
+
+def test_w4a8_server_answers_through_the_client():
+    """bridge_tiny widths with the w4a8 preset's settings (bf16, one flow
+    step, vlm + action w4a8, SigLIP w8a8): the server quantizes the weights
+    it drew and answers through the unchanged ActionClient."""
+    cfg = load_config("config/eval/bridge_tiny.yaml")
+    apply_preset(cfg, "blurr")
+    cfg["vlm_quantization"] = {"mode": "w4a8", "include_vision": True}
+    cfg["action_quantization"] = {"mode": "w4a8", "activation_clip": None}
+    srv = ActionServer(cfg, "random", device="cpu", seed=0)
+    model = srv.model
+    assert isinstance(model.joint["vlm"].layers[0].gate_proj, W4A8Linear)
+    assert isinstance(model.joint["proprio"].layers[0].q_proj, W4A8Linear)
+    assert isinstance(model.vision_tower.layers[0].fc1, W8A8Linear)
+    ready = threading.Event()
+    t = threading.Thread(
+        target=srv.serve_forever, kwargs={"port": 0, "ready_event": ready},
+        daemon=True,
+    )
+    t.start()
+    try:
+        assert ready.wait(30)
+        size = cfg["vision"]["config"]["image_size"]
+        image = np.random.RandomState(1).randint(0, 256, (size, size, 3), np.uint8)
+        with ActionClient(port=srv.port) as client:
+            out = client.predict(image, "put the spoon on the towel", [0.1] * 7)
+            stats = client.stats()
+    finally:
+        srv.stop()
+        t.join(10)
+    assert not t.is_alive()
+    assert out.shape == (4, 7) and np.isfinite(out).all() and (np.abs(out) <= 1).all()
+    assert stats["requests_total"] == 1 and stats["errors_total"] == 0
+
+
+def test_server_refuses_unported_quantization():
+    cfg = load_config("config/eval/bridge_tiny.yaml")
+    apply_preset(cfg, "blurr")
+    cfg["action_quantization"] = {"mode": "int8"}
+    with pytest.raises(NotImplementedError, match="int8"):
+        ActionServer(cfg, "random", device="cpu")
