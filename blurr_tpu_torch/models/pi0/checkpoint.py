@@ -10,10 +10,13 @@ ties the proprio mixture to the action mixture, so a tree whose proprio
 arrays differ from its action arrays is refused.
 
 A quantized tree (``enable_action_quantization`` / ``enable_vlm_quantization``
-in JAX) has dict leaves, stacked per layer: w4a8 ``{"q4" [L, NB, K//2, BN],
-"s" [L, G, N]}`` and w8a8 ``{"q8a" [L, K, N], "s" [L, N]}``. They load into a
-model quantized the same way (its ``enable_*_quantization`` run first):
-the int8 bytes are copied as they are and the scales stay fp32. A dict
+in JAX) has dict leaves, stacked per layer in the mixtures: w4a8 ``{"q4"
+[L, NB, K//2, BN], "s" [L, G, N]}``, w8a8 ``{"q8a" [L, K, N], "s" [L, N]}``,
+int8 weight-only ``{"q" [L, K, N], "s" [L, N]}`` and cached-fp ``{"fp"
+[L, K, N]}`` (the int8 kinds also on the action encoder, unstacked, beside
+their fp biases). They load into a model quantized the same way (its
+``enable_*_quantization`` run first): the int8 bytes are copied as they
+are, the scales stay fp32 and the cached-fp copy keeps its bf16. A dict
 whose kind differs from the model's module there is refused.
 """
 
@@ -26,7 +29,7 @@ import torch
 from torch import nn
 
 from blurr_tpu_torch.models.pi0.pizero import PiZero
-from blurr_tpu_torch.ops.quant import W4A8Linear, W8A8Linear
+from blurr_tpu_torch.ops.quant import CachedFpLinear, Int8Linear, W4A8Linear, W8A8Linear
 
 _MIXTURE_MATRICES = {
     "q_w": "q_proj", "k_w": "k_proj", "v_w": "v_proj", "o_w": "o_proj",
@@ -39,7 +42,8 @@ _SIGLIP_LAYER = {
 
 
 # the tensors of each kind of weight, by the module that holds them
-_KINDS = ((W4A8Linear, ("q4", "s")), (W8A8Linear, ("q8a", "s")))
+_KINDS = ((W4A8Linear, ("q4", "s")), (W8A8Linear, ("q8a", "s")),
+          (Int8Linear, ("q", "s")), (CachedFpLinear, ("fp",)))
 
 
 def _weight(mod, leaf, i=None):
@@ -66,8 +70,8 @@ def _weight(mod, leaf, i=None):
                 yield getattr(mod, key), pick(leaf[key])
             return
     raise NotImplementedError(
-        f"weight dict with keys {sorted(leaf)}: only the w4a8 {{q4, s}} and "
-        "w8a8 {q8a, s} kinds are ported"
+        f"weight dict with keys {sorted(leaf)}: only the w4a8 {{q4, s}}, w8a8 "
+        "{q8a, s}, int8 {q, s} and cached-fp {fp} kinds are ported"
     )
 
 

@@ -6,21 +6,24 @@ Counterpart of ``blurr_tpu/models/pi0/joint.py`` (``JointSpec``,
 keep their own weights. JAX stacks the layers on a leading [L, ...] axis
 and scans them; here each layer is an ``nn.Module`` in an ``nn.ModuleList``
 and the walk is a Python loop. The KV cache is a list of per-layer (k, v)
-pairs [B, KVH, P, D], with K stored after RoPE.
+pairs [B, KVH, P, D], with K stored after RoPE; the int8 KV cache holds
+(k, v, k_scale, v_scale) per layer instead (``ops/quant.py:quantize_kv_int8``),
+dequantized inside each layer of each decode step.
 
 Numerics kept from JAX: embeds scaled by sqrt(hidden) rounded in the
 compute dtype, Gemma RMSNorm, fp32 RoPE, the tanh soft clamp 50. The last
 prefill layer computes only K/V: its attention and MLP output is never read.
 A layer's linears are ``nn.Linear``s or, once a mixture is quantized, the
-w8a8 / w4a8 modules of ``ops/quant.py``; each mixture clamps the activations
-of its quantized linears with its own ``activation_clip`` (JAX ``_clip_for``).
+int8 / cached-fp / w8a8 / w4a8 modules of ``ops/quant.py``; each mixture
+clamps the activations of its quantized linears with its own
+``activation_clip`` (JAX ``_clip_for``).
 The adaptive (adaLN) mixtures are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -34,10 +37,21 @@ from blurr_tpu_torch.ops.attention import (
 )
 from blurr_tpu_torch.ops.flash_attention import flash_attention
 from blurr_tpu_torch.ops.norms import rms_norm
-from blurr_tpu_torch.ops.quant import linear
+from blurr_tpu_torch.ops.quant import dequantize_kv, linear
 from blurr_tpu_torch.ops.rotary import apply_rope, rope_cos_sin
 
-KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
+
+class Int8KV(NamedTuple):
+    """One layer of the int8 KV cache: int8 k and v, and their fp32 scales."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+
+
+# per layer (k, v), or an ``Int8KV``
+KVCache = List[Sequence[torch.Tensor]]
 
 # below this many query rows the prefill keeps the plain attention, as the
 # JAX dispatcher does (a small query block does not amortize the kernel)
@@ -217,17 +231,27 @@ def decode(
     action_position_ids: torch.Tensor,
     cache: KVCache,
     action_mask: torch.Tensor,  # bool [B, A, P+A]
+    kv_dequant_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """One flow step of the action expert over the cached prefix: the K/V of
-    each layer is the cache concatenated with the fresh action K/V. Returns
-    the final-normed action hidden states."""
+    each layer is the cache concatenated with the fresh action K/V. An int8
+    cache entry (``Int8KV``) is dequantized to ``kv_dequant_dtype`` (else the action
+    dtype) in its layer; the concatenation promotes, as ``jnp.concatenate``
+    does (bf16 cache + fp32 fresh K/V -> fp32). Returns the final-normed
+    action hidden states."""
     eps = spec.rms_norm_eps
     clip = _clip_for(spec, "action")
+    dtype = kv_dequant_dtype or action_embeds.dtype
     cos, sin = rope_cos_sin(
         action_position_ids, spec.head_dim, action.spec.rope_theta
     )
     h = scale_embeds(action_embeds)
-    for layer, (kc, vc) in zip(action.layers, cache):
+    for layer, entry in zip(action.layers, cache):
+        if isinstance(entry, Int8KV):
+            kc = dequantize_kv(entry.k, entry.k_scale, dtype)
+            vc = dequantize_kv(entry.v, entry.v_scale, dtype)
+        else:
+            kc, vc = entry
         q, k, v = layer.qkv(h, cos, sin, spec, clip)
         k_full = torch.cat([kc, k], dim=2)
         v_full = torch.cat([vc, v], dim=2)

@@ -12,15 +12,17 @@ Counterpart of ``blurr_tpu/models/pi0/pizero.py`` (``PiZeroSpec``,
     -> clip
 
 The proprio mixture IS the action mixture module (the JAX package's
-``tie_action_proprio_weights``). The w8a8 and w4a8 quantization tiers are
-in-place methods (``enable_action_quantization``,
-``enable_vlm_quantization``); the int8 weight-only tiers, the int8 KV cache
-and the adaptive (adaLN) action expert are not ported yet and raise.
+``tie_action_proprio_weights``). The quantization tiers are in-place
+methods: ``enable_action_quantization`` (int8 weight-only or cached-fp,
+w8a8, w4a8) and ``enable_vlm_quantization`` (w8a8, w4a8). The int8 KV cache
+quantizes the prefix cache after the prefill. The adaptive (adaLN) action
+expert is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from dataclasses import dataclass
 from typing import Optional
 
@@ -35,24 +37,33 @@ from blurr_tpu_torch.ops import masks as mask_lib
 from blurr_tpu_torch.ops.activations import silu
 from blurr_tpu_torch.ops.embeddings import sinusoidal_pos_emb
 from blurr_tpu_torch.ops.quant import (
+    linear,
+    quantize_dense_int8,
+    quantize_kv_int8,
+    quantize_mixture_int8,
     quantize_mixture_w4a8,
     quantize_mixture_w8a8,
     quantize_vit_w8a8,
 )
 
-# the modes the JAX package knows, per quantization key, and those ported
+log = logging.getLogger(__name__)
+
+# the modes the JAX package knows, per quantization key (all ported)
 _QUANT_MODES = {
     "action_quantization": {"int8", "int8_cached", "bnb_int8", "w8a8", "w4a8"},
     "vlm_quantization": {"w8a8", "w4a8"},
     "kv_quantization": {"int8"},
 }
-_PORTED_MODES = {"w8a8", "w4a8"}
+# kv_quantization.dtype, the dtype the int8 cache is dequantized to ('' ->
+# the action dtype); float16 becomes bfloat16, as in the JAX package
+_KV_DTYPES = {"": None, "bfloat16": torch.bfloat16, "float32": torch.float32,
+              "float16": torch.bfloat16}
+_ACTION_ENCODER = ("action_encoder_w1", "action_encoder_w2", "action_encoder_w3")
 
 
 def _checked_mode(qcfg: dict, name: str) -> Optional[str]:
     """Normalized quantization mode of config key ``name``: ''/'none' ->
-    None. An unknown mode raises ValueError, as in the JAX package; a known
-    one that is not ported yet raises NotImplementedError."""
+    None. An unknown mode raises ValueError, as in the JAX package."""
     mode = str(qcfg.get("mode") or "").lower()
     if mode in ("", "none"):
         return None
@@ -62,9 +73,34 @@ def _checked_mode(qcfg: dict, name: str) -> Optional[str]:
             f"{name}.mode {mode!r} is not supported; expected one of "
             f"{sorted(allowed)} (or empty to disable)"
         )
-    if mode not in _PORTED_MODES:
-        raise NotImplementedError(f"{name}.mode {mode!r} is not ported yet")
     return mode
+
+
+def _kv_dequant_dtype(kq: dict) -> Optional[torch.dtype]:
+    """``kv_quantization.dtype`` as the JAX ``PiZero`` reads it, whatever
+    the mode: '', bfloat16, float32 (with or without a ``torch.`` prefix),
+    float16 -> bfloat16 with a warning; anything else raises ValueError."""
+    name = str(kq.get("dtype") or "").lower().removeprefix("torch.")
+    if name not in _KV_DTYPES:
+        raise ValueError(
+            f"kv_quantization.dtype={kq['dtype']!r} unsupported "
+            "(bfloat16/float32/float16)"
+        )
+    if name == "float16":
+        log.warning("kv_quantization.dtype=float16 -> bfloat16 (the JAX "
+                    "package's mapping: dequantized KV chunks get bf16 numerics)")
+    return _KV_DTYPES[name]
+
+
+def _quantize_cache(cache, clip: Optional[float]):
+    """The int8 KV cache: per layer an ``Int8KV``, k and v int8 with one
+    fp32 scale per (batch, head) each, as JAX's ``infer_action`` quantizes
+    the stacked cache."""
+    out = []
+    for k, v in cache:
+        (k_q, k_s), (v_q, v_s) = quantize_kv_int8(k, clip), quantize_kv_int8(v, clip)
+        out.append(joint_lib.Int8KV(k_q, v_q, k_s, v_s))
+    return out
 
 
 @dataclass(frozen=True)
@@ -85,7 +121,7 @@ class PiZeroSpec:
 def spec_from_config(cfg: dict) -> PiZeroSpec:
     """The fields of the JAX ``spec_from_config`` that the control step
     reads. Checks the quantization modes (``_checked_mode``) and raises on
-    what is not ported: adaLN, the int8 tiers, the int8 KV cache."""
+    what is not ported: adaLN."""
     if cfg.get("action_expert_adaptive_mode"):
         raise NotImplementedError(
             "action_expert_adaptive_mode (adaLN) is not ported yet"
@@ -127,17 +163,25 @@ class PiZero(nn.Module):
         # quantization (the JAX PiZero's mode fields)
         aq = cfg.get("action_quantization") or {}
         vq = cfg.get("vlm_quantization") or {}
+        kq = cfg.get("kv_quantization") or {}
         self.action_quant_mode = _checked_mode(aq, "action_quantization")
+        # the int8 modes' cached-fp copy is bf16 whatever the model dtype:
+        # JAX passes no fp_dtype, so action_quantization.fp_dtype is unread
+        self.action_quant_cache_fp = bool(aq.get("cache_fp_weight", False))
         self.action_w4a8_group_size = int(aq.get("group_size", 512) or 512)
         self.action_w4a8_int8_keys = tuple(aq.get("int8_keys") or ())
         self.vlm_quant_mode = _checked_mode(vq, "vlm_quantization")
         self.vlm_quant_vision = bool(vq.get("include_vision", False))
         self.vlm_w4a8_group_size = int(vq.get("group_size", 512) or 512)
         self.vlm_w4a8_int8_keys = tuple(vq.get("int8_keys") or ())
+        self.kv_quant_mode = _checked_mode(kq, "kv_quantization")
+        clip = kq.get("activation_clip")
+        self.kv_quant_clip = float(clip) if clip is not None else None
+        self.kv_dequant_dtype = _kv_dequant_dtype(kq)
         # activation clips are per mixture: the action clip goes to the
         # action and proprio mixtures, the vlm clip to the vlm mixture, each
-        # only when its tier is on. The encoders keep the action clip, as in
-        # JAX; they stay fp under w8a8/w4a8, where it changes nothing.
+        # only when its tier is on. The action encoder takes the action clip
+        # too, as in JAX (it bites where the int8 tiers quantize it).
         a_clip = self._clip(aq, self.action_quant_mode)
         v_clip = self._clip(vq, self.vlm_quant_mode)
         self.encoder_activation_clip = a_clip
@@ -223,17 +267,24 @@ class PiZero(nn.Module):
 
     @torch.no_grad()
     def enable_action_quantization(self) -> "PiZero":
-        """Quantize the action mixture in place under a w8a8 or w4a8
-        ``action_quantization.mode`` (the proprio mixture is the same module).
-        The action and proprio encoders and the action decoder stay fp, as in
-        the JAX package's w8a8/w4a8 branch."""
+        """Quantize the action mixture in place under
+        ``action_quantization.mode`` (the proprio mixture is the same
+        module). w8a8 and w4a8 quantize the mixture only. The int8 modes
+        (int8, int8_cached and bnb_int8 alike, as in JAX) quantize the
+        mixture and the action encoder's three linears, to ``Int8Linear`` or,
+        under ``cache_fp_weight``, to a bf16 ``CachedFpLinear``. The proprio
+        encoder and the action decoder stay fp, as in the JAX package."""
         layers = self.joint["action"].layers
-        if self.action_quant_mode == "w8a8":
+        mode = self.action_quant_mode
+        if mode == "w8a8":
             quantize_mixture_w8a8(layers)
-        elif self.action_quant_mode == "w4a8":
+        elif mode == "w4a8":
             quantize_mixture_w4a8(
                 layers, self.action_w4a8_group_size, self.action_w4a8_int8_keys
             )
+        elif mode is not None:
+            quantize_mixture_int8(layers, self.action_quant_cache_fp)
+            quantize_dense_int8([self], _ACTION_ENCODER, self.action_quant_cache_fp)
         return self
 
     @torch.no_grad()
@@ -281,10 +332,11 @@ class PiZero(nn.Module):
         return self.proprio_encoder(proprios)
 
     def _encode_action(self, action, time_emb) -> torch.Tensor:
-        emb = self.action_encoder_w1(action)
+        clip = self.encoder_activation_clip
+        emb = linear(self.action_encoder_w1, action, clip)
         t_full = time_emb[:, None, :].expand(-1, emb.shape[1], -1)
-        emb = silu(self.action_encoder_w2(torch.cat([t_full, emb], dim=-1)))
-        return self.action_encoder_w3(emb)
+        emb = silu(linear(self.action_encoder_w2, torch.cat([t_full, emb], dim=-1), clip))
+        return linear(self.action_encoder_w3, emb, clip)
 
     def _time_embedding(self, t: torch.Tensor) -> torch.Tensor:
         return sinusoidal_pos_emb(t, self.action_hidden, self.spec.time_max_period)
@@ -331,6 +383,8 @@ class PiZero(nn.Module):
             {"vlm": vlm_pos, "proprio": proprio_pos},
             prefix_mask,
         )
+        if self.kv_quant_mode == "int8":
+            cache = _quantize_cache(cache, self.kv_quant_clip)
         # t and the step size live in the MODEL dtype, as in JAX (and the
         # reference's Euler loop): bf16 presets carry bf16 time
         dtype = noise.dtype
@@ -342,7 +396,7 @@ class PiZero(nn.Module):
             hidden = joint_lib.decode(
                 self.joint["action"], self.joint_spec,
                 self._encode_action(action, time_emb), action_pos, cache,
-                action_mask,
+                action_mask, self.kv_dequant_dtype,
             )
             action = action + delta_t * self._decode_action(hidden)
             t = t + delta_t

@@ -1,36 +1,44 @@
-"""Quantized linears of the w8a8 and w4a8 tiers.
+"""Quantized linears of the int8, cached-fp, w8a8 and w4a8 tiers, and the
+int8 KV cache.
 
 Counterpart of ``blurr_tpu/ops/quant.py``: the quantizers
-(``quantize_weight_int8``'s int8 rounding, ``quantize_weight_w8a8``,
-``quantize_weight_w4a8`` with the MSE clip search), the matmuls
-(``w8a8_mm``, ``w4a8_mm`` and the dispatching ``mm``) and the per-mixture
-and per-tower quantizers. Weights keep the JAX package's layouts and names:
-``{"q8a": int8 [K, N], "s": fp32 [N]}`` for w8a8 and
+(``quantize_weight_int8`` with its cached-fp branch, ``quantize_weight_w8a8``,
+``quantize_weight_w4a8`` with the MSE clip search, ``quantize_kv_int8`` /
+``dequantize_kv``), the matmuls (``w8a8_mm``, ``w4a8_mm`` and the
+dispatching ``mm``) and the per-mixture, per-layer and per-tower
+quantizers. Weights keep the JAX package's layouts and names:
+``{"q": int8 [K, N], "s": fp32 [N]}`` for int8 weight-only, ``{"fp": bf16
+[K, N]}`` for cached-fp, ``{"q8a": int8 [K, N], "s": fp32 [N]}`` for w8a8 and
 ``{"q4": int8 [NB, K//2, BN] block-major packed int4, "s": fp32 [G, N]}`` for
 w4a8, so a quantized JAX tree copies over byte for byte.
 
-In torch idiom a quantized weight is a module: ``W8A8Linear`` and
-``W4A8Linear`` hold those tensors as buffers (the scale apart from the int8
-bytes), and ``from_linear`` quantizes an ``nn.Linear``. The mixture and tower
-quantizers swap a model's linears for them in place, one layer at a time, so
-the fp weight of a layer is released as soon as its quantized module replaces
-it. Inference only: the straight-through gradients are not ported yet. The
-int8 weight-only ``{"q","s"}``, cached-fp ``{"fp"}`` and LoRA weights raise.
+In torch idiom a quantized weight is a module: ``Int8Linear``,
+``CachedFpLinear``, ``W8A8Linear`` and ``W4A8Linear`` hold those tensors as
+buffers (the scale apart from the int8 bytes), and ``from_linear``
+quantizes an ``nn.Linear``. The quantizers swap a model's linears for them
+in place, one layer at a time, so the fp weight of a layer is released as
+soon as its quantized module replaces it. Inference only: the
+straight-through gradients are not ported yet, and LoRA weights raise.
 
-Activations are quantized per token in plain PyTorch: absmax over the last
-axis, ``round`` (half to even, as ``jnp.round``), clamp to int8. The w8a8
-product is ``torch._int_mm`` (JAX leaves it to an XLA int8 dot, with no
-Pallas kernel); the w4a8 product is the int4 kernel ``int4_matmul``.
+The int8 weight-only product is the int8 kernel ``int8_matmul``, as the JAX
+package's ``int8_mm_nd`` (its ``mm`` dequantizes in XLA instead: the
+deliberate difference is in ROADMAP Queue 3). The cached-fp product is a
+plain matmul of the bf16 copy. Activations of w8a8 and w4a8 are quantized
+per token in plain PyTorch: absmax over the last axis, ``round`` (half to
+even, as ``jnp.round``), clamp to int8. The w8a8 product is
+``torch._int_mm`` (JAX leaves it to an XLA int8 dot, with no Pallas
+kernel); the w4a8 product is the int4 kernel ``int4_matmul``.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+from blurr_tpu_torch.ops.int8_matmul import int8_mm_nd
 from blurr_tpu_torch.ops.int4_matmul import (
     from_block_major,
     int4_matmul,
@@ -56,6 +64,10 @@ _W4A8_CLIP_GRID = (1.0, 0.95, 0.9, 0.85, 0.8, 0.75, 0.7)
 _INT_MM_PAD_ROWS = 32
 
 
+def _clip(x: torch.Tensor, activation_clip: Optional[float]) -> torch.Tensor:
+    return x if activation_clip is None else x.clamp(-activation_clip, activation_clip)
+
+
 def _div(a: torch.Tensor, c: float) -> torch.Tensor:
     """``a / c`` as a true fp32 division. A Python scalar divisor would be
     turned into a multiply by its reciprocal on CUDA, which rounds
@@ -68,20 +80,24 @@ def _div(a: torch.Tensor, c: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def quantize_weight_int8(w: torch.Tensor) -> dict:
+def quantize_weight_int8(w: torch.Tensor,
+                         cache_fp_dtype: Optional[torch.dtype] = None) -> dict:
     """[..., in, out] -> {"q": int8, "s": fp32 [..., out]}: per-out-channel
-    symmetric int8. (The JAX function's cached-fp ``{"fp"}`` branch is not
-    ported yet.)"""
+    symmetric int8, both contiguous. With ``cache_fp_dtype`` it returns
+    {"fp": (q * s) in that dtype} instead: the dequantized copy, with the
+    quantization noise and none of the saving."""
     wf = w.float()
     scale = _div(wf.abs().amax(dim=-2).clamp_min(1e-6), 127.0)
     q = torch.round(wf / scale[..., None, :]).clamp(-128, 127).to(torch.int8)
-    return {"q": q, "s": scale}
+    if cache_fp_dtype is not None:
+        return {"fp": (q.float() * scale[..., None, :]).to(cache_fp_dtype).contiguous()}
+    return {"q": q.contiguous(), "s": scale.contiguous()}
 
 
 def quantize_weight_w8a8(w: torch.Tensor) -> dict:
     """[..., in, out] -> {"q8a": int8, "s": fp32 [..., out]}."""
     out = quantize_weight_int8(w)
-    return {"q8a": out["q"].contiguous(), "s": out["s"].contiguous()}
+    return {"q8a": out["q"], "s": out["s"]}
 
 
 def quantize_weight_w4a8(w: torch.Tensor, group_size: int = 512,
@@ -120,6 +136,20 @@ def quantize_weight_w4a8(w: torch.Tensor, group_size: int = 512,
     return {"q4": to_block_major(pack_int4(q), bn), "s": scale.contiguous()}
 
 
+def quantize_kv_int8(kv: torch.Tensor, clip: Optional[float] = None):
+    """[..., S, D] -> (int8 values, fp32 scale [..., 1, 1]): one symmetric
+    scale per leading index (per batch and head of a [B, H, S, D] cache),
+    the absmax over (S, D) taken after the clip."""
+    x = _clip(kv.float(), clip)
+    scale = _div(x.abs().amax(dim=(-2, -1), keepdim=True).clamp_min(1e-6), 127.0)
+    q = torch.round(x / scale).clamp(-128, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
+
+
 def _w4a8_deq(q4: torch.Tensor, s: torch.Tensor, k: int) -> torch.Tensor:
     """fp32 [K, N] weight from the block-major packed int4 + group scales."""
     groups, n = s.shape
@@ -135,9 +165,7 @@ def _w4a8_deq(q4: torch.Tensor, s: torch.Tensor, k: int) -> torch.Tensor:
 def _quantize_activations(x: torch.Tensor, activation_clip: Optional[float]):
     """x [..., K] -> per-token int8 rows [M, K] (contiguous, M the product
     of the leading axes) and their fp32 scales [..., 1], after the clip."""
-    xf = x.float()
-    if activation_clip is not None:
-        xf = xf.clamp(-activation_clip, activation_clip)
+    xf = _clip(x.float(), activation_clip)
     xs = _div(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6), 127.0)
     xq = torch.round(xf / xs).clamp(-128, 127).to(torch.int8)
     return xq.reshape(-1, x.shape[-1]).contiguous(), xs
@@ -178,25 +206,95 @@ def w4a8_mm(x: torch.Tensor, w: dict,
     return y.reshape(*x.shape[:-1], n).to(x.dtype)
 
 
+def int8_mm(x: torch.Tensor, w: dict,
+            activation_clip: Optional[float] = None) -> torch.Tensor:
+    """y = x.dtype((bf16(clip(x)) @ w["q"]) * w["s"]) through ``int8_matmul``.
+    x [..., K] fp32 or bf16; w["q"] int8 [K, N]; w["s"] fp32 [N]."""
+    return int8_mm_nd(_clip(x, activation_clip), w)
+
+
+def cached_fp_mm(x: torch.Tensor, w: dict,
+                 activation_clip: Optional[float] = None) -> torch.Tensor:
+    """y = clip(x) @ w["fp"], the copy cast to x.dtype (a plain matmul, as
+    JAX computes it outside Pallas)."""
+    return _clip(x, activation_clip) @ w["fp"].to(x.dtype)
+
+
 def mm(x: torch.Tensor, w, activation_clip: Optional[float] = None) -> torch.Tensor:
-    """Matmul dispatching on the weight: a plain [in, out] tensor, w8a8
-    {"q8a","s"} or w4a8 {"q4","s"}. The clip applies to quantized weights
-    only, as in the JAX ``mm``."""
+    """Matmul dispatching on the weight: a plain [in, out] tensor, int8
+    {"q","s"}, cached-fp {"fp"}, w8a8 {"q8a","s"} or w4a8 {"q4","s"}. The
+    clip applies to quantized weights only, as in the JAX ``mm``."""
     if isinstance(w, dict):
+        if "lora_a" in w:
+            raise NotImplementedError("LoRA weight dicts are not ported yet")
         if "q8a" in w:
             return w8a8_mm(x, w, activation_clip)
         if "q4" in w:
             return w4a8_mm(x, w, activation_clip)
-        raise NotImplementedError(
-            f"weight dict with keys {sorted(w)}: the int8 weight-only "
-            "{q, s}, cached-fp {fp} and LoRA weights are not ported yet"
-        )
+        if "fp" in w:
+            return cached_fp_mm(x, w, activation_clip)
+        if w.keys() == {"q", "s"}:
+            return int8_mm(x, w, activation_clip)
+        raise ValueError(f"unknown weight dict with keys {sorted(w)}")
     return x @ w
 
 
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
+
+
+class Int8Linear(nn.Module):
+    """A linear layer with int8 weight-only weights: buffers ``q`` int8
+    [in, out] (row-major, the layout the kernel reads) and ``s`` fp32 [out],
+    and an optional fp bias added after the product."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor,
+                 bias: Optional[nn.Parameter] = None):
+        super().__init__()
+        self.in_features, self.out_features = q.shape
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+        self.bias = bias
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, lin: nn.Linear) -> "Int8Linear":
+        return cls(**quantize_weight_int8(lin.weight.t()), bias=lin.bias)
+
+    def forward(self, x, activation_clip: Optional[float] = None):
+        y = int8_mm(x, {"q": self.q, "s": self.s}, activation_clip)
+        return y if self.bias is None else y + self.bias
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, "
+                f"out_features={self.out_features}, bias={self.bias is not None}")
+
+
+class CachedFpLinear(nn.Module):
+    """A linear layer holding the dequantized copy of its int8 weight:
+    buffer ``fp`` [in, out] (bf16, as the JAX package caches it whatever the
+    model dtype), and an optional fp bias added after the product."""
+
+    def __init__(self, fp: torch.Tensor, bias: Optional[nn.Parameter] = None):
+        super().__init__()
+        self.in_features, self.out_features = fp.shape
+        self.register_buffer("fp", fp)
+        self.bias = bias
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, lin: nn.Linear) -> "CachedFpLinear":
+        return cls(**quantize_weight_int8(lin.weight.t(), torch.bfloat16), bias=lin.bias)
+
+    def forward(self, x, activation_clip: Optional[float] = None):
+        y = cached_fp_mm(x, {"fp": self.fp}, activation_clip)
+        return y if self.bias is None else y + self.bias
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, "
+                f"out_features={self.out_features}, dtype={self.fp.dtype}, "
+                f"bias={self.bias is not None}")
 
 
 class W8A8Linear(nn.Module):
@@ -257,7 +355,7 @@ class W4A8Linear(nn.Module):
                 f"out_features={self.out_features}, groups={self.s.shape[0]}")
 
 
-QUANTIZED_LINEARS = (W8A8Linear, W4A8Linear)
+QUANTIZED_LINEARS = (Int8Linear, CachedFpLinear, W8A8Linear, W4A8Linear)
 
 
 def linear(mod: nn.Module, x: torch.Tensor,
@@ -279,6 +377,22 @@ def _swap(layer: nn.Module, attr: str, make) -> None:
     lin = getattr(layer, attr)
     if isinstance(lin, nn.Linear):
         setattr(layer, attr, make(lin))  # the fp weight goes with ``lin``
+
+
+def quantize_mixture_int8(layers: Iterable[nn.Module], cache_fp_weight: bool = False) -> None:
+    """Swap every mixture linear of ``layers`` for an ``Int8Linear``, or for
+    a ``CachedFpLinear`` holding a bf16 copy under ``cache_fp_weight``."""
+    quantize_dense_int8(layers, tuple(_QUANT_WEIGHT_KEYS.values()), cache_fp_weight)
+
+
+def quantize_dense_int8(modules: Iterable[nn.Module], attrs: Tuple[str, ...],
+                        cache_fp_weight: bool = False) -> None:
+    """Swap the linears named ``attrs`` of each of ``modules`` as
+    ``quantize_mixture_int8`` does (their biases stay fp)."""
+    make = CachedFpLinear.from_linear if cache_fp_weight else Int8Linear.from_linear
+    for mod in modules:
+        for attr in attrs:
+            _swap(mod, attr, make)
 
 
 def quantize_mixture_w8a8(layers: Iterable[nn.Module]) -> None:

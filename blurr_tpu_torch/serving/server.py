@@ -48,9 +48,11 @@ class ActionServer:
     ``checkpoint_path`` "random" draws the weights on the device from a
     generator seeded with ``seed``; loading a real checkpoint is not ported
     yet. The model dtype follows the config's ``use_bf16``. Then the
-    quantization tiers of the config (w8a8, w4a8) quantize the weights in
-    place on the device, as the JAX ``_build_params`` does after loading;
-    the modes that are not ported raise when the model is built.
+    quantization tiers of the config (action int8 / cached-fp / w8a8 /
+    w4a8, vlm w8a8 / w4a8) quantize the weights in place on the device, as
+    the JAX ``_build_params`` does after loading; the int8 KV cache is
+    quantized in every control step. adaLN, not ported yet, raises when the
+    model is built.
     """
 
     def __init__(self, cfg, checkpoint_path: str = "random", *, device,

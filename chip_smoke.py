@@ -12,10 +12,18 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 3. kernel  - each kernel against its plain PyTorch version on the card at
              the shapes the paths give it. Flash attention: fp32 at 2e-4
              with TF32 off; bf16 against the plain version in fp32 at 2e-2;
-             both timed with CUDA events at the Pi-0 prefill shape. The int4
-             matmul: bit for bit (bound 1e-6 relative) at every w4a8 linear
-             of the Pi-0 step; then it, its plain version and a bf16 matmul
-             of the dense weight timed at the vlm and action gate shapes.
+             both timed at the Pi-0 prefill shape. The int4 matmul: bit for
+             bit (bound 1e-6 relative) at every w4a8 linear of the Pi-0
+             step; then it, its plain version and a bf16 matmul of the
+             dense weight timed at the vlm and action gate shapes.
+             kernel-int8: the int8 matmul at the 13 (M, K, N) of the int8
+             step, fp32 x within 1e-5 of the largest output and bf16 x
+             within one bf16 rounding of each output; then it, its plain
+             version and a bf16 matmul of the dequantized weight timed at
+             the action gate and down projection shapes. Every kernel is
+             timed two ways: CUDA events around 50 eager launches (which
+             for a short kernel time its wrapper's host work) and inside a
+             CUDA graph (the device's time alone).
 4. serve   - the port's ActionServer at the full bridge.yaml width with the
              blurr preset (bf16, prefix KV cache, one flow step) and
              joint.config.use_flash_attn set, random weights drawn on the
@@ -39,9 +47,28 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              must stay under 3.0 GB.
 8. small-w4a8 - the small fp32 model quantized w4a8 (SigLIP w8a8) on the
              card against the same quantized weights on the CPU.
-Then one JSON line of the kernels (launches summed over the two served
+9. serve-int8 - bridge_pool64_steps2.yaml at full width with
+             action_quantization.cache_fp_weight set false (the int8 {q, s}
+             tier: action expert and action encoder through the int8
+             kernel, the int8 KV cache) and joint.config.use_flash_attn set:
+             random bf16 weights drawn on the card and quantized there, then
+             3 requests through ActionClient, checked as serve-w4a8; the
+             int8 kernel must launch exactly 380 times per control step, the
+             flash kernel 17 times, the int4 kernel never, and every decode
+             must read an int8 prefix cache.
+10. serve-int8-cached - the preset as shipped (cache_fp_weight true: the
+             action expert holds a bf16 copy of its int8 weights), the same
+             checks, with 0 launches of the int8 kernel.
+11. small-int8 - the small fp32 model with the int8 {q, s} action expert
+             and the int8 KV cache (clip 1.0, bf16), card against CPU; then
+             again with the card given the CPU's rounding wherever a cached
+             K/V value or an int8 kernel input rounds the other way, held
+             to the fp32 bound.
+Then one JSON line of the kernels (launches summed over the four served
 runs, the counts set to 0 just before each; errors and times measured
-here), and last the result line
+here: ms and plain_ms with CUDA events, graph_ms and plain_graph_ms in a
+CUDA graph, at the first timed shape of each kernel), and last the result
+line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It imports nothing of JAX and builds everything from the checkout.
@@ -83,6 +110,16 @@ SMALL_TOL = 1e-4
 # an fp32 input within rounding of a half step may round the other way on
 # one of them, which moves that activation by one step (1/127 of its row)
 SMALL_W4A8_TOL = 1e-3
+# the same with the int8 weight-only tier and the int8 KV cache. The card's
+# fp32 prefix K/V and activations differ from the CPU's by fp32 noise, so a
+# few values round the other way: a cached K/V value to the other int8 step
+# (clip/127), a kernel input to the other bf16. Each such flip cascades
+# through the flow steps (H100: 2 of 31,104 cached values flipped and the
+# actions moved by 4.0e-4; with the KV cache fp, bf16 flips alone moved them
+# by 3.4e-4). The phase's second witness gives the card the CPU's rounding
+# wherever the two differ and holds that run to SMALL_TOL; a kernel that
+# skips the bf16 rounding of its input stays 1.4e-3 away there
+SMALL_INT8_TOL = 1e-3
 # the int4 kernel against its plain version: both sum exact int32 group dots
 # times the scale in fp32, in group order, without FMA; any difference is a
 # finding (PERF.md), bounded by 1e-6 of the largest output
@@ -107,7 +144,21 @@ INT4_SHAPES = [
     (1, 4096, 1024, 8), (4, 4096, 1024, 8),
 ]
 INT4_TIMED = [(96, 2048, 16384, 4), (4, 1024, 4096, 2)]  # vlm gate, action gate
-KERNEL_NAMES = ("flash_attention", "int4_matmul")
+# (M, K, N) of every int8 linear of the pool64 int8 step: action (and
+# proprio) q, k/v, o, gate/up, down at M 1 (proprio prefill) and 4 (decode);
+# the action encoder's w1, w2, w3 at M 4
+INT8_SHAPES = [
+    (1, 1024, 2048), (4, 1024, 2048), (1, 1024, 256), (4, 1024, 256),
+    (1, 2048, 1024), (4, 2048, 1024), (1, 1024, 4096), (4, 1024, 4096),
+    (1, 4096, 1024), (4, 4096, 1024),
+    (4, 7, 1024), (4, 2048, 1024), (4, 1024, 1024),
+]
+INT8_TIMED = [(4, 1024, 4096), (4, 4096, 1024)]  # action gate, action down
+# the int8 kernel's fp32 sum against the plain version's float64 one
+INT8_FP32_REL_TOL = 1e-5
+BF16_ROUNDING = 2.0**-8  # one bf16 rounding, relative (8 significant bits)
+INT8_STEP_LAUNCHES = 380  # 17 x 7 + 3 proprio prefill, 2 x (18 x 7 + 3) decode
+KERNEL_NAMES = ("flash_attention", "int4_matmul", "int8_matmul")
 
 
 def log(msg: str) -> None:
@@ -187,6 +238,54 @@ def _time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    """Device time per call of ``fn``: ``launches`` calls captured in one
+    CUDA graph and replayed, timed with CUDA events. No host work runs
+    between the launches, so a kernel shorter than its wrapper's host time
+    is timed as the device runs it (``_time_ms`` then times the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
+
+
+def _kernel_times(kernel, plain) -> dict:
+    """The times of the kernels line, taken the same way for every kernel:
+    ``ms`` and ``plain_ms`` with CUDA events around 50 eager launches (the
+    kernel's the lesser of two runs), ``graph_ms`` and ``plain_graph_ms``
+    inside a CUDA graph (the device's time alone)."""
+    return {"ms": min(_time_ms(kernel), _time_ms(kernel)), "plain_ms": _time_ms(plain),
+            "graph_ms": min(_graph_ms(kernel), _graph_ms(kernel)),
+            "plain_graph_ms": _graph_ms(plain)}
+
+
+def _fmt_times(t: dict, dense=None, dense_name: str = "") -> str:
+    """The times of ``_kernel_times``; with ``dense``, a bf16 matmul of the
+    dequantized weight timed both ways (context, not in the kernels line)."""
+    line = (f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms (CUDA events, 50 "
+            f"launches each); in a CUDA graph kernel {t['graph_ms']:.4f} ms, plain "
+            f"{t['plain_graph_ms']:.4f} ms")
+    if dense is not None:
+        line += (f"; bf16 matmul of {dense_name} {_time_ms(dense):.4f} ms (events), "
+                 f"{_graph_ms(dense):.4f} ms (graph)")
+    return line
+
+
 def kernel_vs_plain(device) -> dict:
     from blurr_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -214,18 +313,10 @@ def kernel_vs_plain(device) -> dict:
     times = {}
     for dtype in (torch.bfloat16, torch.float32):
         qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
-        kern = _time_ms(lambda: flash_attention(qc, kc, vc, mask))
-        plain = _time_ms(lambda: flash_attention_reference(qc, kc, vc, mask))
-        kern2 = _time_ms(lambda: flash_attention(qc, kc, vc, mask))
-        times[dtype] = (min(kern, kern2), plain)
-        log(f"kernel: time at {PI0_SHAPE} {str(dtype)[6:]}: kernel "
-            f"{kern:.4f}/{kern2:.4f} ms, plain {plain:.4f} ms (CUDA events, "
-            "50 launches each)")
-    return {
-        "max_abs_err": errs[(PI0_SHAPE, torch.bfloat16)],
-        "ms": times[torch.bfloat16][0],
-        "plain_ms": times[torch.bfloat16][1],
-    }
+        times[dtype] = _kernel_times(lambda: flash_attention(qc, kc, vc, mask),
+                                     lambda: flash_attention_reference(qc, kc, vc, mask))
+        log(f"kernel: time at {PI0_SHAPE} {str(dtype)[6:]}: {_fmt_times(times[dtype])}")
+    return {"max_abs_err": errs[(PI0_SHAPE, torch.bfloat16)], **times[torch.bfloat16]}
 
 
 def int4_vs_plain(device) -> dict:
@@ -269,24 +360,91 @@ def int4_vs_plain(device) -> dict:
     for shape in INT4_TIMED:
         x, packed, s, q = inputs(*shape)
         xb, wb = x.bfloat16(), q.bfloat16()
-        kern = _time_ms(lambda: int4_matmul(x, packed, s))
-        plain = _time_ms(lambda: int4_matmul_reference(x, packed, s))
-        dense = _time_ms(lambda: torch.matmul(xb, wb))
-        kern2 = _time_ms(lambda: int4_matmul(x, packed, s))
-        times[shape] = (min(kern, kern2), plain)
-        log(f"kernel: int4_matmul time at (M, K, N, G)={shape}: kernel "
-            f"{kern:.4f}/{kern2:.4f} ms, plain {plain:.4f} ms, bf16 matmul of "
-            f"the dense weight {dense:.4f} ms (CUDA events, 50 launches each)")
-    return {"max_abs_err": worst, "ms": times[INT4_TIMED[0]][0],
-            "plain_ms": times[INT4_TIMED[0]][1]}
+        times[shape] = _kernel_times(lambda: int4_matmul(x, packed, s),
+                                     lambda: int4_matmul_reference(x, packed, s))
+        line = _fmt_times(times[shape], lambda: torch.matmul(xb, wb), "the dense weight")
+        log(f"kernel: int4_matmul time at (M, K, N, G)={shape}: {line}")
+    return {"max_abs_err": worst, **times[INT4_TIMED[0]]}
+
+
+def int8_vs_plain(device) -> dict:
+    """The int8 kernel against its plain version at every int8 shape of the
+    step, fp32 and bf16 x, then timed (bf16 x, the served dtype) beside the
+    plain version and a bf16 matmul of the dequantized weight, each both
+    ways: launches timed with CUDA events, which at these shapes time the
+    wrapper's host work, and inside a CUDA graph, which times the device.
+    Returns the largest fp32 error (the kernel's own summation) and the
+    times at the action gate."""
+    from blurr_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+
+    g = torch.Generator(device=device).manual_seed(2)
+
+    def inputs(m, k, n):
+        x = torch.randn(m, k, device=device, generator=g) * 2
+        q = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=device, generator=g)
+        # scales of the size the int8 quantizer gives Pi-0's weights
+        s = torch.rand(n, device=device, generator=g) * 2e-4 + 1e-5
+        return x, q, s
+
+    worst_fp32 = 0.0
+    for shape in INT8_SHAPES:
+        x, q, s = inputs(*shape)
+        ref = int8_matmul_reference(x, q, s)  # fp32; rounds x to bf16 itself
+        top = ref.abs().max().item()
+        for dtype in (torch.float32, torch.bfloat16):
+            out = int8_matmul(x.to(dtype), q, s)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs()
+            bound = INT8_FP32_REL_TOL * top
+            if dtype == torch.bfloat16:
+                bound = bound + BF16_ROUNDING * ref.abs()
+            ok = bool(torch.isfinite(out).all()) and bool((err <= bound).all())
+            log(f"kernel: int8_matmul (M, K, N)={shape} {str(dtype)[6:]} "
+                f"max_abs_err={err.max().item():.3e} (bound {INT8_FP32_REL_TOL * top:.3e}"
+                f"{' + one bf16 rounding of each output' if dtype == torch.bfloat16 else ''})")
+            if not ok:
+                raise RuntimeError(f"int8 kernel disagrees with its plain version at {shape} {dtype}")
+            if dtype == torch.float32:
+                worst_fp32 = max(worst_fp32, err.max().item())
+        xb = x.bfloat16()
+        ms = _time_ms(lambda: int8_matmul(xb, q, s), iters=20)
+        graph_ms = _graph_ms(lambda: int8_matmul(xb, q, s))
+        log(f"kernel: int8_matmul (M, K, N)={shape} bf16 kernel {ms:.4f} ms "
+            f"(CUDA events, 20 launches), {graph_ms:.4f} ms in a CUDA graph")
+    times = {}
+    for shape in INT8_TIMED:
+        x, q, s = inputs(*shape)
+        xb = x.bfloat16()
+        wb = (q.float() * s).bfloat16()
+        times[shape] = _kernel_times(lambda: int8_matmul(xb, q, s),
+                                     lambda: int8_matmul_reference(xb, q, s))
+        line = _fmt_times(times[shape], lambda: torch.matmul(xb, wb), "the dequantized weight")
+        log(f"kernel: int8_matmul time at (M, K, N)={shape} bf16: {line}")
+    return {"max_abs_err": worst_fp32, **times[INT8_TIMED[0]]}
+
+
+def _kernel_wrappers() -> dict:
+    from blurr_tpu_torch.ops.flash_attention import flash_attention
+    from blurr_tpu_torch.ops.int4_matmul import int4_matmul
+    from blurr_tpu_torch.ops.int8_matmul import int8_matmul
+
+    return {"flash_attention": flash_attention, "int4_matmul": int4_matmul,
+            "int8_matmul": int8_matmul}
+
+
+def _zero_counts() -> None:
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
 
 
 def _serve_requests(server, cfg, label):
     """N_REQUESTS through ActionClient with the kernel counts set to 0
     just before; returns the actions, the counts and the server stats."""
     from blurr_tpu.serving.client import ActionClient
-    from blurr_tpu_torch.ops.flash_attention import flash_attention
-    from blurr_tpu_torch.ops.int4_matmul import int4_matmul
 
     ready = threading.Event()
     thread = threading.Thread(
@@ -303,7 +461,7 @@ def _serve_requests(server, cfg, label):
         image = rng.randint(0, 256, (size, size, 3), np.uint8)
         proprio = rng.uniform(-1, 1, 7).tolist()
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = int4_matmul.launches = 0
+        _zero_counts()
         latencies, actions = [], []
         with ActionClient(port=server.port) as client:
             for _ in range(N_REQUESTS):
@@ -311,8 +469,7 @@ def _serve_requests(server, cfg, label):
                 actions.append(client.predict(image, "put the spoon on the towel", proprio))
                 latencies.append((time.monotonic() - t) * 1000.0)
             stats = client.stats()
-        launches = {"flash_attention": flash_attention.launches,
-                    "int4_matmul": int4_matmul.launches}
+        launches = _counts()
         peak = torch.cuda.max_memory_allocated()
     finally:
         server.stop()
@@ -357,22 +514,23 @@ def served_control_steps(device):
     image, proprio, launches = _serve_requests(server, cfg, "serve")
     n_layers = cfg["joint"]["config"]["num_hidden_layers"]
     # 18 layers, the last computes only K/V
-    _check_launches("serve", launches, {"flash_attention": n_layers - 1, "int4_matmul": 0})
+    _check_launches("serve", launches,
+                    {"flash_attention": n_layers - 1, "int4_matmul": 0, "int8_matmul": 0})
     return server, image, proprio, launches
 
 
-def int4_launches_per_step(model) -> int:
-    """The int4 kernel's launches in one control step: the prefill runs the
-    vlm and proprio mixtures' 7 linears in every layer but the last, where
-    it runs only q, k and v; each flow step's decode runs the action
-    mixture's 7 linears in every layer."""
-    from blurr_tpu_torch.ops.quant import W4A8Linear
-
+def launches_per_step(model, cls) -> int:
+    """The launches in one control step of the kernel behind the linears of
+    class ``cls``: the prefill runs the vlm and proprio mixtures' 7 linears
+    in every layer but the last, where it runs only q, k and v; each flow
+    step runs the action encoder's 3 linears and the action mixture's 7
+    linears in every layer."""
     qkv = ("q_proj", "k_proj", "v_proj")
     rest = ("o_proj", "gate_proj", "up_proj", "down_proj")
+    encoder = ("action_encoder_w1", "action_encoder_w2", "action_encoder_w3")
 
-    def count(layer, attrs):
-        return sum(isinstance(getattr(layer, a), W4A8Linear) for a in attrs)
+    def count(mod, attrs):
+        return sum(isinstance(getattr(mod, a), cls) for a in attrs)
 
     prefill = sum(
         sum(count(layer, qkv + rest) for layer in model.joint[n].layers[:-1])
@@ -380,14 +538,37 @@ def int4_launches_per_step(model) -> int:
         for n in ("vlm", "proprio")
     )
     decode = sum(count(layer, qkv + rest) for layer in model.joint["action"].layers)
-    return prefill + model.spec.num_inference_steps * decode
+    return prefill + model.spec.num_inference_steps * (decode + count(model, encoder))
 
 
 def resident_bytes(model) -> int:
     return sum(t.numel() * t.element_size() for t in [*model.parameters(), *model.buffers()])
 
 
+def _resident_parts(model) -> dict:
+    return {
+        "embed_tokens": model.embed_tokens.numel() * model.embed_tokens.element_size(),
+        "vlm mixture": resident_bytes(model.joint["vlm"]),
+        "action mixture": resident_bytes(model.joint["action"]),
+        "action encoder": sum(resident_bytes(getattr(model, f"action_encoder_w{i}"))
+                              for i in (1, 2, 3)),
+        "siglip": resident_bytes(model.vision_tower),
+    }
+
+
+def _step_median(server, image, proprio, label) -> None:
+    inputs = server._prepare(image, "put the spoon on the towel", proprio)
+    times = []
+    for i in range(10):
+        t = time.monotonic()
+        server._step(*inputs, request_idx=i)  # returns host numpy: synchronized
+        times.append((time.monotonic() - t) * 1000.0)
+    log(f"{label}: control step ms median {float(np.median(times)):.3f} "
+        f"min {min(times):.3f} over {len(times)} (host clock, synchronized)")
+
+
 def served_w4a8_steps(device) -> dict:
+    from blurr_tpu_torch.ops.quant import W4A8Linear
     from blurr_tpu_torch.presets import load_config
     from blurr_tpu_torch.serving.server import ActionServer
 
@@ -403,30 +584,71 @@ def served_w4a8_steps(device) -> dict:
         f"{time.monotonic() - t0:.2f} s; resident parameters and buffers "
         f"{weights} B ({weights / 1e9:.3f} GB, bound {MAX_W4A8_WEIGHT_BYTES / 1e9:g} GB), "
         f"allocated {torch.cuda.memory_allocated()} B")
-    parts = {
-        "embed_tokens": model.embed_tokens.numel() * model.embed_tokens.element_size(),
-        "vlm mixture": resident_bytes(model.joint["vlm"]),
-        "action mixture": resident_bytes(model.joint["action"]),
-        "siglip": resident_bytes(model.vision_tower),
-    }
-    log(f"serve-w4a8: resident bytes by part {parts}")
+    log(f"serve-w4a8: resident bytes by part {_resident_parts(model)}")
     if weights > MAX_W4A8_WEIGHT_BYTES:
         raise RuntimeError(f"resident weights {weights} B over the bound")
-    per_step = int4_launches_per_step(model)
+    per_step = launches_per_step(model, W4A8Linear)
     if per_step != 370:
         raise RuntimeError(f"the pool64 w4a8 step has {per_step} int4 linears, not 370")
     image, proprio, launches = _serve_requests(server, cfg, "serve-w4a8")
     n_layers = cfg["joint"]["config"]["num_hidden_layers"]
-    _check_launches("serve-w4a8", launches,
-                    {"flash_attention": n_layers - 1, "int4_matmul": per_step})
-    inputs = server._prepare(image, "put the spoon on the towel", proprio)
-    times = []
-    for i in range(10):
-        t = time.monotonic()
-        server._step(*inputs, request_idx=i)  # returns host numpy: synchronized
-        times.append((time.monotonic() - t) * 1000.0)
-    log(f"serve-w4a8: control step ms median {float(np.median(times)):.3f} "
-        f"min {min(times):.3f} over {len(times)} (host clock, synchronized)")
+    _check_launches("serve-w4a8", launches, {"flash_attention": n_layers - 1,
+                                             "int4_matmul": per_step, "int8_matmul": 0})
+    _step_median(server, image, proprio, "serve-w4a8")
+    return launches
+
+
+def served_int8_steps(device, cache_fp: bool) -> dict:
+    """bridge_pool64_steps2.yaml at full width: the int8 {q, s} tier
+    (``cache_fp=False``) or the preset as shipped (its cached bf16 copy);
+    every decode must read an int8 prefix cache."""
+    from blurr_tpu_torch.models.pi0 import joint as joint_lib
+    from blurr_tpu_torch.ops.quant import CachedFpLinear, Int8Linear
+    from blurr_tpu_torch.presets import load_config
+    from blurr_tpu_torch.serving.server import ActionServer
+
+    label = "serve-int8-cached" if cache_fp else "serve-int8"
+    cfg = load_config("config/eval/bridge_pool64_steps2.yaml")
+    if cfg["action_quantization"]["cache_fp_weight"] is not True:
+        raise RuntimeError("bridge_pool64_steps2.yaml no longer ships cache_fp_weight: true")
+    cfg["action_quantization"]["cache_fp_weight"] = cache_fp
+    cfg["joint"]["config"]["use_flash_attn"] = True
+    t0 = time.monotonic()
+    server = ActionServer(cfg, "random", device=device, seed=0)
+    torch.cuda.synchronize()
+    model = server.model
+    weights = resident_bytes(model)
+    log(f"{label}: bridge_pool64_steps2.yaml, cache_fp_weight={cache_fp}, random "
+        f"{server.dtype} weights drawn on the card and quantized there in "
+        f"{time.monotonic() - t0:.2f} s; resident parameters and buffers "
+        f"{weights} B ({weights / 1e9:.3f} GB), allocated "
+        f"{torch.cuda.memory_allocated()} B")
+    log(f"{label}: resident bytes by part {_resident_parts(model)}")
+    kind = CachedFpLinear if cache_fp else Int8Linear
+    if launches_per_step(model, kind) != INT8_STEP_LAUNCHES:
+        raise RuntimeError(f"the pool64 int8 step has {launches_per_step(model, kind)} "
+                           f"{kind.__name__}s, not {INT8_STEP_LAUNCHES}")
+    per_step = launches_per_step(model, Int8Linear)
+    cache_dtypes = set()
+    real_decode = joint_lib.decode
+
+    def recording_decode(*args, **kwargs):
+        cache = args[4]
+        cache_dtypes.update(t.dtype for entry in cache for t in entry[:2])
+        return real_decode(*args, **kwargs)
+
+    joint_lib.decode = recording_decode
+    try:
+        image, proprio, launches = _serve_requests(server, cfg, label)
+    finally:
+        joint_lib.decode = real_decode
+    log(f"{label}: prefix cache k/v dtypes read by the decodes {sorted(map(str, cache_dtypes))}")
+    if cache_dtypes != {torch.int8}:
+        raise RuntimeError(f"the prefix cache is not held as int8: {cache_dtypes}")
+    n_layers = cfg["joint"]["config"]["num_hidden_layers"]
+    _check_launches(label, launches, {"flash_attention": n_layers - 1,
+                                      "int4_matmul": 0, "int8_matmul": per_step})
+    _step_median(server, image, proprio, label)
     return launches
 
 
@@ -477,20 +699,27 @@ def small_model_vs_cpu(device, quant: str = "") -> None:
     """The small model on the card against the same weights on the CPU;
     with ``quant="w4a8"`` both hold the same w4a8 weights (quantized once,
     on the CPU), vlm and action mixtures through the int4 kernel and
-    SigLIP w8a8."""
+    SigLIP w8a8; with ``quant="int8"`` the action expert is int8 {q, s}
+    through the int8 kernel and the prefix cache is int8 (clip 1.0,
+    dequantized to bf16)."""
     from blurr_tpu_torch.models.pi0.pizero import PiZero
-    from blurr_tpu_torch.ops.flash_attention import flash_attention
-    from blurr_tpu_torch.ops.int4_matmul import int4_matmul
+    from blurr_tpu_torch.ops.quant import Int8Linear, W4A8Linear
     from blurr_tpu_torch.presets import apply_preset, load_config
 
-    label, tol = ("small-w4a8", SMALL_W4A8_TOL) if quant else ("small", SMALL_TOL)
+    label, tol = {"": ("small", SMALL_TOL), "w4a8": ("small-w4a8", SMALL_W4A8_TOL),
+                  "int8": ("small-int8", SMALL_INT8_TOL)}[quant]
     cfg = load_config("config/eval/bridge_tiny.yaml")
     apply_preset(cfg, "prefix_cache")  # fp32, prefix cache, 10 flow steps
     cfg["max_image_text_tokens"] = cfg["max_seq_len"] = 80
     cfg["joint"]["config"]["use_flash_attn"] = True
-    if quant:
+    if quant == "w4a8":
         cfg["vlm_quantization"] = {"mode": quant, "include_vision": True}
         cfg["action_quantization"] = {"mode": quant, "activation_clip": None}
+    elif quant == "int8":
+        cfg["action_quantization"] = {"mode": "int8", "activation_clip": 1.0,
+                                      "cache_fp_weight": False}
+        cfg["kv_quantization"] = {"mode": "int8", "activation_clip": 1.0,
+                                  "dtype": "bfloat16"}
     cpu = PiZero(cfg, device="cpu", dtype=torch.float32)
     cpu.init_params(torch.Generator().manual_seed(0))
     cpu.enable_action_quantization()
@@ -513,13 +742,13 @@ def small_model_vs_cpu(device, quant: str = "") -> None:
         torch.from_numpy(rng.randn(2, 4, s.action_dim).astype(np.float32)),
     ]
     ref = cpu.infer_action(*inputs)
-    flash_attention.launches = int4_matmul.launches = 0
+    _zero_counts()
     out = gpu.infer_action(*(t.to(device) for t in inputs))
     torch.cuda.synchronize()
-    launches = {"flash_attention": flash_attention.launches,
-                "int4_matmul": int4_matmul.launches}
+    launches = _counts()
     expected = {"flash_attention": cfg["joint"]["config"]["num_hidden_layers"] - 1,
-                "int4_matmul": int4_launches_per_step(gpu)}
+                "int4_matmul": launches_per_step(gpu, W4A8Linear),
+                "int8_matmul": launches_per_step(gpu, Int8Linear)}
     err = (out.cpu() - ref).abs().max().item()
     log(f"{label}: fp32 bridge_tiny widths, prefix 81, card vs CPU actions "
         f"max_abs_err={err:.3e} (tol {tol:g}), kernel launches {launches} "
@@ -528,6 +757,65 @@ def small_model_vs_cpu(device, quant: str = "") -> None:
         raise RuntimeError(f"card and CPU disagree on the {label} model: {err}")
     if launches != expected:
         raise RuntimeError(f"the {label} model launched {launches}, not {expected}")
+    if quant == "int8":
+        _int8_rounding_witness(cpu, gpu, inputs, device)
+
+
+def _int8_rounding_witness(cpu, gpu, inputs, device) -> None:
+    """small-int8's second witness: record the CPU's int8 prefix cache and
+    the int8 kernel's inputs, then run the card again giving it the CPU's
+    value wherever its own rounds the other way (a cached K/V value to
+    another int8 step, a kernel input to another bf16). What is left is the
+    fp32 summation order, held to SMALL_TOL."""
+    from blurr_tpu_torch.models.pi0 import pizero
+    from blurr_tpu_torch.ops import quant
+
+    real_cache, real_mm = pizero._quantize_cache, quant.int8_mm_nd
+    caches, xs = [], []
+    flips = {"cached K/V values": 0, "kernel inputs": 0}
+
+    def record_cache(cache, clip):
+        caches.append(real_cache(cache, clip))
+        return caches[-1]
+
+    def record_mm(x, w):
+        xs.append(x)
+        return real_mm(x, w)
+
+    def repair_cache(cache, clip):
+        out = []
+        for mine, theirs in zip(real_cache(cache, clip), caches[0]):
+            k, v = theirs.k.to(device), theirs.v.to(device)
+            flips["cached K/V values"] += int((mine.k != k).sum() + (mine.v != v).sum())
+            out.append(mine._replace(k=k, v=v))
+        return out
+
+    cpu_xs = iter(xs)
+
+    def repair_mm(x, w):
+        theirs = next(cpu_xs).to(device)
+        flip = x.bfloat16() != theirs.bfloat16()
+        flips["kernel inputs"] += int(flip.sum())
+        return real_mm(torch.where(flip, theirs, x), w)
+
+    try:
+        pizero._quantize_cache, quant.int8_mm_nd = record_cache, record_mm
+        ref = cpu.infer_action(*inputs)
+        pizero._quantize_cache, quant.int8_mm_nd = repair_cache, repair_mm
+        out = gpu.infer_action(*(t.to(device) for t in inputs))
+        torch.cuda.synchronize()
+    finally:
+        pizero._quantize_cache, quant.int8_mm_nd = real_cache, real_mm
+    err = (out.cpu() - ref).abs().max().item()
+    n_values = sum(e.k.numel() + e.v.numel() for e in caches[0])
+    n_inputs = sum(x.numel() for x in xs)
+    log(f"small-int8: with the CPU's rounding where the card's differs "
+        f"({flips['cached K/V values']} of {n_values} cached K/V values, "
+        f"{flips['kernel inputs']} of {n_inputs} kernel inputs) card vs CPU "
+        f"max_abs_err={err:.3e} (tol {SMALL_TOL:g})")
+    if not (torch.isfinite(out).all() and err <= SMALL_TOL):
+        raise RuntimeError(f"card and CPU disagree on the small-int8 model "
+                           f"with the roundings repaired: {err}")
 
 
 def main() -> int:
@@ -541,6 +829,7 @@ def main() -> int:
     build()
     flash = kernel_vs_plain(device)
     int4 = int4_vs_plain(device)
+    int8 = int8_vs_plain(device)
     server, image, proprio, launches = served_control_steps(device)
     model_kernel_vs_plain(server, image, proprio)
     del server
@@ -549,7 +838,13 @@ def main() -> int:
     w4a8_launches = served_w4a8_steps(device)
     torch.cuda.empty_cache()
     small_model_vs_cpu(device, "w4a8")
-    total = {name: launches[name] + w4a8_launches[name] for name in KERNEL_NAMES}
+    int8_launches = served_int8_steps(device, cache_fp=False)
+    torch.cuda.empty_cache()
+    cached_launches = served_int8_steps(device, cache_fp=True)
+    torch.cuda.empty_cache()
+    small_model_vs_cpu(device, "int8")
+    served = (launches, w4a8_launches, int8_launches, cached_launches)
+    total = {name: sum(run[name] for run in served) for name in KERNEL_NAMES}
     log(json.dumps({"kernels": [
         {
             "name": "flash_attention",
@@ -566,6 +861,14 @@ def main() -> int:
             "replaces": "blurr_tpu/ops/pallas_int4_matmul.py:109",
             "launches": total["int4_matmul"],
             **int4,
+        },
+        {
+            "name": "int8_matmul",
+            "route": "cuda",
+            "source": "blurr_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "blurr_tpu/ops/pallas_int8_matmul.py:30",
+            "launches": total["int8_matmul"],
+            **int8,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,12 @@ The port's counterpart of scripts/serve_pi0.py, on the single-request path.
 Clients: blurr_tpu.serving.ActionClient.predict(image_u8_hw3, instruction,
 proprio) -> raw normalized action chunk [horizon, action_dim]; the image
 must be image_size square (224x224x3 for bridge.yaml). The weights are
-random, drawn on the device from --seed. Prefill attention runs through
-the port's CUDA flash kernel only when the config sets
+random, drawn on the device from --seed, then quantized there as the
+config says: e.g. --config config/eval/bridge_pool64_steps2.yaml serves the
+int8 tier (action expert int8 or its cached bf16 copy, int8 KV cache). As
+in scripts/serve_pi0.py, --preset (default blurr) is applied on top of the
+config, so its num_inference_steps wins. Prefill attention runs through the
+port's CUDA flash kernel only when the config sets
 joint.config.use_flash_attn.
 """
 

@@ -1,6 +1,6 @@
 """The port never imports JAX: in a subprocess where ``import jax`` fails,
 import blurr_tpu_torch, run a tiny random infer_action on the CPU and build
-the port's ActionServer, bf16 and w4a8."""
+the port's ActionServer, bf16, w4a8, and int8 with the int8 KV cache."""
 
 import os
 import subprocess
@@ -13,6 +13,7 @@ SCRIPT = textwrap.dedent(
     """
     import sys
     sys.modules["jax"] = None  # any `import jax` now raises ImportError
+    import numpy as np
     import torch
     import blurr_tpu_torch
     from blurr_tpu_torch.models.pi0.pizero import PiZero
@@ -38,6 +39,14 @@ SCRIPT = textwrap.dedent(
     cfg["vlm_quantization"] = {"mode": "w4a8", "include_vision": True}
     cfg["action_quantization"] = {"mode": "w4a8"}
     ActionServer(cfg, "random", device="cpu")  # quantizes: ops.quant, int4
+    cfg["vlm_quantization"] = {"mode": None}
+    cfg["action_quantization"] = {"mode": "int8", "activation_clip": 1.0,
+                                  "cache_fp_weight": False}
+    cfg["kv_quantization"] = {"mode": "int8", "activation_clip": 1.0,
+                              "dtype": "bfloat16"}
+    srv = ActionServer(cfg, "random", device="cpu")  # ops.quant, int8_matmul
+    act = srv.predict(np.zeros((size, size, 3), np.uint8), "pick", [0.0] * 7)
+    assert act.shape == (4, 7) and np.isfinite(act).all()
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert all(sys.modules[m] is None for m in loaded), loaded
     print("NO_JAX_OK")

@@ -6,8 +6,13 @@ load_jax_params. Tolerances: fp32 actions atol 1e-4 (the same fp32
 formulas summed in another order through 3 joint layers and 2 SigLIP
 layers); bf16 actions atol 5e-2 (bf16 rounds at the same places on both
 sides, but each rounding can land one ulp apart, ~4e-3 relative, and a few
-compound). The w8a8 / w4a8 tiers run on JAX's quantized bytes, carried over
-by load_jax_params, at the same tolerances.
+compound). The w8a8 / w4a8 / int8 tiers run on JAX's quantized bytes,
+carried over by load_jax_params, at the same tolerances. The port's int8
+``{"q","s"}`` product is the int8 kernel, which rounds x to bf16; JAX's
+``quant.mm`` dequantizes in XLA and does not, so that tier is held at 1e-4
+against the JAX model whose ``{"q","s"}`` products go through the JAX
+package's own kernel (``int8_mm_nd`` in interpret mode, patched in with
+pytest's monkeypatch), and at 1e-2 against the JAX model as it is.
 """
 
 import numpy as np
@@ -21,10 +26,13 @@ from blurr_tpu.models.pi0 import joint as j_joint
 from blurr_tpu.models.pi0.pizero import PiZero as JPiZero
 from blurr_tpu.models.pi0.siglip import siglip_forward
 from blurr_tpu.ops import masks as j_masks
+from blurr_tpu.ops import quant as j_quant
+from blurr_tpu.ops.pallas_int8_matmul import int8_mm_nd
 from blurr_tpu_torch.models.pi0 import joint as t_joint
 from blurr_tpu_torch.models.pi0.checkpoint import load_jax_params
 from blurr_tpu_torch.models.pi0.pizero import PiZero
 from blurr_tpu_torch.ops import masks as t_masks
+from blurr_tpu_torch.ops.quant import CachedFpLinear, Int8Linear
 from tests import test_golden
 from tests.util import tiny_inputs, tiny_pi0_cfg
 
@@ -189,16 +197,7 @@ def test_load_rejects_untied_tree():
 
 
 def test_unported_modes_raise():
-    """Modes the JAX package knows but the port has not ported yet: the int8
-    weight-only tiers and the int8 KV cache; and adaLN."""
-    for key, mode in (("action_quantization", "int8"),
-                      ("action_quantization", "int8_cached"),
-                      ("action_quantization", "bnb_int8"),
-                      ("kv_quantization", "int8")):
-        cfg = _cfg(False)
-        cfg[key] = {"mode": mode}
-        with pytest.raises(NotImplementedError, match=key):
-            PiZero(cfg, device="cpu", dtype=torch.float32)
+    """What the JAX package has and the port has not ported yet: adaLN."""
     cfg = _cfg(False)
     cfg.joint.config.mixture.action.adaptive_mode = "adaLN"
     with pytest.raises(NotImplementedError, match="adaLN"):
@@ -348,3 +347,216 @@ def test_load_rejects_another_kind_of_weight():
     tm8.enable_action_quantization()
     with pytest.raises(ValueError, match="W8A8Linear"):
         load_jax_params(tm8, qtree)
+
+
+# ---------------------------------------------------------------------------
+# The int8 tier: int8 weight-only {"q","s"} or cached-fp {"fp"}, int8 KV cache
+# ---------------------------------------------------------------------------
+
+
+def _route_jax_through_k3(monkeypatch):
+    """Route the JAX model's {"q","s"} products through the JAX package's own
+    int8 kernel (int8_mm_nd, interpret mode) instead of its XLA dequant;
+    nothing in the package is edited."""
+    real_mm = j_quant.mm
+
+    def mm(x, w, activation_clip=None):
+        if isinstance(w, dict) and set(w) == {"q", "s"}:
+            if activation_clip is not None:
+                x = jnp.clip(x, -activation_clip, activation_clip)
+            return int8_mm_nd(x, w, interpret=True)
+        return real_mm(x, w, activation_clip)
+
+    monkeypatch.setattr(j_quant, "mm", mm)
+    monkeypatch.setattr(j_joint, "mm", mm)
+
+
+@pytest.fixture
+def jax_through_k3(monkeypatch):
+    _route_jax_through_k3(monkeypatch)
+
+
+def _int8_cfg(cache_fp: bool, mode="int8", kv=True, clip=1.0, **overrides):
+    """The bridge_pool64_steps2 tier on the tiny model: action int8 with the
+    activation clip, the int8 KV cache with clip 1.0 dequantized to bf16."""
+    cfg = _cfg(False, **overrides)
+    cfg["action_quantization"] = {"mode": mode, "activation_clip": clip,
+                                  "cache_fp_weight": cache_fp}
+    if kv:
+        cfg["kv_quantization"] = {"mode": "int8", "activation_clip": 1.0,
+                                  "dtype": "bfloat16"}
+    return cfg
+
+
+def test_int8_cached_fp_with_kv_int8_fp32():
+    """(a) The preset's own tier: cached-fp weights (a bf16 copy, also in an
+    fp32 model) and the int8 KV cache, against JAX at atol 1e-4."""
+    cfg = _int8_cfg(cache_fp=True)
+    jm, params, tm = _quant_pair(cfg)
+    assert isinstance(tm.joint["action"].layers[0].gate_proj, CachedFpLinear)
+    assert tm.joint["action"].layers[0].gate_proj.fp.dtype == torch.bfloat16
+    assert isinstance(tm.action_encoder_w2, CachedFpLinear)
+    j_in, t_in = _inputs(cfg)
+    ref = np.asarray(jm.infer_action(params, **j_in))
+    out = tm.infer_action(**t_in)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=0)
+
+
+def test_int8_weights_with_kv_int8_fp32(monkeypatch):
+    """(b) {"q","s"} through the port's int8 kernel (its plain version on the
+    CPU) with the int8 KV cache: against the JAX model as it is at 1e-2,
+    then against the JAX model routed through its int8 kernel at 1e-4."""
+    cfg = _int8_cfg(cache_fp=False)
+    jm, params, tm = _quant_pair(cfg)
+    assert isinstance(tm.joint["action"].layers[0].q_proj, Int8Linear)
+    assert isinstance(tm.action_encoder_w1, Int8Linear)
+    j_in, t_in = _inputs(cfg)
+    out = tm.infer_action(**t_in).numpy()
+    xla = np.asarray(jm.infer_action(params, **j_in))
+    np.testing.assert_allclose(out, xla, atol=1e-2, rtol=0)
+    _route_jax_through_k3(monkeypatch)
+    k3 = np.asarray(jm.infer_action(params, **j_in))
+    np.testing.assert_allclose(out, k3, atol=1e-4, rtol=0)
+
+
+def test_int8_tier_bf16_two_steps(monkeypatch):
+    """(c) The same tier in bf16 with 2 flow steps, at the bf16 tolerance
+    5e-2, against the JAX model as it is (whose quant.mm rounds s and the
+    dequantized weight to bf16) and routed through its int8 kernel; each
+    gap measured 1.17e-2, three bf16 ulps at 1.0."""
+    cfg = _int8_cfg(cache_fp=False, use_bf16=True, num_inference_steps=2)
+    jm, params, tm = _quant_pair(cfg, jnp.bfloat16)
+    j_in, t_in = _inputs(cfg, jnp.bfloat16)
+    out = tm.infer_action(**t_in)
+    assert out.dtype == torch.bfloat16
+    xla = np.asarray(jm.infer_action(params, **j_in).astype(jnp.float32))
+    np.testing.assert_allclose(out.float().numpy(), xla, atol=5e-2, rtol=0)
+    _route_jax_through_k3(monkeypatch)
+    k3 = np.asarray(jm.infer_action(params, **j_in).astype(jnp.float32))
+    np.testing.assert_allclose(out.float().numpy(), k3, atol=5e-2, rtol=0)
+
+
+def test_int8_actions_track_the_fp_model():
+    """(d) tests/test_quant.py's criteria, reproduced by the port: int8
+    weight-only action expert and int8 KV cache against the fp model on the
+    same weights, correlation > 0.99 and mean |difference| < 0.1."""
+    cfg = _int8_cfg(cache_fp=False, clip=None)
+    cfg["kv_quantization"] = {"mode": "int8", "activation_clip": 1.0}
+    _, _, tm = _pair(cfg)
+    _, t_in = _inputs(cfg)
+    ref = tm.infer_action(**t_in).numpy()
+    tm.enable_action_quantization()
+    quant = tm.infer_action(**t_in).numpy()
+    assert np.isfinite(quant).all()
+    assert np.corrcoef(quant.ravel(), ref.ravel())[0, 1] > 0.99
+    assert np.abs(quant - ref).mean() < 0.1
+    assert not np.array_equal(quant, ref)
+
+
+@pytest.mark.parametrize("key,mode", [("action_quantization", "int8"),
+                                      ("action_quantization", "int8_cached"),
+                                      ("action_quantization", "bnb_int8"),
+                                      ("kv_quantization", "int8")])
+def test_int8_modes_build_and_run(jax_through_k3, key, mode):
+    """The four modes that raised before the int8 tier was ported now build
+    and run, each against the JAX model (routed through its int8 kernel) at
+    1e-4. int8_cached and bnb_int8 are the int8 path, as in JAX."""
+    cfg = _cfg(False)
+    cfg[key] = {"mode": mode}
+    jm, params, tm = _quant_pair(cfg)
+    quantized = key == "action_quantization"
+    assert isinstance(tm.joint["action"].layers[0].up_proj, Int8Linear) == quantized
+    assert tm.kv_quant_mode == (mode if not quantized else None)
+    j_in, t_in = _inputs(cfg)
+    ref = np.asarray(jm.infer_action(params, **j_in))
+    out = tm.infer_action(**t_in)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,want", [("int4", None), ("float16", torch.bfloat16),
+                                        ("torch.float32", torch.float32),
+                                        ("bfloat16", torch.bfloat16), ("", None)])
+def test_kv_dequant_dtype_is_read_whatever_the_mode(dtype, want):
+    """kv_quantization.dtype is validated as JAX validates it, with the int8
+    KV cache off: an unknown dtype raises ValueError in both packages, and
+    float16 maps to bfloat16 in both."""
+    cfg = _cfg(False)
+    cfg["kv_quantization"] = {"mode": None, "dtype": dtype}
+    if dtype == "int4":
+        with pytest.raises(ValueError, match="kv_quantization.dtype"):
+            JPiZero(cfg)
+        with pytest.raises(ValueError, match="kv_quantization.dtype"):
+            PiZero(cfg, device="cpu", dtype=torch.float32)
+        return
+    j_dtype = JPiZero(cfg).kv_dequant_dtype
+    assert (None if j_dtype is None else str(jnp.dtype(j_dtype))) == (
+        None if want is None else str(want).removeprefix("torch."))
+    assert PiZero(cfg, device="cpu", dtype=torch.float32).kv_dequant_dtype == want
+
+
+def test_load_int8_trees_and_refuse_another_kind():
+    """(e) load_jax_params carries both int8 kinds over byte for byte, and
+    refuses a tree of the other kind."""
+    trees = {}
+    for cache_fp in (False, True):
+        cfg = _int8_cfg(cache_fp)
+        jm, params, tm = _quant_pair(cfg)
+        trees[cache_fp] = tree = jax.tree.map(_np, params)
+        layer = tm.joint["action"].layers[1]
+        if cache_fp:
+            np.testing.assert_array_equal(
+                layer.down_proj.fp.float().numpy(), tree["joint"]["action"]["down_w"]["fp"][1])
+        else:
+            np.testing.assert_array_equal(
+                layer.down_proj.q.numpy(), tree["joint"]["action"]["down_w"]["q"][1])
+            np.testing.assert_array_equal(
+                tm.action_encoder_w3.s.numpy(), tree["action_encoder"]["w3"]["s"])
+        np.testing.assert_array_equal(
+            tm.action_encoder_w1.bias.detach().numpy(), tree["action_encoder"]["b1"])
+    for cache_fp, other in ((False, "CachedFpLinear"), (True, "Int8Linear")):
+        tm = PiZero(_int8_cfg(cache_fp), device="cpu", dtype=torch.float32)
+        tm.enable_action_quantization()
+        with pytest.raises(ValueError, match=other):
+            load_jax_params(tm, trees[not cache_fp])
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "bfloat16"])
+def test_decode_over_an_int8_cache_matches_jax(kv_dtype):
+    """joint.decode over the same int8 cache bytes and scales (per layer in
+    the port, stacked in JAX), dequantized in each layer to the action dtype
+    or to bf16; in the fp32 model the bf16 cache and the fresh fp32 K/V
+    concatenate to fp32 on both sides."""
+    from blurr_tpu.ops.quant import quantize_kv_int8 as j_quantize_kv
+
+    cfg = _cfg(False)
+    jm, params, tm = _pair(cfg)
+    s = jm.spec
+    rng = np.random.RandomState(5)
+    nl, kvh, hd = 3, cfg.joint.config.num_key_value_heads, cfg.joint.config.head_dim
+    p = s.max_image_text_tokens + s.num_proprio_tokens
+    k_all = jnp.asarray(rng.randn(nl, 2, kvh, p, hd).astype(np.float32) * 2)
+    v_all = jnp.asarray(rng.randn(nl, 2, kvh, p, hd).astype(np.float32))
+    (k_q, k_s), (v_q, v_s) = j_quantize_kv(k_all, 1.0), j_quantize_kv(v_all, 1.0)
+    embeds = rng.randn(2, s.num_action_tokens, 16).astype(np.float32)
+    am = np.ones((2, s.max_image_text_tokens), np.int32)
+    am[0, 9:] = 0
+    mask = j_masks.pi0_action_mask(jnp.asarray(am), s.max_image_text_tokens,
+                                   s.num_proprio_tokens, s.num_action_tokens)
+    pos = j_masks.pi0_position_ids(2, s.max_image_text_tokens, s.num_proprio_tokens,
+                                   s.num_action_tokens)[2]
+    j_dtype = {None: None, "bfloat16": jnp.bfloat16}[kv_dtype]
+    ref = j_joint.decode(
+        {"action": params["joint"]["action"]}, jm.joint_spec, jnp.asarray(embeds), pos,
+        {"k": k_q, "v": v_q, "k_scale": k_s, "v_scale": v_s}, mask,
+        kv_dequant_dtype=j_dtype,
+    )
+    t = lambda a: torch.from_numpy(np.array(a))
+    cache = [t_joint.Int8KV(t(k_q[i]), t(v_q[i]), t(k_s[i]), t(v_s[i])) for i in range(nl)]
+    with torch.no_grad():
+        out = t_joint.decode(
+            tm.joint["action"], tm.joint_spec, t(embeds), t(pos), cache, t(mask),
+            {None: None, "bfloat16": torch.bfloat16}[kv_dtype],
+        )
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=0)

@@ -1,5 +1,6 @@
-"""The port's w8a8 / w4a8 tiers (blurr_tpu_torch.ops.quant) against the JAX
-package's blurr_tpu.ops.quant on the CPU.
+"""The port's int8 / cached-fp / w8a8 / w4a8 tiers and the int8 KV cache
+(blurr_tpu_torch.ops.quant) against the JAX package's blurr_tpu.ops.quant on
+the CPU.
 
 Quantizer bytes must equal JAX's. The one allowed difference is a tie in the
 w4a8 MSE clip search: the two frameworks sum a cell's squared error in
@@ -10,7 +11,11 @@ Matmul tolerances: w8a8 takes the same fp32 steps as JAX after an exact int32
 dot, rtol 1e-6. The w4a8 product sums fp32 group terms where JAX on the CPU
 takes one fp32 matmul of the dequantized weight: 1e-5 of the output's
 largest magnitude. In bf16 the outputs may round one bf16 ulp apart: 1e-2
-of it.
+of it. The int8 weight-only product goes through the int8 kernel, which
+rounds x to bf16: 1e-5 against the JAX package's own kernel (``int8_mm_nd``
+in interpret mode), and JAX's own tolerance for that kernel against its XLA
+dequant ``quant.mm`` (tests/test_pallas_attention.py: rtol 2e-2, atol 0.15).
+The cached-fp product is the same fp32 matmul on both sides: 1e-6.
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ import jax.numpy as jnp
 from blurr_tpu.models.pi0.pizero import PiZero as JPiZero
 from blurr_tpu.ops import pallas_int4_matmul as j_int4
 from blurr_tpu.ops import quant as jq
+from blurr_tpu.ops.pallas_int8_matmul import int8_mm_nd as j_int8_mm_nd
 from blurr_tpu_torch.models.pi0.checkpoint import load_jax_params
 from blurr_tpu_torch.models.pi0.pizero import PiZero
 from blurr_tpu_torch.ops import int4_matmul as t_int4
@@ -127,10 +133,10 @@ def test_mm_plain_and_unported_weights():
     x = torch.randn(3, 8)
     w = torch.randn(8, 4)
     torch.testing.assert_close(tq.mm(x, w, activation_clip=0.1), x @ w)  # no clamp
-    for bad in ({"q": w.to(torch.int8), "s": torch.ones(4)}, {"fp": w},
-                {"w": w, "lora_a": w, "lora_b": w, "lora_s": 1.0}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tq.mm(x, bad)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tq.mm(x, {"w": w, "lora_a": w, "lora_b": w, "lora_s": 1.0})
+    with pytest.raises(ValueError, match=r"keys \['q', 'scale'\]"):
+        tq.mm(x, {"q": w.to(torch.int8), "scale": w[0]})
 
 
 def test_quantized_linears_from_linear():
@@ -236,6 +242,125 @@ def test_model_quantizers_match_jax_bytes(vlm, action):
     assert tm.joint["proprio"] is tm.joint["action"]
 
 
+@pytest.mark.parametrize("shape", [(64, 48), (3, 96, 40), (7, 130)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_quantizer_matches_jax_bytes(shape, dtype):
+    """{"q","s"} equal JAX's bytes, and the cached-fp {"fp"} copy equals
+    JAX's bf16 copy."""
+    jw = jnp.asarray(_weight(shape)).astype(dtype)
+    tw = _t(jw.astype(jnp.float32), getattr(torch, dtype))
+    want = jq.quantize_weight_int8(jw)
+    got = tq.quantize_weight_int8(tw)
+    assert got["q"].dtype == torch.int8 and got["s"].dtype == torch.float32
+    np.testing.assert_array_equal(got["q"].numpy(), np.asarray(want["q"]))
+    np.testing.assert_array_equal(got["s"].numpy(), np.asarray(want["s"]))
+    want_fp = jq.quantize_weight_int8(jw, cache_fp_dtype=jnp.bfloat16)["fp"]
+    got_fp = tq.quantize_weight_int8(tw, torch.bfloat16)
+    assert set(got_fp) == {"fp"} and got_fp["fp"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got_fp["fp"].float().numpy(),
+                                  np.asarray(want_fp.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("clip", [None, 1.0])
+def test_kv_int8_matches_jax(clip):
+    """A [L, B, H, S, D] cache (one layer of the port's is [B, H, S, D]): the
+    same int8 values and per-(batch, head) scales, taken after the clip, and
+    the same dequantized values in bf16 and fp32."""
+    kv = np.random.RandomState(4).randn(2, 2, 3, 9, 16).astype(np.float32) * 1.5
+    want_q, want_s = jq.quantize_kv_int8(jnp.asarray(kv), clip)
+    got_q, got_s = tq.quantize_kv_int8(_t(kv), clip)
+    assert got_q.dtype == torch.int8 and tuple(got_s.shape) == (2, 2, 3, 1, 1)
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    for jd, td in ((jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)):
+        want = np.asarray(jq.dequantize_kv(want_q, want_s, jd).astype(jnp.float32))
+        got = tq.dequantize_kv(got_q, got_s, td)
+        assert got.dtype == td
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    if clip is not None:  # the clip bites: the scale is clip / 127 everywhere
+        np.testing.assert_array_equal(got_s.numpy(), np.float32(1.0) / np.float32(127.0))
+
+
+@pytest.mark.parametrize("clip", [None, 1.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_mm_matches_jax(dtype, clip):
+    """x [2, 5, 96] through a 96 x 130 {"q","s"} weight: against JAX's
+    int8_mm_nd (interpret mode) after the clip at 1e-5 (bf16: one bf16
+    rounding), and against JAX's quant.mm at its own tolerance for the kernel."""
+    w = _weight((96, 130), seed=6, scale=0.3)
+    x = _x((2, 5, 96), dtype)
+    jw = jq.quantize_weight_int8(jnp.asarray(w))
+    tw = {"q": torch.from_numpy(np.array(jw["q"])), "s": _t(jw["s"])}
+    got = tq.mm(_t(x.astype(jnp.float32), getattr(torch, dtype)), tw, clip)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (2, 5, 130)
+    got = got.float().numpy()
+    xc = x if clip is None else jnp.clip(x, -clip, clip)
+    kernel = np.asarray(j_int8_mm_nd(xc, jw, interpret=True).astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, kernel, rtol=1e-5, atol=1e-5)
+    else:
+        assert (np.abs(got - kernel) <= 2.0**-8 * np.abs(kernel) + 1e-6).all()
+    xla = np.asarray(jq.mm(x, jw, clip).astype(jnp.float32))
+    np.testing.assert_allclose(got, xla, rtol=2e-2, atol=0.15)
+    if clip is not None:  # the clamp bites: without it the answer moves
+        assert not np.allclose(np.asarray(jq.mm(x, jw).astype(jnp.float32)), xla)
+
+
+@pytest.mark.parametrize("clip", [None, 1.0])
+def test_cached_fp_mm_matches_jax(clip):
+    """{"fp"}: the bf16 copy cast to x's fp32, after the clip, as JAX's mm."""
+    w = _weight((96, 130), seed=8, scale=0.3)
+    x = _x((2, 5, 96), "float32")
+    jw = jq.quantize_weight_int8(jnp.asarray(w), cache_fp_dtype=jnp.bfloat16)
+    tw = {"fp": _t(jw["fp"].astype(jnp.float32), torch.bfloat16)}
+    want = np.asarray(jq.mm(x, jw, clip))
+    got = tq.mm(_t(x), tw, clip)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_int8_linears_from_linear():
+    torch.manual_seed(0)
+    lin = nn.Linear(64, 40)
+    x = torch.randn(2, 3, 64)
+    m8 = tq.Int8Linear.from_linear(lin)
+    assert tuple(m8.q.shape) == (64, 40) and m8.q.is_contiguous()
+    assert m8.bias is lin.bias
+    want = tq.int8_mm(x, tq.quantize_weight_int8(lin.weight.t()), 0.5) + lin.bias
+    torch.testing.assert_close(m8(x, 0.5), want, rtol=0, atol=0)
+    fp = tq.CachedFpLinear.from_linear(lin)
+    assert fp.fp.dtype == torch.bfloat16 and tuple(fp.fp.shape) == (64, 40)
+    want = x.clamp(-0.5, 0.5) @ fp.fp.float() + lin.bias
+    torch.testing.assert_close(fp(x, 0.5), want, rtol=0, atol=0)
+    assert tq.linear(m8, x, 0.5).shape == tq.linear(fp, x, 0.5).shape == (2, 3, 40)
+
+
+@pytest.mark.parametrize("cache_fp", [False, True])
+def test_int8_model_quantizer_matches_jax_bytes(cache_fp):
+    """enable_action_quantization under int8 quantizes the action mixture
+    and the action encoder as JAX does (q/s bytes, or the bf16 copy), and
+    leaves the proprio encoder, the action decoder and the vlm mixture fp."""
+    fp, tree, tm = _quantized_pair(
+        {}, {"mode": "int8", "cache_fp_weight": cache_fp})
+    kind, keys = (tq.CachedFpLinear, ("fp",)) if cache_fp else (tq.Int8Linear, ("q", "s"))
+
+    def same(mod, leaf):
+        assert isinstance(mod, kind) and set(leaf) == set(keys)
+        for key in keys:
+            np.testing.assert_array_equal(getattr(mod, key).float().numpy(),
+                                          leaf[key].astype(np.float32))
+
+    for i, layer in enumerate(tm.joint["action"].layers):
+        for key, attr in _MIX.items():
+            leaf = tree["joint"]["action"][key]
+            same(getattr(layer, attr), {k: v[i] for k, v in leaf.items()})
+    for n in (1, 2, 3):
+        same(getattr(tm, f"action_encoder_w{n}"), tree["action_encoder"][f"w{n}"])
+    for mod in (tm.proprio_encoder, tm.action_decoder, tm.joint["vlm"].layers[0].q_proj):
+        assert type(mod) is nn.Linear
+    assert tm.joint["proprio"] is tm.joint["action"]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -262,3 +387,22 @@ def test_quantized_mm_on_cuda_equals_cpu(cuda_device, mode, m):
     got = mod.to(cuda_device)(x.to(cuda_device), 1.5)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_mm_on_cuda_equals_cpu(cuda_device, dtype, m):
+    """The int8 kernel on the card against its plain version on the CPU,
+    through Int8Linear with the clip: 1e-5 of the largest output in fp32,
+    one bf16 rounding of each output in bf16."""
+    lin = nn.Linear(1024, 4096, bias=False)
+    with torch.no_grad():
+        lin.weight.copy_(_t(_weight((4096, 1024), seed=m)))
+    mod = tq.Int8Linear.from_linear(lin)
+    x = _t(np.random.RandomState(m).randn(m, 1024) * 2, dtype)
+    want = mod(x, 1.5).float()
+    got = mod.to(cuda_device)(x.to(cuda_device), 1.5).float().cpu()
+    torch.cuda.synchronize()
+    bound = 1e-5 * want.abs().max() + (2.0**-8 * want.abs() if dtype == torch.bfloat16 else 0)
+    assert ((got - want).abs() <= bound).all()

@@ -14,7 +14,7 @@ import pytest
 
 from blurr_tpu.paths import repo_root
 from blurr_tpu.serving.client import ActionClient
-from blurr_tpu_torch.ops.quant import W4A8Linear, W8A8Linear
+from blurr_tpu_torch.ops.quant import CachedFpLinear, Int8Linear, W4A8Linear, W8A8Linear
 from blurr_tpu_torch.presets import ALIASES, PRESETS, apply_preset, load_config
 from blurr_tpu_torch.serving.server import ActionServer
 
@@ -134,8 +134,48 @@ def test_w4a8_server_answers_through_the_client():
 
 
 def test_server_refuses_unported_quantization():
+    """Every quantization mode is ported; the adaLN action expert is not."""
     cfg = load_config("config/eval/bridge_tiny.yaml")
     apply_preset(cfg, "blurr")
-    cfg["action_quantization"] = {"mode": "int8"}
-    with pytest.raises(NotImplementedError, match="int8"):
+    cfg["action_expert_adaptive_mode"] = "adaLN"
+    with pytest.raises(NotImplementedError, match="adaLN"):
         ActionServer(cfg, "random", device="cpu")
+
+
+@pytest.mark.parametrize("cache_fp", [False, True])
+def test_int8_server_answers_through_the_client(cache_fp):
+    """bridge_tiny widths with the bridge_pool64_steps2 settings (bf16, 2
+    flow steps, action int8 with its clip, the int8 KV cache): the server
+    quantizes the weights it drew, to int8 {q, s} or to the cached bf16 copy
+    the preset ships, and answers through the unchanged ActionClient."""
+    preset = load_config("config/eval/bridge_pool64_steps2.yaml")
+    cfg = load_config("config/eval/bridge_tiny.yaml")
+    for key in ("use_bf16", "num_inference_steps", "final_action_clip_value",
+                "action_quantization", "kv_quantization"):
+        cfg[key] = preset[key]
+    cfg["action_quantization"]["cache_fp_weight"] = cache_fp
+    srv = ActionServer(cfg, "random", device="cpu", seed=0)
+    model = srv.model
+    kind = CachedFpLinear if cache_fp else Int8Linear
+    assert isinstance(model.joint["proprio"].layers[0].down_proj, kind)
+    assert isinstance(model.action_encoder_w2, kind)
+    assert (model.spec.num_inference_steps, model.kv_quant_mode) == (2, "int8")
+    ready = threading.Event()
+    t = threading.Thread(
+        target=srv.serve_forever, kwargs={"port": 0, "ready_event": ready},
+        daemon=True,
+    )
+    t.start()
+    try:
+        assert ready.wait(30)
+        size = cfg["vision"]["config"]["image_size"]
+        image = np.random.RandomState(2).randint(0, 256, (size, size, 3), np.uint8)
+        with ActionClient(port=srv.port) as client:
+            out = client.predict(image, "put the spoon on the towel", [0.1] * 7)
+            stats = client.stats()
+    finally:
+        srv.stop()
+        t.join(10)
+    assert not t.is_alive()
+    assert out.shape == (4, 7) and np.isfinite(out).all() and (np.abs(out) <= 1).all()
+    assert stats["requests_total"] == 1 and stats["errors_total"] == 0
