@@ -6,9 +6,11 @@ against. The layout mirrors it (``ops/…``, ``models/pi0/…``,
 ``serving/…``), and each module's docstring names its JAX counterpart.
 
 Rules of the port:
-- ``torch`` only; JAX is never imported. The jax-free host modules of
-  ``blurr_tpu`` (``config.core.load_yaml``, ``paths``, the serving wire
-  protocol) are reused as they are.
+- ``torch`` only: neither JAX nor anything of ``blurr_tpu`` is imported.
+  What the port needs of the JAX package's plain-Python host modules it
+  keeps as its own copies (``config/core.py``, ``paths.py``,
+  ``serving/protocol.py``, ``serving/client.py``); the bundled YAML configs
+  under ``blurr_tpu/config`` are read as data.
 - The device is explicit: every constructor and entry point takes
   ``device`` and never picks one itself.
 - Every Pallas kernel on the ported path is a CUDA kernel written by hand

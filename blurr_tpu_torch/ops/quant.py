@@ -60,8 +60,8 @@ _VIT_WEIGHT_KEYS = {
     "fc1_w": "fc1", "fc2_w": "fc2",
 }
 _W4A8_CLIP_GRID = (1.0, 0.95, 0.9, 0.85, 0.8, 0.75, 0.7)
-# the rows a short int8 product is padded to on CUDA (see _int8_dot)
-_INT_MM_PAD_ROWS = 32
+# the rows a short int8 product is padded to on CUDA (see int8_dot)
+INT_MM_PAD_ROWS = 32
 
 
 def _clip(x: torch.Tensor, activation_clip: Optional[float]) -> torch.Tensor:
@@ -171,12 +171,12 @@ def _quantize_activations(x: torch.Tensor, activation_clip: Optional[float]):
     return xq.reshape(-1, x.shape[-1]).contiguous(), xs
 
 
-def _int8_dot(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def int8_dot(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """int8 [M, K] @ int8 [K, N] -> exact int32 [M, N]. On CUDA the rows are
     zero-padded to 32 when M <= 16: cuBLASLt's int8 product takes M > 16."""
     m = xq.shape[0]
     if xq.is_cuda and m <= 16:
-        padded = F.pad(xq, (0, 0, 0, _INT_MM_PAD_ROWS - m))
+        padded = F.pad(xq, (0, 0, 0, INT_MM_PAD_ROWS - m))
         return torch._int_mm(padded, q)[:m]
     return torch._int_mm(xq, q)
 
@@ -187,7 +187,7 @@ def w8a8_mm(x: torch.Tensor, w: dict,
     x [..., K]; w["q8a"] int8 [K, N], w["s"] fp32 [N]; y in x.dtype."""
     xq, xs = _quantize_activations(x, activation_clip)
     q = w["q8a"]
-    acc = _int8_dot(xq, q).reshape(*x.shape[:-1], q.shape[1])
+    acc = int8_dot(xq, q).reshape(*x.shape[:-1], q.shape[1])
     return (acc.float() * xs * w["s"]).to(x.dtype)
 
 

@@ -2,16 +2,15 @@
 
 The preset table is the port's own copy of
 ``scripts/eval_pi0_simpler.py:PRESETS`` (a test holds the two equal).
-Configs load through ``blurr_tpu.config.core.load_yaml``, which is plain
-Python and YAML.
+Configs load through the port's own ``config.core.load_yaml``.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 
-from blurr_tpu.config.core import Config, load_yaml
-from blurr_tpu.paths import config_root
+from blurr_tpu_torch.config.core import Config, load_yaml
+from blurr_tpu_torch.paths import config_root
 
 # toggles applied on top of the YAML config, keyed by preset name
 PRESETS = {
@@ -41,7 +40,8 @@ def apply_preset(cfg, preset: str) -> None:
 
 def load_config(path: str) -> Config:
     """Load a YAML config; a relative path that does not exist is taken
-    relative to the ``blurr_tpu`` package (``config/eval/bridge.yaml``)."""
+    relative to the bundled config tree's parent, ``blurr_tpu/``
+    (``config/eval/bridge.yaml``)."""
     p = Path(path)
     if not p.is_absolute() and not p.exists():
         p = config_root().parent / path

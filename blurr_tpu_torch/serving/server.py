@@ -3,9 +3,10 @@
 Counterpart of ``blurr_tpu/serving/server.py:ActionServer`` on its
 single-request path (``max_batch == 1``): ``predict``, ``stats``,
 ``serve_forever``, ``stop`` and the connection handler. The wire protocol
-(4-byte big-endian length + UTF-8 JSON, images as base64) is the JAX
-package's own ``send_msg``/``recv_msg``, so
-``blurr_tpu.serving.client.ActionClient`` drives this server unchanged.
+(4-byte big-endian length + UTF-8 JSON, images as base64) is the port's copy
+of the JAX package's (``serving/protocol.py``), so the JAX package's
+``ActionClient`` and the port's own (``serving/client.py``) both drive this
+server.
 
 Each request: validate, tokenize the instruction (cached), move the image
 to the device and normalize it there, draw the flow noise from a
@@ -29,9 +30,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from blurr_tpu.serving.server import ProtocolError, recv_msg, send_msg
 from blurr_tpu_torch.models.pi0.pizero import PiZero
 from blurr_tpu_torch.models.pi0.processing import build_processor, process_images
+from blurr_tpu_torch.serving.protocol import ProtocolError, recv_msg, send_msg
 
 log = logging.getLogger(__name__)
 

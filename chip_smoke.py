@@ -64,14 +64,30 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              again with the card given the CPU's rounding wherever a cached
              K/V value or an int8 kernel input rounds the other way, held
              to the fp32 bound.
+12. kernel-experiments - the kernels of the experiment harnesses against
+             their plain versions at every harness shape, bit for bit: the
+             w8a8 product K4 (row-major at M 8 and 32, K 4096, N 11264;
+             block-major at the 4 shapes of the int8 block-major harness),
+             the split-half int4 product K5 signed and biased (M 8 and 32),
+             K2 at one group on the adjacent-row (bitcast) packing (M 8, 32,
+             96); the fused GeGLU FFN K6 at (280, 2048, 16384) within one
+             bf16 step at its largest output. Each timed as the other
+             kernels, K4 beside torch._int_mm.
+13. experiments - the two experiment entry points run as a user runs them
+             (bench_lowbit_matmul, bench_fused_ffn at 18 layers), with the
+             counts set to 0 just before: K4, K5, K2 and K6 must each launch.
 Then one JSON line of the kernels (launches summed over the four served
-runs, the counts set to 0 just before each; errors and times measured
-here: ms and plain_ms with CUDA events, graph_ms and plain_graph_ms in a
-CUDA graph, at the first timed shape of each kernel), and last the result
-line
+runs and the experiments run, the counts set to 0 just before each; errors
+and times measured here: ms and plain_ms with CUDA events, graph_ms and
+plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
+function where there is one, at the first timed shape of each kernel;
+bound_ms, the larger of the bytes each input read once and the output
+written once over 3.35 TB/s and the operations over the card's peak for
+their type, computed from those inputs), and last the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-It imports nothing of JAX and builds everything from the checkout.
+It imports nothing of JAX nor of the JAX package, and builds everything
+from the checkout.
 """
 
 from __future__ import annotations
@@ -80,7 +96,6 @@ import copy
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import threading
 import time
@@ -96,6 +111,11 @@ for _var in ("BLURR_PLATFORM", "BLURR_COMPILE_CACHE"):
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+from blurr_tpu_torch.experiments.timing import bound as _bound  # noqa: E402
+from blurr_tpu_torch.experiments.timing import card  # noqa: E402
+from blurr_tpu_torch.experiments.timing import events_ms as _time_ms  # noqa: E402
+from blurr_tpu_torch.experiments.timing import graph_ms as _graph_ms  # noqa: E402
 
 FP32_TOL = 2e-4  # fp32 sums in another order (TF32 off)
 BF16_TOL = 2e-2  # bf16 output rounding against the fp32 plain version
@@ -158,7 +178,8 @@ INT8_TIMED = [(4, 1024, 4096), (4, 4096, 1024)]  # action gate, action down
 INT8_FP32_REL_TOL = 1e-5
 BF16_ROUNDING = 2.0**-8  # one bf16 rounding, relative (8 significant bits)
 INT8_STEP_LAUNCHES = 380  # 17 x 7 + 3 proprio prefill, 2 x (18 x 7 + 3) decode
-KERNEL_NAMES = ("flash_attention", "int4_matmul", "int8_matmul")
+KERNEL_NAMES = ("flash_attention", "int4_matmul", "int8_matmul", "w8a8_matmul",
+                "int4_split_matmul", "fused_ffn")
 
 
 def log(msg: str) -> None:
@@ -166,10 +187,7 @@ def log(msg: str) -> None:
 
 
 def probe() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     from blurr_tpu_torch.ops.kernels import find_nvcc
 
     name = torch.cuda.get_device_name(0)
@@ -225,53 +243,18 @@ def _attention_inputs(shape, device):
     return q, k, v, mask
 
 
-def _time_ms(fn, iters: int = 50) -> float:
-    for _ in range(5):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
-    """Device time per call of ``fn``: ``launches`` calls captured in one
-    CUDA graph and replayed, timed with CUDA events. No host work runs
-    between the launches, so a kernel shorter than its wrapper's host time
-    is timed as the device runs it (``_time_ms`` then times the host)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up off the default stream
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (replays * launches)
-
-
-def _kernel_times(kernel, plain) -> dict:
+def _kernel_times(kernel, plain, library=None) -> dict:
     """The times of the kernels line, taken the same way for every kernel:
     ``ms`` and ``plain_ms`` with CUDA events around 50 eager launches (the
     kernel's the lesser of two runs), ``graph_ms`` and ``plain_graph_ms``
-    inside a CUDA graph (the device's time alone)."""
+    inside a CUDA graph (the device's time alone); ``library_ms`` (events)
+    and ``library_graph_ms`` of one PyTorch call of the same function, or
+    None where there is none."""
     return {"ms": min(_time_ms(kernel), _time_ms(kernel)), "plain_ms": _time_ms(plain),
             "graph_ms": min(_graph_ms(kernel), _graph_ms(kernel)),
-            "plain_graph_ms": _graph_ms(plain)}
+            "plain_graph_ms": _graph_ms(plain),
+            "library_ms": None if library is None else _time_ms(library),
+            "library_graph_ms": None if library is None else _graph_ms(library)}
 
 
 def _fmt_times(t: dict, dense=None, dense_name: str = "") -> str:
@@ -280,6 +263,9 @@ def _fmt_times(t: dict, dense=None, dense_name: str = "") -> str:
     line = (f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms (CUDA events, 50 "
             f"launches each); in a CUDA graph kernel {t['graph_ms']:.4f} ms, plain "
             f"{t['plain_graph_ms']:.4f} ms")
+    if t["library_ms"] is not None:
+        line += (f"; library call {t['library_ms']:.4f} ms (events), "
+                 f"{t['library_graph_ms']:.4f} ms (graph)")
     if dense is not None:
         line += (f"; bf16 matmul of {dense_name} {_time_ms(dense):.4f} ms (events), "
                  f"{_graph_ms(dense):.4f} ms (graph)")
@@ -313,10 +299,19 @@ def kernel_vs_plain(device) -> dict:
     times = {}
     for dtype in (torch.bfloat16, torch.float32):
         qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
-        times[dtype] = _kernel_times(lambda: flash_attention(qc, kc, vc, mask),
-                                     lambda: flash_attention_reference(qc, kc, vc, mask))
+        # the library's fused attention, without the kernel's logit soft clamp
+        times[dtype] = _kernel_times(
+            lambda: flash_attention(qc, kc, vc, mask),
+            lambda: flash_attention_reference(qc, kc, vc, mask),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qc, kc, vc, attn_mask=mask[:, None], enable_gqa=True))
         log(f"kernel: time at {PI0_SHAPE} {str(dtype)[6:]}: {_fmt_times(times[dtype])}")
-    return {"max_abs_err": errs[(PI0_SHAPE, torch.bfloat16)], **times[torch.bfloat16]}
+    b, nh, _, sq, skv, d = PI0_SHAPE
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    bound = _bound((qb, kb, vb, mask), (qb,), 4 * b * nh * sq * skv * d, "bf16")
+    log(f"kernel: flash_attention bound at {PI0_SHAPE} bf16 {bound['bound_ms']:.5f} ms "
+        f"({bound['bound_by']})")
+    return {"max_abs_err": errs[(PI0_SHAPE, torch.bfloat16)], **times[torch.bfloat16], **bound}
 
 
 def int4_vs_plain(device) -> dict:
@@ -342,6 +337,7 @@ def int4_vs_plain(device) -> dict:
         return x, to_block_major(pack_int4(q), bn), s, q
 
     worst = 0.0
+    bounds = {}
     for shape in INT4_SHAPES:
         x, packed, s, _ = inputs(*shape)
         out = int4_matmul(x, packed, s)
@@ -362,9 +358,13 @@ def int4_vs_plain(device) -> dict:
         xb, wb = x.bfloat16(), q.bfloat16()
         times[shape] = _kernel_times(lambda: int4_matmul(x, packed, s),
                                      lambda: int4_matmul_reference(x, packed, s))
+        m, k, n, _ = shape
+        bounds[shape] = _bound((x, packed, s), (torch.empty(m, s.shape[1], device=device),),
+                               2 * m * k * n, "int8")
         line = _fmt_times(times[shape], lambda: torch.matmul(xb, wb), "the dense weight")
-        log(f"kernel: int4_matmul time at (M, K, N, G)={shape}: {line}")
-    return {"max_abs_err": worst, **times[INT4_TIMED[0]]}
+        log(f"kernel: int4_matmul time at (M, K, N, G)={shape}: {line}; bound "
+            f"{bounds[shape]['bound_ms']:.5f} ms ({bounds[shape]['bound_by']})")
+    return {"max_abs_err": worst, **times[INT4_TIMED[0]], **bounds[INT4_TIMED[0]]}
 
 
 def int8_vs_plain(device) -> dict:
@@ -387,6 +387,7 @@ def int8_vs_plain(device) -> dict:
         return x, q, s
 
     worst_fp32 = 0.0
+    bounds = {}
     for shape in INT8_SHAPES:
         x, q, s = inputs(*shape)
         ref = int8_matmul_reference(x, q, s)  # fp32; rounds x to bf16 itself
@@ -418,18 +419,165 @@ def int8_vs_plain(device) -> dict:
         wb = (q.float() * s).bfloat16()
         times[shape] = _kernel_times(lambda: int8_matmul(xb, q, s),
                                      lambda: int8_matmul_reference(xb, q, s))
+        m, k, n = shape
+        bounds[shape] = _bound((xb, q, s), (xb.new_empty(m, n),), 2 * m * k * n, "bf16")
         line = _fmt_times(times[shape], lambda: torch.matmul(xb, wb), "the dequantized weight")
-        log(f"kernel: int8_matmul time at (M, K, N)={shape} bf16: {line}")
-    return {"max_abs_err": worst_fp32, **times[INT8_TIMED[0]]}
+        log(f"kernel: int8_matmul time at (M, K, N)={shape} bf16: {line}; bound "
+            f"{bounds[shape]['bound_ms']:.5f} ms ({bounds[shape]['bound_by']})")
+    return {"max_abs_err": worst_fp32, **times[INT8_TIMED[0]], **bounds[INT8_TIMED[0]]}
+
+
+def experiments_vs_plain(device) -> dict:
+    """The kernels of the experiment harnesses against their plain versions
+    at every harness shape, with scales that are not 1 so the rounding of
+    the int32 dot and the multiply show: K4, K5 and K2 at one group bit for
+    bit, K6 within one bf16 step at its largest output. Then each timed at
+    its first shape (K4 also at the bridge gate/up shape, K6 beside the
+    three bf16 matmuls). Returns each kernel's entry of the kernels line."""
+    from blurr_tpu_torch.experiments import bench_fused_ffn, bench_lowbit_matmul, lowbit
+    from blurr_tpu_torch.experiments.bench_lowbit_matmul import (
+        ADJACENT_M,
+        BLOCK_MAJOR,
+        ROW_MAJOR_M,
+        block_major_width,
+    )
+    from blurr_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_reference
+    from blurr_tpu_torch.ops.int4_matmul import int4_matmul_reference, pack_int4, to_block_major
+    from blurr_tpu_torch.ops.int4_split_matmul import (
+        int4_split_matmul,
+        int4_split_matmul_reference,
+    )
+    from blurr_tpu_torch.ops.quant import INT_MM_PAD_ROWS
+    from blurr_tpu_torch.ops.w8a8_matmul import w8a8_matmul, w8a8_matmul_reference
+
+    g = torch.Generator(device=device).manual_seed(3)
+    k, n = bench_lowbit_matmul.K, bench_lowbit_matmul.NP
+
+    def randint(shape, low=-127, high=128):
+        return torch.randint(low, high, shape, dtype=torch.int8, device=device, generator=g)
+
+    def scales(cols):
+        return torch.rand(1, cols, device=device, generator=g) * 1e-2 + 1e-4
+
+    def held(name, shape, out, ref) -> float:
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        log(f"kernel-experiments: {name} (M, K, N)={shape} max_abs_err={err:.3e} "
+            f"bit-equal={torch.equal(out, ref)}")
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"{name} disagrees with its plain version at {shape}")
+        return err
+
+    entries = {}
+    # K4: the w8a8 product, row-major and block-major
+    w8a8_shapes = ([(m, k, n, None) for m in ROW_MAJOR_M]
+                   + [(m, kk, nn, block_major_width(nn)) for m, kk, nn in BLOCK_MAJOR])
+    operands, worst = {}, 0.0
+    for m, kk, nn, bn in w8a8_shapes:
+        x, w, s = randint((m, kk)), randint((kk, nn)), scales(nn)
+        wl = w if bn is None else lowbit.int8_block_major(w, bn)
+        worst = max(worst, held(
+            f"w8a8_matmul {'row-major' if bn is None else f'block-major BN {bn}'}",
+            (m, kk, nn), w8a8_matmul(x, wl, s), w8a8_matmul_reference(x, wl, s)))
+        operands[(m, kk, nn)] = (x, w, wl, s)
+    for shape in ((ROW_MAJOR_M[0], k, n), BLOCK_MAJOR[2]):
+        x, w, wl, s = operands[shape]
+        m = shape[0]
+        # torch._int_mm takes M > 16 on CUDA: the rows padded once, outside
+        xp = torch.nn.functional.pad(x, (0, 0, 0, max(0, INT_MM_PAD_ROWS - m)))
+        times = _kernel_times(lambda: w8a8_matmul(x, wl, s),
+                              lambda: w8a8_matmul_reference(x, wl, s),
+                              lambda: torch._int_mm(xp, w))
+        least = _bound((x, wl, s), (torch.empty(m, shape[2], device=device),),
+                       2 * m * shape[1] * shape[2], "int8")
+        log(f"kernel-experiments: w8a8_matmul time at (M, K, N)={shape}: "
+            f"{_fmt_times(times)} (library: torch._int_mm alone, no scaling); bound "
+            f"{least['bound_ms']:.5f} ms ({least['bound_by']})")
+        if shape[0] == ROW_MAJOR_M[0]:
+            entries["w8a8_matmul"] = {"max_abs_err": worst, **times, **least}
+    # K5: the split-half int4 product, signed and biased
+    worst = 0.0
+    for biased in (False, True):
+        pack = lowbit.pack_split_half_biased if biased else lowbit.pack_split_half
+        for m in ROW_MAJOR_M:
+            x, q, s = randint((m, k)), randint((k, n), -8, 8), scales(n)
+            packed = pack(q)
+            out = int4_split_matmul(x, packed, s, biased)
+            worst = max(worst, held(f"int4_split_matmul {'biased' if biased else 'signed'}",
+                                    (m, k, n), out,
+                                    int4_split_matmul_reference(x, packed, s, biased)))
+            held("int4_split_matmul against the dense int4 weight", (m, k, n), out,
+                 (x.double() @ q.double()).float() * s)
+            if (m, biased) == (ROW_MAJOR_M[0], False):
+                times = _kernel_times(lambda: int4_split_matmul(x, packed, s),
+                                      lambda: int4_split_matmul_reference(x, packed, s))
+                log(f"kernel-experiments: int4_split_matmul time at (M, K, N)={(m, k, n)}: "
+                    f"{_fmt_times(times)}")
+                split = {**times, **_bound((x, packed, s), (out,), 2 * m * k * n, "int8")}
+    entries["int4_split_matmul"] = {"max_abs_err": worst, **split}
+    # K2 at one group: the adjacent-row (bitcast) packing
+    for m in ADJACENT_M:
+        x, q, s = randint((m, k)), randint((k, n), -8, 8), scales(n)
+        packed = pack_int4(q)
+        out = lowbit.int4_adjacent_matmul(x, packed, s)
+        relaid = to_block_major(packed, lowbit.adjacent_block_width(n))
+        held("int4_matmul at one group (adjacent-row packing)", (m, k, n), out,
+             int4_matmul_reference(x, relaid, s))
+        held("int4_matmul at one group against the dense int4 weight", (m, k, n), out,
+             (x.double() @ q.double()).float() * s)
+    # K6: the fused GeGLU FFN
+    m, h, inter = bench_fused_ffn.M, bench_fused_ffn.H, bench_fused_ffn.I
+    x = (torch.rand(m, h, generator=g, device=device) * 2 - 1).to(torch.bfloat16)
+    weights = bench_fused_ffn.layer_weights(h, inter, g, device)
+    out = fused_ffn(x, *weights)
+    ref = fused_ffn_reference(x, *weights).float()
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    bound = bench_fused_ffn.BF16_STEP * ref.abs().max().item()
+    again = torch.equal(out, fused_ffn(x, *weights))
+    log(f"kernel-experiments: fused_ffn (M, H, I)={(m, h, inter)} max_abs_err={err:.3e} (bound "
+        f"one bf16 step at the largest output, {bound:.3e}), same bits on a second call "
+        f"{again}")
+    if not (torch.isfinite(out).all() and err <= bound and again):
+        raise RuntimeError(f"fused_ffn disagrees with its plain version: {err}")
+    times = _kernel_times(lambda: fused_ffn(x, *weights), lambda: fused_ffn_reference(x, *weights))
+    three = _fmt_times(times, lambda: bench_fused_ffn.ffn_bf16(x, *weights),
+                       "the three weights (the FFN)")
+    log(f"kernel-experiments: fused_ffn time at (M, H, I)={(m, h, inter)}: {three}")
+    entries["fused_ffn"] = {"max_abs_err": err, **times,
+                            **_bound((x, *weights), (out,), 6 * m * h * inter, "bf16")}
+    return entries
+
+
+def experiments_run() -> dict:
+    """The two experiment entry points as a user runs them, with the counts
+    set to 0 just before; each of their kernels must launch."""
+    from blurr_tpu_torch.experiments import bench_fused_ffn, bench_lowbit_matmul
+
+    _zero_counts()
+    t0 = time.monotonic()
+    if bench_lowbit_matmul.main([]) or bench_fused_ffn.main([]):
+        raise RuntimeError("an experiment entry point failed")
+    launches = _counts()
+    log(f"experiments: both entry points in {time.monotonic() - t0:.2f} s, kernel "
+        f"launches {launches}")
+    for name in ("w8a8_matmul", "int4_split_matmul", "int4_matmul", "fused_ffn"):
+        if not launches[name]:
+            raise RuntimeError(f"the experiments never launched {name}")
+    return launches
 
 
 def _kernel_wrappers() -> dict:
     from blurr_tpu_torch.ops.flash_attention import flash_attention
+    from blurr_tpu_torch.ops.fused_ffn import fused_ffn
     from blurr_tpu_torch.ops.int4_matmul import int4_matmul
+    from blurr_tpu_torch.ops.int4_split_matmul import int4_split_matmul
     from blurr_tpu_torch.ops.int8_matmul import int8_matmul
+    from blurr_tpu_torch.ops.w8a8_matmul import w8a8_matmul
 
     return {"flash_attention": flash_attention, "int4_matmul": int4_matmul,
-            "int8_matmul": int8_matmul}
+            "int8_matmul": int8_matmul, "w8a8_matmul": w8a8_matmul,
+            "int4_split_matmul": int4_split_matmul, "fused_ffn": fused_ffn}
 
 
 def _zero_counts() -> None:
@@ -442,9 +590,9 @@ def _counts() -> dict:
 
 
 def _serve_requests(server, cfg, label):
-    """N_REQUESTS through ActionClient with the kernel counts set to 0
-    just before; returns the actions, the counts and the server stats."""
-    from blurr_tpu.serving.client import ActionClient
+    """N_REQUESTS through the port's ActionClient with the kernel counts set
+    to 0 just before; returns the actions, the counts and the server stats."""
+    from blurr_tpu_torch.serving.client import ActionClient
 
     ready = threading.Event()
     thread = threading.Thread(
@@ -490,10 +638,14 @@ def _serve_requests(server, cfg, label):
 
 
 def _check_launches(label, launches, per_step):
-    for name, n in per_step.items():
+    """Each kernel of ``per_step`` launched that many times per step; every
+    other kernel never."""
+    for name in KERNEL_NAMES:
+        n = per_step.get(name, 0)
         expected = n * N_REQUESTS
-        log(f"{label}: {name} launches {launches[name]} (expected {expected} = "
-            f"{n} per step x {N_REQUESTS})")
+        if name in per_step:
+            log(f"{label}: {name} launches {launches[name]} (expected {expected} = "
+                f"{n} per step x {N_REQUESTS})")
         if launches[name] != expected:
             raise RuntimeError(f"{name} launched {launches[name]} times, not {expected}")
 
@@ -746,9 +898,10 @@ def small_model_vs_cpu(device, quant: str = "") -> None:
     out = gpu.infer_action(*(t.to(device) for t in inputs))
     torch.cuda.synchronize()
     launches = _counts()
-    expected = {"flash_attention": cfg["joint"]["config"]["num_hidden_layers"] - 1,
-                "int4_matmul": launches_per_step(gpu, W4A8Linear),
-                "int8_matmul": launches_per_step(gpu, Int8Linear)}
+    expected = {name: 0 for name in KERNEL_NAMES}
+    expected.update({"flash_attention": cfg["joint"]["config"]["num_hidden_layers"] - 1,
+                     "int4_matmul": launches_per_step(gpu, W4A8Linear),
+                     "int8_matmul": launches_per_step(gpu, Int8Linear)})
     err = (out.cpu() - ref).abs().max().item()
     log(f"{label}: fp32 bridge_tiny widths, prefix 81, card vs CPU actions "
         f"max_abs_err={err:.3e} (tol {tol:g}), kernel launches {launches} "
@@ -843,33 +996,28 @@ def main() -> int:
     cached_launches = served_int8_steps(device, cache_fp=True)
     torch.cuda.empty_cache()
     small_model_vs_cpu(device, "int8")
-    served = (launches, w4a8_launches, int8_launches, cached_launches)
-    total = {name: sum(run[name] for run in served) for name in KERNEL_NAMES}
+    experiments = experiments_vs_plain(device)
+    torch.cuda.empty_cache()
+    experiment_launches = experiments_run()
+    torch.cuda.empty_cache()
+    runs = (launches, w4a8_launches, int8_launches, cached_launches, experiment_launches)
+    total = {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
+    measured = {"flash_attention": flash, "int4_matmul": int4, "int8_matmul": int8,
+                **experiments}
+    # the TPU kernel each replaces (file:line of its kernel body); K2 also
+    # replaces the bitcast int4 kernels of the experiments, at one group
+    replaces = {
+        "flash_attention": "blurr_tpu/ops/pallas_attention.py:40",
+        "int4_matmul": "blurr_tpu/ops/pallas_int4_matmul.py:109",
+        "int8_matmul": "blurr_tpu/ops/pallas_int8_matmul.py:30",
+        "w8a8_matmul": "experiments/bench_pallas_int4.py:37",
+        "int4_split_matmul": "experiments/bench_pallas_int4.py:42",
+        "fused_ffn": "experiments/bench_fused_ffn.py:32",
+    }
     log(json.dumps({"kernels": [
-        {
-            "name": "flash_attention",
-            "route": "cuda",
-            "source": "blurr_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "blurr_tpu/ops/pallas_attention.py:40",
-            "launches": total["flash_attention"],
-            **flash,
-        },
-        {
-            "name": "int4_matmul",
-            "route": "cuda",
-            "source": "blurr_tpu_torch/csrc/int4_matmul.cu",
-            "replaces": "blurr_tpu/ops/pallas_int4_matmul.py:109",
-            "launches": total["int4_matmul"],
-            **int4,
-        },
-        {
-            "name": "int8_matmul",
-            "route": "cuda",
-            "source": "blurr_tpu_torch/csrc/int8_matmul.cu",
-            "replaces": "blurr_tpu/ops/pallas_int8_matmul.py:30",
-            "launches": total["int8_matmul"],
-            **int8,
-        },
+        {"name": name, "route": "cuda", "source": f"blurr_tpu_torch/csrc/{name}.cu",
+         "replaces": replaces[name], "launches": total[name], **measured[name]}
+        for name in KERNEL_NAMES
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

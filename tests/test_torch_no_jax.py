@@ -1,26 +1,42 @@
-"""The port never imports JAX: in a subprocess where ``import jax`` fails,
-import blurr_tpu_torch, run a tiny random infer_action on the CPU and build
-the port's ActionServer, bf16, w4a8, and int8 with the int8 KV cache."""
+"""The port never imports JAX nor anything of ``blurr_tpu``.
 
+In a subprocess where both ``import jax`` and ``import blurr_tpu`` fail:
+import blurr_tpu_torch, load a bundled config, run a tiny random
+infer_action on the CPU, build the port's ActionServer (bf16, w4a8, and int8
+with the int8 KV cache) and drive it through the port's own ActionClient,
+and import the experiment modules. Then a static check: no ``.py`` file of
+the port, nor ``chip_smoke.py``, has an import whose top-level module is
+``jax`` or ``blurr_tpu``.
+"""
+
+import ast
 import os
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
-from blurr_tpu.paths import repo_root
+import pytest
+
+REPO_ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPT = textwrap.dedent(
     """
     import sys
     sys.modules["jax"] = None  # any `import jax` now raises ImportError
+    sys.modules["blurr_tpu"] = None  # and so does any `import blurr_tpu...`
+    import threading
     import numpy as np
     import torch
     import blurr_tpu_torch
+    from blurr_tpu_torch.experiments import bench_fused_ffn, bench_lowbit_matmul, lowbit
     from blurr_tpu_torch.models.pi0.pizero import PiZero
     from blurr_tpu_torch.presets import apply_preset, load_config
+    from blurr_tpu_torch.serving.client import ActionClient
     from blurr_tpu_torch.serving.server import ActionServer
 
     cfg = load_config("config/eval/bridge_tiny.yaml")
+    assert cfg["joint"]["config"]["num_hidden_layers"] > 0  # defaults: resolved
     apply_preset(cfg, "blurr")
     model = PiZero(cfg, device="cpu", dtype=torch.float32)
     model.init_params(torch.Generator().manual_seed(0))
@@ -45,23 +61,64 @@ SCRIPT = textwrap.dedent(
     cfg["kv_quantization"] = {"mode": "int8", "activation_clip": 1.0,
                               "dtype": "bfloat16"}
     srv = ActionServer(cfg, "random", device="cpu")  # ops.quant, int8_matmul
-    act = srv.predict(np.zeros((size, size, 3), np.uint8), "pick", [0.0] * 7)
+    ready = threading.Event()
+    t = threading.Thread(target=srv.serve_forever,
+                         kwargs={"port": 0, "ready_event": ready}, daemon=True)
+    t.start()
+    assert ready.wait(60)
+    with ActionClient(port=srv.port) as client:
+        act = client.predict(np.zeros((size, size, 3), np.uint8), "pick", [0.0] * 7)
+        assert client.stats()["requests_total"] == 1
+    srv.stop()
+    t.join(30)
     assert act.shape == (4, 7) and np.isfinite(act).all()
-    loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "blurr_tpu"))
     assert all(sys.modules[m] is None for m in loaded), loaded
     print("NO_JAX_OK")
     """
 )
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax_or_blurr_tpu():
     env = {
         k: v for k, v in os.environ.items()
         if k not in ("BLURR_PLATFORM", "BLURR_COMPILE_CACHE")
     }
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT], cwd=repo_root(), env=env,
+        [sys.executable, "-c", SCRIPT], cwd=REPO_ROOT, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+def _imported_top_levels(path: Path):
+    """(line, top-level module) of every import statement in ``path``."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+PORT_FILES = sorted((REPO_ROOT / "blurr_tpu_torch").rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))
+def test_no_file_of_the_port_imports_jax_or_blurr_tpu(path):
+    bad = [(line, mod) for line, mod in _imported_top_levels(path)
+           if mod in ("jax", "jaxlib", "blurr_tpu")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_the_static_check_sees_the_imports():
+    """It tells blurr_tpu from blurr_tpu_torch and sees nested imports."""
+    src = REPO_ROOT / "tests" / "test_torch_experiments.py"
+    mods = {mod for _, mod in _imported_top_levels(src)}
+    assert {"jax", "blurr_tpu_torch", "experiments"} <= mods
+    assert "blurr_tpu" not in {mod for _, mod in _imported_top_levels(
+        REPO_ROOT / "blurr_tpu_torch" / "serving" / "server.py")}
+    assert "blurr_tpu" in {mod for _, mod in _imported_top_levels(
+        REPO_ROOT / "tests" / "test_torch_int4_matmul.py")}

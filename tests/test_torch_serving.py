@@ -1,10 +1,14 @@
 """The port's ActionServer (blurr_tpu_torch.serving) over a real socket on the
-CPU, driven by the JAX package's unchanged ActionClient.
+CPU, driven by the JAX package's unchanged ActionClient and by the port's own
+copy of it; the port's copy of the wire protocol writes the JAX package's
+bytes.
 
 bridge_tiny.yaml, not tiny_pi0_cfg: the stub tokenizer emits ids up to 999,
 past that config's vocab of 64 (torch's embedding raises on them).
 """
 
+import socket
+import struct
 import subprocess
 import sys
 import threading
@@ -13,7 +17,10 @@ import numpy as np
 import pytest
 
 from blurr_tpu.paths import repo_root
+from blurr_tpu.serving import server as j_server
 from blurr_tpu.serving.client import ActionClient
+from blurr_tpu_torch.serving import protocol as t_protocol
+from blurr_tpu_torch.serving.client import ActionClient as PortActionClient
 from blurr_tpu_torch.ops.quant import CachedFpLinear, Int8Linear, W4A8Linear, W8A8Linear
 from blurr_tpu_torch.presets import ALIASES, PRESETS, apply_preset, load_config
 from blurr_tpu_torch.serving.server import ActionServer
@@ -56,6 +63,48 @@ def test_two_requests_roundtrip(server):
     assert stats["requests_total"] == 2
     assert stats["errors_total"] == 0
     assert stats["device"] == "cpu"
+
+
+def test_the_port_client_drives_the_port_server(server):
+    """The port's own ActionClient: the same answers as the JAX client's for
+    the same request index, errors raised as RuntimeError."""
+    size = server.cfg["vision"]["config"]["image_size"]
+    image = np.random.RandomState(3).randint(0, 256, (size, size, 3), np.uint8)
+    with PortActionClient(port=server.port) as client:
+        before = client.stats()["requests_total"]
+        out = client.predict(image, "put the spoon on the towel", [0.2] * 7)
+        with pytest.raises(RuntimeError, match="proprio"):
+            client.predict(image, "x", [0.0] * 3)
+        assert client.stats()["requests_total"] == before + 1
+    assert out.dtype == np.float32 and out.shape == (4, 7) and np.isfinite(out).all()
+
+
+def test_send_msg_writes_jax_bytes():
+    msg = {"instruction": "pick", "image": "AAEC", "image_shape": [1, 1, 3],
+           "proprio": [0.25, -1.0], "kind": "stats", "nested": {"a": [1, 2.5]}}
+    wire = []
+    for send in (t_protocol.send_msg, j_server.send_msg):
+        a, b = socket.socketpair()
+        with a, b:
+            send(a, msg)
+            n = struct.unpack(">I", b.recv(4))[0]
+            wire.append(b.recv(n, socket.MSG_WAITALL))
+    assert wire[0] == wire[1]
+    a, b = socket.socketpair()
+    with a, b:
+        j_server.send_msg(a, msg)
+        assert t_protocol.recv_msg(b) == msg
+        a.sendall(struct.pack(">I", 3) + b"{x}")
+        with pytest.raises(t_protocol.ProtocolError) as bad:
+            t_protocol.recv_msg(b)
+        assert bad.value.recoverable
+        a.sendall(struct.pack(">I", t_protocol.MAX_MSG_BYTES + 1))
+        with pytest.raises(t_protocol.ProtocolError) as big:
+            t_protocol.recv_msg(b)
+        assert not big.value.recoverable
+        a.close()
+        assert t_protocol.recv_msg(b) is None
+    assert t_protocol.MAX_MSG_BYTES == j_server.MAX_MSG_BYTES
 
 
 def test_bad_requests_keep_the_connection(server):
