@@ -14,9 +14,13 @@ of a bf16 value and an int8 value is exact in fp32, so the kernel and the
 plain version ``int8_matmul_reference`` (which sums in float64 and rounds
 once) differ only by the kernel's fp32 summation error.
 
-``int8_matmul`` launches the kernel for CUDA tensors, runs the plain version
-only for CPU tensors, and counts its kernel launches in
-``int8_matmul.launches``. ``int8_mm_nd`` flattens the leading axes of x.
+The kernel splits K into S slices, one block each, that sum on bf16 tensor
+cores in fp32; the S blocks of a tile form a thread block cluster and add
+their sums in slice order through distributed shared memory (the source's
+header gives the design). ``int8_matmul`` launches it for CUDA tensors,
+runs the plain version only for CPU tensors, and counts its kernel launches
+in ``int8_matmul.launches``; ``slices`` gives S for a shape.
+``int8_mm_nd`` flattens the leading axes of x.
 """
 
 from __future__ import annotations
@@ -109,6 +113,13 @@ def int8_mm_nd(x: torch.Tensor, w: dict) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
+def slices(m: int, k: int, n: int) -> int:
+    """S, the slices of K (and the cluster size) the kernel splits an (M, K,
+    N) product into: the grid is N/64 column tiles x S x M/16 row tiles.
+    Builds the kernel."""
+    return _library().blurr_int8_matmul_slices(m, k, n)
+
+
 def _library() -> ctypes.CDLL:
     lib = kernels.load("int8_matmul")
     fn = lib.blurr_int8_matmul
@@ -116,6 +127,8 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.blurr_int8_matmul_slices.argtypes = [i, i, i]
+        lib.blurr_int8_matmul_slices.restype = i
         lib.blurr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.blurr_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,8 +9,8 @@ of the JAX package's (``serving/protocol.py``), so the JAX package's
 server.
 
 Each request: validate, tokenize the instruction (cached), move the image
-to the device and normalize it there, draw the flow noise from a
-``torch.Generator`` seeded from (seed, request index), run
+to the device and normalize it there, draw the flow noise that JAX draws
+for (seed, request index) (``ops/prng.py``), run
 ``PiZero.infer_action`` under the device lock, return the raw action chunk
 [horizon, action_dim]. Dynamic batching, tensor/data parallelism, hot
 reload, backpressure and the lanczos resize of off-size images are not
@@ -32,25 +32,23 @@ import torch
 
 from blurr_tpu_torch.models.pi0.pizero import PiZero
 from blurr_tpu_torch.models.pi0.processing import build_processor, process_images
+from blurr_tpu_torch.ops import prng
 from blurr_tpu_torch.serving.protocol import ProtocolError, recv_msg, send_msg
 
 log = logging.getLogger(__name__)
-
-
-def noise_generator(seed: int, request_idx: int, device) -> torch.Generator:
-    """The generator of one request's flow noise, on ``device``."""
-    state = np.random.SeedSequence([seed, request_idx]).generate_state(1)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
 
 
 class ActionServer:
     """Serves Pi-0 action chunks from the port's model on ``device``.
 
     ``checkpoint_path`` "random" draws the weights on the device from a
-    generator seeded with ``seed``; loading a real checkpoint is not ported
-    yet. The model dtype follows the config's ``use_bf16``. Then the
-    quantization tiers of the config (action int8 / cached-fp / w8a8 /
-    w4a8, vlm w8a8 / w4a8) quantize the weights in place on the device, as
+    generator seeded with ``seed`` (the JAX server draws its random
+    weights from ``PRNGKey(0)`` with JAX's init, so the two random-weight
+    servers hold different weights; the noise of each request is JAX's);
+    loading a real checkpoint is not ported yet. The model dtype follows
+    the config's ``use_bf16``. Then the quantization tiers of the config
+    (action int8 / cached-fp / w8a8 / w4a8, vlm w8a8 / w4a8) quantize the
+    weights in place on the device, as
     the JAX ``_build_params`` does after loading; the int8 KV cache is
     quantized in every control step. adaLN, not ported yet, raises when the
     model is built.
@@ -138,11 +136,16 @@ class ActionServer:
         am = torch.from_numpy(am).to(dev)
         return ids, am, px, pr
 
+    def noise(self, request_idx: int) -> torch.Tensor:
+        """The flow noise of request ``request_idx``, on the device: JAX's
+        ``normal(fold_in(PRNGKey(seed), request_idx), (1, n_tok, act_dim),
+        dtype)``, as ``blurr_tpu/agent/eval_agent.py:make_noise_infer``
+        draws it."""
+        key = prng.fold_in(prng.prng_key(self.seed), request_idx)
+        return prng.normal(key, self._noise_shape, self.dtype, self.device)
+
     def _step(self, ids, am, px, pr, request_idx: int) -> np.ndarray:
-        gen = noise_generator(self.seed, request_idx, self.device)
-        noise = torch.randn(
-            self._noise_shape, generator=gen, device=self.device, dtype=self.dtype
-        )
+        noise = self.noise(request_idx)
         actions = self.model.infer_action(ids, am, px, pr, noise)
         return actions[0].float().cpu().numpy()  # waits for the device
 

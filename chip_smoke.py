@@ -18,9 +18,12 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              dense weight timed at the vlm and action gate shapes.
              kernel-int8: the int8 matmul at the 13 (M, K, N) of the int8
              step, fp32 x within 1e-5 of the largest output and bf16 x
-             within one bf16 rounding of each output; then it, its plain
-             version and a bf16 matmul of the dequantized weight timed at
-             the action gate and down projection shapes. Every kernel is
+             within one bf16 rounding of each output, the same bits on a
+             second call, its split of K (S) and grid logged; then it, its
+             plain version, the library's int8 weight-only product
+             (torch._weight_int8pack_mm, bf16 scales) and a bf16 matmul of
+             the dequantized weight timed at the action gate and down
+             projection shapes. Every kernel is
              timed two ways: CUDA events around 50 eager launches (which
              for a short kernel time its wrapper's host work) and inside a
              CUDA graph (the device's time alone).
@@ -55,10 +58,11 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              3 requests through ActionClient, checked as serve-w4a8; the
              int8 kernel must launch exactly 380 times per control step, the
              flash kernel 17 times, the int4 kernel never, and every decode
-             must read an int8 prefix cache.
+             must read an int8 prefix cache; one step under torch.profiler
+             gives the step's device time and the int8 kernel's share.
 10. serve-int8-cached - the preset as shipped (cache_fp_weight true: the
              action expert holds a bf16 copy of its int8 weights), the same
-             checks, with 0 launches of the int8 kernel.
+             checks and profile, with 0 launches of the int8 kernel.
 11. small-int8 - the small fp32 model with the int8 {q, s} action expert
              and the int8 KV cache (clip 1.0, bf16), card against CPU; then
              again with the card given the CPU's rounding wherever a cached
@@ -369,13 +373,16 @@ def int4_vs_plain(device) -> dict:
 
 def int8_vs_plain(device) -> dict:
     """The int8 kernel against its plain version at every int8 shape of the
-    step, fp32 and bf16 x, then timed (bf16 x, the served dtype) beside the
-    plain version and a bf16 matmul of the dequantized weight, each both
-    ways: launches timed with CUDA events, which at these shapes time the
-    wrapper's host work, and inside a CUDA graph, which times the device.
-    Returns the largest fp32 error (the kernel's own summation) and the
-    times at the action gate."""
-    from blurr_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+    step, fp32 and bf16 x, each giving the same bits on a second call (its
+    split of K and grid logged), then timed (bf16 x, the served dtype)
+    beside the plain version, a bf16 matmul of the dequantized weight and
+    the library's int8 weight-only product (``torch._weight_int8pack_mm``:
+    bf16 scales, so close to the kernel's function but not equal), each
+    both ways: launches timed with CUDA events, which at these shapes time
+    the wrapper's host work, and inside a CUDA graph, which times the
+    device. Returns the largest fp32 error (the kernel's own summation) and
+    the times at the action gate."""
+    from blurr_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference, slices
 
     g = torch.Generator(device=device).manual_seed(2)
 
@@ -392,17 +399,22 @@ def int8_vs_plain(device) -> dict:
         x, q, s = inputs(*shape)
         ref = int8_matmul_reference(x, q, s)  # fp32; rounds x to bf16 itself
         top = ref.abs().max().item()
+        m, k, n = shape
+        split = slices(m, k, n)
         for dtype in (torch.float32, torch.bfloat16):
             out = int8_matmul(x.to(dtype), q, s)
+            again = torch.equal(out, int8_matmul(x.to(dtype), q, s))
             torch.cuda.synchronize()
             err = (out.float() - ref).abs()
             bound = INT8_FP32_REL_TOL * top
             if dtype == torch.bfloat16:
                 bound = bound + BF16_ROUNDING * ref.abs()
-            ok = bool(torch.isfinite(out).all()) and bool((err <= bound).all())
+            ok = bool(torch.isfinite(out).all()) and bool((err <= bound).all()) and again
             log(f"kernel: int8_matmul (M, K, N)={shape} {str(dtype)[6:]} "
                 f"max_abs_err={err.max().item():.3e} (bound {INT8_FP32_REL_TOL * top:.3e}"
-                f"{' + one bf16 rounding of each output' if dtype == torch.bfloat16 else ''})")
+                f"{' + one bf16 rounding of each output' if dtype == torch.bfloat16 else ''}), "
+                f"same bits on a second call {again}; S={split} slices of K, grid "
+                f"{(-(-n // 64), split, -(-m // 16))}")
             if not ok:
                 raise RuntimeError(f"int8 kernel disagrees with its plain version at {shape} {dtype}")
             if dtype == torch.float32:
@@ -417,8 +429,10 @@ def int8_vs_plain(device) -> dict:
         x, q, s = inputs(*shape)
         xb = x.bfloat16()
         wb = (q.float() * s).bfloat16()
+        q_nk, s_bf16 = q.t().contiguous(), s.bfloat16()  # the library's layout: [N, K]
         times[shape] = _kernel_times(lambda: int8_matmul(xb, q, s),
-                                     lambda: int8_matmul_reference(xb, q, s))
+                                     lambda: int8_matmul_reference(xb, q, s),
+                                     lambda: torch._weight_int8pack_mm(xb, q_nk, s_bf16))
         m, k, n = shape
         bounds[shape] = _bound((xb, q, s), (xb.new_empty(m, n),), 2 * m * k * n, "bf16")
         line = _fmt_times(times[shape], lambda: torch.matmul(xb, wb), "the dequantized weight")
@@ -719,6 +733,26 @@ def _step_median(server, image, proprio, label) -> None:
         f"min {min(times):.3f} over {len(times)} (host clock, synchronized)")
 
 
+def _step_device_time(server, image, proprio, label) -> None:
+    """One control step under torch.profiler (CUDA activity only): the
+    device time of all its kernels and of the int8 kernel's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inputs = server._prepare(image, "put the spoon on the towel", proprio)
+    server._step(*inputs, request_idx=0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        server._step(*inputs, request_idx=0)
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    total_ms = sum(e.self_device_time_total for e in kernels) / 1000.0
+    k3 = [e for e in kernels if "int8_matmul" in e.key]
+    k3_ms = sum(e.self_device_time_total for e in k3) / 1000.0
+    log(f"{label}: one control step under torch.profiler: device time {total_ms:.3f} ms over "
+        f"{sum(e.count for e in kernels)} kernels; of it the int8 kernel {k3_ms:.3f} ms over "
+        f"{sum(e.count for e in k3)} kernels ({', '.join(f'{e.key[:40]} x{e.count}' for e in k3)})")
+    if not total_ms > 0:
+        raise RuntimeError("the profiler saw no device time")
+
+
 def served_w4a8_steps(device) -> dict:
     from blurr_tpu_torch.ops.quant import W4A8Linear
     from blurr_tpu_torch.presets import load_config
@@ -801,6 +835,7 @@ def served_int8_steps(device, cache_fp: bool) -> dict:
     _check_launches(label, launches, {"flash_attention": n_layers - 1,
                                       "int4_matmul": 0, "int8_matmul": per_step})
     _step_median(server, image, proprio, label)
+    _step_device_time(server, image, proprio, label)
     return launches
 
 
@@ -808,8 +843,6 @@ def model_kernel_vs_plain(server, image, proprio) -> None:
     """One control step on the served weights with and without the kernel;
     then the step's time both ways (host clock around a synchronized step,
     alternating kernel / plain)."""
-    from blurr_tpu_torch.serving.server import noise_generator
-
     model = server.model
     inputs = server._prepare(image, "put the spoon on the towel", proprio)
     flash_spec = model.joint_spec
@@ -817,11 +850,7 @@ def model_kernel_vs_plain(server, image, proprio) -> None:
 
     def step(spec):
         model.joint_spec = spec
-        noise = torch.randn(
-            server._noise_shape, device=server.device, dtype=server.dtype,
-            generator=noise_generator(0, 0, server.device),
-        )
-        out = model.infer_action(*inputs, noise)
+        out = model.infer_action(*inputs, server.noise(0))
         torch.cuda.synchronize()
         return out
 

@@ -123,12 +123,18 @@ def cuda_device():
 
 # (M, K, N) of every int8 linear of the Pi-0 int8 step (action q, k/v, o,
 # gate/up, down at M 1 and 4; the action encoder's w1, w2, w3 at M 4), and
-# ragged ones: N not a multiple of 4 (byte loads), M past one row tile
+# ragged ones: N not a multiple of 16 (byte loads), M past one row tile; the
+# split of K: K 4096 at M 16 and 20 (N 1040: a last column tile of 16), K
+# not a multiple of the slice (1000: 8 slices of 128, the last 104 rows;
+# 4100: 16 slices of 272, longer than one 256-row chunk, the last 20 rows),
+# one slice of 8 and of 4 chunks (M 64 and 300)
 CUDA_SHAPES = [
     (1, 1024, 2048), (4, 1024, 2048), (1, 1024, 256), (4, 1024, 256),
     (1, 2048, 1024), (4, 2048, 1024), (1, 1024, 4096), (4, 1024, 4096),
     (1, 4096, 1024), (4, 4096, 1024), (4, 7, 1024), (4, 2048, 1024),
     (4, 1024, 1024), (37, 96, 130), (3, 300, 7), (20, 513, 260),
+    (16, 4096, 1024), (20, 4096, 1040), (4, 1000, 1024), (4, 4100, 256),
+    (64, 2048, 4096), (300, 1024, 1024),
 ]
 
 
@@ -150,3 +156,28 @@ def test_kernel_matches_plain_on_cuda(cuda_device, m, k, n, dtype):
     if dtype == torch.bfloat16:
         bound = bound + BF16_ROUNDING * ref.abs()
     assert ((out.float() - ref).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 4096), (4, 4096, 1024), (1, 2048, 1024),
+                                   (20, 513, 260), (64, 2048, 4096)])
+def test_kernel_gives_the_same_bits_twice_on_cuda(cuda_device, m, k, n, dtype):
+    """The S sums are added in slice order by one thread per output, with no
+    atomics: two calls give the same bits."""
+    x, q, s = (t.to(cuda_device) for t in _torch(*_operands(m, k, n, seed=k), dtype))
+    first = t_int8.int8_matmul(x, q, s)
+    second = t_int8.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,want", [
+    (4, 1024, 4096, 4), (4, 4096, 1024, 16), (1, 1024, 256, 16), (4, 7, 1024, 1),
+    (4, 1000, 1024, 8), (4, 4100, 256, 16), (20, 513, 260, 8), (300, 1024, 1024, 1),
+])
+def test_split_of_k_on_cuda(cuda_device, m, k, n, want):
+    """S, a power of two up to 16 (the cluster), fills ~256 blocks with
+    slices of at least 64 rows, where K allows it."""
+    assert t_int8.slices(m, k, n) == want
