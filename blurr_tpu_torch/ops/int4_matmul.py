@@ -19,9 +19,13 @@ The layout helpers (``pick_block_layout``, ``pack_int4``, ``to_block_major``,
 JAX package's byte layout, so a JAX-quantized weight copies over as it is.
 The tensor-parallel rule (``int4_matmul_spmd``) is not ported yet.
 
-``int4_matmul`` launches the kernel for CUDA tensors, runs the plain version
-only for CPU tensors, and counts its kernel launches in
-``int4_matmul.launches``.
+The kernel runs int8 tensor cores on the nibbles unpacked in registers and
+splits K into S slices, one block each, whose exact int32 partial dots meet
+in one thread block cluster before the group epilogue (the source's header
+gives the design). ``int4_matmul`` launches it for CUDA tensors (one launch
+per call), runs the plain version only for CPU tensors, and counts its
+kernel launches in ``int4_matmul.launches``; ``grid`` and ``slices`` give
+the split for a shape.
 """
 
 from __future__ import annotations
@@ -143,10 +147,10 @@ def _check(x, packed, scale) -> None:
             f"shapes x {tuple(x.shape)}, packed {tuple(packed.shape)}, scale "
             f"{tuple(scale.shape)}: need K = 2 * K//2, N = NB * BN, G | K"
         )
-    if m < 1 or bn % 4 or (k // groups) % 2:
+    if m < 1 or bn % 16 or (k // groups) % 2:
         raise ValueError(
             f"M={m}, BN={bn}, K/G={k // groups}: need M >= 1, BN a multiple "
-            "of 4 and an even number of rows per group"
+            "of 16 and an even number of rows per group"
         )
     if x.dtype != torch.int8 or packed.dtype != torch.int8:
         raise ValueError(f"x and packed must be int8, got {x.dtype}, {packed.dtype}")
@@ -155,8 +159,8 @@ def _check(x, packed, scale) -> None:
     for name, t in (("x", x), ("packed", packed), ("scale", scale)):
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    if packed.data_ptr() % 4:
-        raise ValueError("packed must be 4-byte aligned (the kernel reads words)")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must be 16-byte aligned (the kernel reads 16-byte vectors)")
 
 
 def int4_matmul(
@@ -193,6 +197,23 @@ def int4_matmul(
 int4_matmul.launches = 0
 
 
+def grid(m: int, k: int, n: int, groups: int) -> tuple:
+    """The kernel's grid for an (M, K, N, G) product: (column tiles of 64,
+    or of 128 above 64 rows; S slices of K; row blocks of up to 96 rows); S
+    is also the cluster size. Builds the kernel."""
+    out = (ctypes.c_int * 3)()
+    err = _library().blurr_int4_matmul_grid(m, k, n, groups, out)
+    if err:
+        raise ValueError(f"int4_matmul takes no (M, K, N, G) = {(m, k, n, groups)}")
+    return tuple(out)
+
+
+def slices(m: int, k: int, n: int, groups: int) -> int:
+    """S, the slices of K the kernel splits an (M, K, N, G) product into.
+    Builds the kernel."""
+    return grid(m, k, n, groups)[1]
+
+
 def _library() -> ctypes.CDLL:
     lib = kernels.load("int4_matmul")
     fn = lib.blurr_int4_matmul
@@ -200,6 +221,8 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.blurr_int4_matmul_grid.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.blurr_int4_matmul_grid.restype = i
         lib.blurr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.blurr_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -14,8 +14,10 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              with TF32 off; bf16 against the plain version in fp32 at 2e-2;
              both timed at the Pi-0 prefill shape. The int4 matmul: bit for
              bit (bound 1e-6 relative) at every w4a8 linear of the Pi-0
-             step; then it, its plain version and a bf16 matmul of the
-             dense weight timed at the vlm and action gate shapes.
+             step, the same bits on a second call, its split of K (S) and
+             grid logged; then it, its plain version and a bf16 matmul of
+             the dense weight timed at the vlm gate, the vlm down
+             projection and the action gate.
              kernel-int8: the int8 matmul at the 13 (M, K, N) of the int8
              step, fp32 x within 1e-5 of the largest output and bf16 x
              within one bf16 rounding of each output, the same bits on a
@@ -47,7 +49,8 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              ActionClient. Each answer must be a finite [4, 7] chunk in
              [-1, 1]; the int4 kernel must launch exactly 370 times and the
              flash kernel 17 times per control step; the resident weights
-             must stay under 3.0 GB.
+             must stay under 3.0 GB; one step under torch.profiler gives
+             the step's device time and the int4 kernel's share.
 8. small-w4a8 - the small fp32 model quantized w4a8 (SigLIP w8a8) on the
              card against the same quantized weights on the CPU.
 9. serve-int8 - bridge_pool64_steps2.yaml at full width with
@@ -167,7 +170,8 @@ INT4_SHAPES = [
     (1, 2048, 1024, 4), (4, 2048, 1024, 4), (1, 1024, 4096, 2), (4, 1024, 4096, 2),
     (1, 4096, 1024, 8), (4, 4096, 1024, 8),
 ]
-INT4_TIMED = [(96, 2048, 16384, 4), (4, 1024, 4096, 2)]  # vlm gate, action gate
+# vlm gate (first: the kernels line's entry), vlm down projection, action gate
+INT4_TIMED = [(96, 2048, 16384, 4), (96, 16384, 2048, 32), (4, 1024, 4096, 2)]
 # (M, K, N) of every int8 linear of the pool64 int8 step: action (and
 # proprio) q, k/v, o, gate/up, down at M 1 (proprio prefill) and 4 (decode);
 # the action encoder's w1, w2, w3 at M 4
@@ -320,9 +324,11 @@ def kernel_vs_plain(device) -> dict:
 
 def int4_vs_plain(device) -> dict:
     """The int4 kernel against its plain version at every w4a8 shape of the
-    step, then timed beside the plain version and a bf16 matmul of the
-    dense weight (context for whether int4 pays on this card)."""
+    step, the same bits on a second call (its split of K and grid logged),
+    then timed beside the plain version and a bf16 matmul of the dense
+    weight (the yardstick: whether int4 pays on this card)."""
     from blurr_tpu_torch.ops.int4_matmul import (
+        grid,
         int4_matmul,
         int4_matmul_reference,
         pack_int4,
@@ -345,15 +351,20 @@ def int4_vs_plain(device) -> dict:
     for shape in INT4_SHAPES:
         x, packed, s, _ = inputs(*shape)
         out = int4_matmul(x, packed, s)
+        again = torch.equal(out, int4_matmul(x, packed, s))
         ref = int4_matmul_reference(x, packed, s)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         bound = INT4_REL_TOL * ref.abs().max().item()
         ms = _time_ms(lambda: int4_matmul(x, packed, s), iters=20)
+        graph_ms = _graph_ms(lambda: int4_matmul(x, packed, s))
+        m, k, _, groups = shape
+        blocks = grid(m, k, s.shape[1], groups)
         log(f"kernel: int4_matmul (M, K, N, G)={shape} max_abs_err={err:.3e} "
-            f"bit-equal={torch.equal(out, ref)} (bound {bound:.3e}), kernel "
-            f"{ms:.4f} ms (CUDA events, 20 launches)")
-        if not (torch.isfinite(out).all() and err <= bound):
+            f"bit-equal={torch.equal(out, ref)} (bound {bound:.3e}), same bits on a "
+            f"second call {again}; S={blocks[1]} slices of K, grid {blocks}; kernel "
+            f"{ms:.4f} ms (CUDA events, 20 launches), {graph_ms:.4f} ms in a CUDA graph")
+        if not (torch.isfinite(out).all() and err <= bound and again):
             raise RuntimeError(f"int4 kernel disagrees with its plain version at {shape}")
         worst = max(worst, err)
     times = {}
@@ -733,9 +744,10 @@ def _step_median(server, image, proprio, label) -> None:
         f"min {min(times):.3f} over {len(times)} (host clock, synchronized)")
 
 
-def _step_device_time(server, image, proprio, label) -> None:
+def _step_device_time(server, image, proprio, label, kernel) -> None:
     """One control step under torch.profiler (CUDA activity only): the
-    device time of all its kernels and of the int8 kernel's."""
+    device time of all its kernels and of those of ``kernel`` (the name of
+    one of the port's kernels, e.g. "int4_matmul")."""
     from torch.profiler import ProfilerActivity, profile
 
     inputs = server._prepare(image, "put the spoon on the towel", proprio)
@@ -744,11 +756,12 @@ def _step_device_time(server, image, proprio, label) -> None:
         server._step(*inputs, request_idx=0)
     kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     total_ms = sum(e.self_device_time_total for e in kernels) / 1000.0
-    k3 = [e for e in kernels if "int8_matmul" in e.key]
-    k3_ms = sum(e.self_device_time_total for e in k3) / 1000.0
+    ours = [e for e in kernels if kernel in e.key]
+    ours_ms = sum(e.self_device_time_total for e in ours) / 1000.0
     log(f"{label}: one control step under torch.profiler: device time {total_ms:.3f} ms over "
-        f"{sum(e.count for e in kernels)} kernels; of it the int8 kernel {k3_ms:.3f} ms over "
-        f"{sum(e.count for e in k3)} kernels ({', '.join(f'{e.key[:40]} x{e.count}' for e in k3)})")
+        f"{sum(e.count for e in kernels)} kernels; of it {kernel} {ours_ms:.3f} ms over "
+        f"{sum(e.count for e in ours)} kernels "
+        f"({', '.join(f'{e.key[:40]} x{e.count}' for e in ours)})")
     if not total_ms > 0:
         raise RuntimeError("the profiler saw no device time")
 
@@ -781,6 +794,7 @@ def served_w4a8_steps(device) -> dict:
     _check_launches("serve-w4a8", launches, {"flash_attention": n_layers - 1,
                                              "int4_matmul": per_step, "int8_matmul": 0})
     _step_median(server, image, proprio, "serve-w4a8")
+    _step_device_time(server, image, proprio, "serve-w4a8", "int4_matmul")
     return launches
 
 
@@ -835,7 +849,7 @@ def served_int8_steps(device, cache_fp: bool) -> dict:
     _check_launches(label, launches, {"flash_attention": n_layers - 1,
                                       "int4_matmul": 0, "int8_matmul": per_step})
     _step_median(server, image, proprio, label)
-    _step_device_time(server, image, proprio, label)
+    _step_device_time(server, image, proprio, label, "int8_matmul")
     return launches
 
 

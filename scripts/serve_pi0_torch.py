@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Run the Pi-0 action server of the PyTorch port (blurr_tpu_torch).
 
-    python scripts/serve_pi0_torch.py --device cuda \\
+    python scripts/serve_pi0_torch.py \\
         --config config/eval/bridge.yaml --preset blurr --port 8787
 
 The port's counterpart of scripts/serve_pi0.py, on the single-request path.
-Clients: blurr_tpu.serving.ActionClient.predict(image_u8_hw3, instruction,
-proprio) -> raw normalized action chunk [horizon, action_dim]; the image
+It serves on the card (--device, default cuda); --device cpu runs the plain
+versions of the kernels. With no card and no --device cpu it fails on its
+first CUDA call: nothing falls back to the CPU. Clients: the port's
+blurr_tpu_torch.serving.client.ActionClient, or the JAX package's
+blurr_tpu.serving.ActionClient (the same wire bytes):
+.predict(image_u8_hw3, instruction, proprio) -> raw normalized action chunk
+[horizon, action_dim]; the image
 must be image_size square (224x224x3 for bridge.yaml). The weights are
 random, drawn on the device from --seed, then quantized there as the
 config says: e.g. --config config/eval/bridge_pool64_steps2.yaml serves the
@@ -29,8 +34,8 @@ if str(REPO_ROOT) not in sys.path:
     sys.path.insert(0, str(REPO_ROOT))
 
 
-def main():
-    from blurr_tpu_torch.presets import ALIASES, PRESETS, apply_preset, load_config
+def parse_args(argv=None) -> argparse.Namespace:
+    from blurr_tpu_torch.presets import ALIASES, PRESETS
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--config", type=str, default="config/eval/bridge.yaml")
@@ -41,10 +46,16 @@ def main():
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8787)
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--device", type=str, required=True,
-                   help="torch device to serve on, e.g. cuda or cuda:1 "
-                        "(cpu runs the plain versions of the kernels)")
-    args = p.parse_args()
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to serve on: cuda (default), cuda:1, "
+                        "or cpu (the plain versions of the kernels)")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    from blurr_tpu_torch.presets import apply_preset, load_config
+
+    args = parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(message)s")
     from blurr_tpu_torch.serving.server import ActionServer
