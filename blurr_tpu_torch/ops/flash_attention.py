@@ -5,20 +5,22 @@ kernel, ``csrc/flash_attention.cu``, replaces the TPU kernel
 ``blurr_tpu/ops/pallas_attention.py:_attn_kernel`` and computes the same
 function: GQA attention with fp32 logits scaled by d^-0.5, the tanh soft
 clamp, a boolean mask with a ``finfo(float32).min`` fill, an fp32 online
-softmax with ``l`` floored at 1e-30, and the output in ``q.dtype``.
+softmax with ``l`` floored at 1e-30, and the output in ``q.dtype``. Keys
+past Skv take no part, so a fully masked row averages V over the Skv keys,
+as the plain version does (the TPU kernel's padded keys join that average).
 
-What bounds it on the H100, and the design: one Pi-0 prefill layer
-(q [1,8,277,256] over k/v [1,1,277,256]) is ~0.63 GFLOP over ~2.6 MB, near
-the bf16 ridge, but at batch 1 it is bound by latency and occupancy. The
-kernel runs one block per (batch, query head, 16-query tile), 144 blocks at
-that shape, about one per SM, and streams 32-key tiles of K/V through
-shared memory with fp32 FMAs. It handles the ragged 277 with bounds checks
-instead of the JAX wrapper's padding to 128. Tensor cores (wgmma), TMA and
-pipelining are later work.
+One entry point, two kernels by dtype (the source's header gives the
+design). bf16, the served prefill, runs on tensor cores (``mma.sync``
+m16n8k16): the query heads of a KV group are folded into rows, so a block
+of 64 rows reads each K/V tile once for all heads, and the keys are split
+into parts whose (m, l, O) merge in a fixed order inside a thread block
+cluster; P is rounded to bf16 for P V, as the plain version rounds its
+softmax weights. fp32 keeps the first port's CUDA-core kernel (full fp32,
+no TF32). ``grid`` gives a call's launch geometry.
 
 ``flash_attention`` launches the kernel for CUDA tensors, and uses the
 plain version ``flash_attention_reference`` only for CPU tensors. It counts
-its kernel launches in ``flash_attention.launches``.
+its kernel launches in ``flash_attention.launches``, one per call.
 """
 
 from __future__ import annotations
@@ -102,6 +104,8 @@ def flash_attention(
     kvh, skv = k.shape[1], k.shape[2]
     if scale is None:
         scale = d**-0.5
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bf16 q, k and v must be 16-byte aligned (16-byte copies)")
     lib = _library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -122,6 +126,22 @@ def flash_attention(
 flash_attention.launches = 0
 
 
+def grid(b: int, nh: int, kvh: int, sq: int, skv: int, d: int, dtype: torch.dtype):
+    """The launch geometry of a call: ``(grid, part_keys)``. For bf16 the
+    grid is (64-row tiles of the nh / kvh * sq folded rows, key parts,
+    b * kvh); the key parts of a row tile form one cluster and hold
+    ``part_keys`` keys each (the last one fewer). For fp32 it is (16-query
+    tiles, nh, b) and ``part_keys`` is 0. Builds the kernel (the split
+    depends on the current card's SM count)."""
+    if d not in HEAD_DIMS or dtype not in _DTYPE_CODES:
+        raise ValueError(f"no kernel for head_dim {d} and {dtype}")
+    out = (ctypes.c_int * 4)()
+    err = _library().blurr_flash_attention_grid(b, nh, kvh, sq, skv, _DTYPE_CODES[dtype], out)
+    if err:
+        raise ValueError(f"no launch for b={b} nh={nh} kvh={kvh} sq={sq} skv={skv}")
+    return (out[0], out[1], out[2]), out[3]
+
+
 def _library() -> ctypes.CDLL:
     lib = kernels.load("flash_attention")
     fn = lib.blurr_flash_attention
@@ -129,6 +149,8 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
+        lib.blurr_flash_attention_grid.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
+        lib.blurr_flash_attention_grid.restype = i
         lib.blurr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.blurr_cuda_error_string.restype = ctypes.c_char_p
     return lib

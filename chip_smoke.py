@@ -12,7 +12,10 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 3. kernel  - each kernel against its plain PyTorch version on the card at
              the shapes the paths give it. Flash attention: fp32 at 2e-4
              with TF32 off; bf16 against the plain version in fp32 at 2e-2;
-             both timed at the Pi-0 prefill shape. The int4 matmul: bit for
+             each the same bits on a second call, its launch geometry
+             logged; timed at the Pi-0 prefill shape (fp32 and bf16, the
+             kernels line's entry) and at the pool64 prefill (bf16), each
+             beside its plain version, SDPA and its bound. The int4 matmul: bit for
              bit (bound 1e-6 relative) at every w4a8 linear of the Pi-0
              step, the same bits on a second call, its split of K (S) and
              grid logged; then it, its plain version and a bf16 matmul of
@@ -35,7 +38,9 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              card; 3 requests through blurr_tpu.serving.ActionClient. Each
              answer must be a finite [4, 7] chunk in [-1, 1], and the flash
              kernel must have launched exactly 17 times per control step
-             (18 layers, the last computes only K/V).
+             (18 layers, the last computes only K/V); one step under
+             torch.profiler gives the step's device time and the flash
+             kernel's share.
 5. model   - the same weights and inputs through one control step with the
              kernel and with the plain attention; the actions must agree.
 6. small   - a small fp32 model (bridge_tiny widths, an 80-token prefix so
@@ -50,7 +55,7 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              [-1, 1]; the int4 kernel must launch exactly 370 times and the
              flash kernel 17 times per control step; the resident weights
              must stay under 3.0 GB; one step under torch.profiler gives
-             the step's device time and the int4 kernel's share.
+             the step's device time and the int4 and flash kernels' shares.
 8. small-w4a8 - the small fp32 model quantized w4a8 (SigLIP w8a8) on the
              card against the same quantized weights on the CPU.
 9. serve-int8 - bridge_pool64_steps2.yaml at full width with
@@ -62,7 +67,8 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              int8 kernel must launch exactly 380 times per control step, the
              flash kernel 17 times, the int4 kernel never, and every decode
              must read an int8 prefix cache; one step under torch.profiler
-             gives the step's device time and the int8 kernel's share.
+             gives the step's device time and the int8 and flash kernels'
+             shares.
 10. serve-int8-cached - the preset as shipped (cache_fp_weight true: the
              action expert holds a bf16 copy of its int8 weights), the same
              checks and profile, with 0 launches of the int8 kernel.
@@ -126,9 +132,11 @@ from blurr_tpu_torch.experiments.timing import graph_ms as _graph_ms  # noqa: E4
 
 FP32_TOL = 2e-4  # fp32 sums in another order (TF32 off)
 BF16_TOL = 2e-2  # bf16 output rounding against the fp32 plain version
-# kernel vs plain attention through the whole bf16 control step: the two
-# round P@V differently (fp32 P in the kernel, bf16 P in the plain path) in
-# each of 17 layers of a random-weight model; 5e-2 is ~13 bf16 ulps at 1.0
+# kernel vs plain attention through the whole bf16 control step: both round
+# P to bf16 for P@V, but the kernel rounds the unnormalized p (and divides by
+# l after, in fp32) where the plain path rounds the normalized weights, and
+# the sums run in another order, in each of 17 layers of a random-weight
+# model; 5e-2 is ~13 bf16 ulps at 1.0
 MODEL_TOL = 5e-2
 # fp32 on the card (kernel, cuBLAS with TF32 off) against fp32 on the CPU:
 # the same formulas summed in another order through 10 flow steps
@@ -154,9 +162,10 @@ INT4_REL_TOL = 1e-6
 MAX_W4A8_WEIGHT_BYTES = 3.0e9
 N_REQUESTS = 3
 PI0_SHAPE = (1, 8, 1, 277, 277, 256)  # b, nh, kvh, sq, skv, d
+POOL64_SHAPE = (1, 8, 1, 97, 97, 256)
 KERNEL_SHAPES = [
     PI0_SHAPE,                  # the joint prefill, pad rows fully masked
-    (1, 8, 1, 97, 97, 256),    # the pool64 prefill (96 + proprio)
+    POOL64_SHAPE,               # the pool64 prefill (96 + proprio)
     (2, 4, 2, 100, 150, 64),   # ragged GQA
     (1, 4, 1, 64, 64, 32),     # smallest head_dim
 ]
@@ -281,9 +290,15 @@ def _fmt_times(t: dict, dense=None, dense_name: str = "") -> str:
 
 
 def kernel_vs_plain(device) -> dict:
+    """Flash attention against its plain version at every kernel shape, fp32
+    and bf16, each the same bits on a second call (its launch geometry
+    logged); then timed at the two prefill shapes beside the plain version,
+    SDPA (the library's fused attention, without the soft clamp) and the
+    bound. Returns the kernels line's entry: bf16 at the Pi-0 prefill."""
     from blurr_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
+        grid,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -294,32 +309,42 @@ def kernel_vs_plain(device) -> dict:
         for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
             qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
             out = flash_attention(qc, kc, vc, mask)
+            again = torch.equal(out, flash_attention(qc, kc, vc, mask))
             ref = flash_attention_reference(qc.float(), kc.float(), vc.float(), mask)
             torch.cuda.synchronize()
             if not torch.isfinite(out).all():
                 raise RuntimeError(f"kernel output not finite at {shape} {dtype}")
             err = (out.float() - ref).abs().max().item()
-            torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
-            errs[(shape, dtype)] = err
+            blocks, part_keys = grid(*shape, dtype)
             log(f"kernel: flash_attention {shape} {str(dtype)[6:]} "
-                f"max_abs_err={err:.3e} (tol {tol:g})")
-    q, k, v, mask = _attention_inputs(PI0_SHAPE, device)
-    times = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
-        # the library's fused attention, without the kernel's logit soft clamp
-        times[dtype] = _kernel_times(
-            lambda: flash_attention(qc, kc, vc, mask),
-            lambda: flash_attention_reference(qc, kc, vc, mask),
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qc, kc, vc, attn_mask=mask[:, None], enable_gqa=True))
-        log(f"kernel: time at {PI0_SHAPE} {str(dtype)[6:]}: {_fmt_times(times[dtype])}")
-    b, nh, _, sq, skv, d = PI0_SHAPE
-    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    bound = _bound((qb, kb, vb, mask), (qb,), 4 * b * nh * sq * skv * d, "bf16")
-    log(f"kernel: flash_attention bound at {PI0_SHAPE} bf16 {bound['bound_ms']:.5f} ms "
-        f"({bound['bound_by']})")
-    return {"max_abs_err": errs[(PI0_SHAPE, torch.bfloat16)], **times[torch.bfloat16], **bound}
+                f"max_abs_err={err:.3e} (tol {tol:g}), same bits on a second call {again}; "
+                f"grid {blocks}" + (f" (64-row tiles of the folded heads, {blocks[1]} key "
+                                    f"parts of {part_keys} keys, batch x KV heads)"
+                                    if part_keys else " (16-query tiles, heads, batch)"))
+            torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+            if not again:
+                raise RuntimeError(f"kernel gives other bits on a second call at {shape} {dtype}")
+            errs[(shape, dtype)] = err
+    times, bounds = {}, {}
+    for shape, dtypes in ((PI0_SHAPE, (torch.bfloat16, torch.float32)),
+                          (POOL64_SHAPE, (torch.bfloat16,))):
+        q, k, v, mask = _attention_inputs(shape, device)
+        for dtype in dtypes:
+            qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
+            times[(shape, dtype)] = _kernel_times(
+                lambda: flash_attention(qc, kc, vc, mask),
+                lambda: flash_attention_reference(qc, kc, vc, mask),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qc, kc, vc, attn_mask=mask[:, None], enable_gqa=True))
+            log(f"kernel: time at {shape} {str(dtype)[6:]}: "
+                f"{_fmt_times(times[(shape, dtype)])}")
+        b, nh, _, sq, skv, d = shape
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        bounds[shape] = _bound((qb, kb, vb, mask), (qb,), 4 * b * nh * sq * skv * d, "bf16")
+        log(f"kernel: flash_attention bound at {shape} bf16 {bounds[shape]['bound_ms']:.5f} ms "
+            f"({bounds[shape]['bound_by']})")
+    return {"max_abs_err": errs[(PI0_SHAPE, torch.bfloat16)],
+            **times[(PI0_SHAPE, torch.bfloat16)], **bounds[PI0_SHAPE]}
 
 
 def int4_vs_plain(device) -> dict:
@@ -693,6 +718,7 @@ def served_control_steps(device):
     # 18 layers, the last computes only K/V
     _check_launches("serve", launches,
                     {"flash_attention": n_layers - 1, "int4_matmul": 0, "int8_matmul": 0})
+    _step_device_time(server, image, proprio, "serve", "flash_attention")
     return server, image, proprio, launches
 
 
@@ -744,10 +770,10 @@ def _step_median(server, image, proprio, label) -> None:
         f"min {min(times):.3f} over {len(times)} (host clock, synchronized)")
 
 
-def _step_device_time(server, image, proprio, label, kernel) -> None:
+def _step_device_time(server, image, proprio, label, *names) -> None:
     """One control step under torch.profiler (CUDA activity only): the
-    device time of all its kernels and of those of ``kernel`` (the name of
-    one of the port's kernels, e.g. "int4_matmul")."""
+    device time of all its kernels and of those of each of ``names`` (the
+    names of the port's kernels, e.g. "int4_matmul")."""
     from torch.profiler import ProfilerActivity, profile
 
     inputs = server._prepare(image, "put the spoon on the towel", proprio)
@@ -756,12 +782,14 @@ def _step_device_time(server, image, proprio, label, kernel) -> None:
         server._step(*inputs, request_idx=0)
     kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     total_ms = sum(e.self_device_time_total for e in kernels) / 1000.0
-    ours = [e for e in kernels if kernel in e.key]
-    ours_ms = sum(e.self_device_time_total for e in ours) / 1000.0
+    shares = []
+    for name in names:
+        ours = [e for e in kernels if name in e.key]
+        ours_ms = sum(e.self_device_time_total for e in ours) / 1000.0
+        shares.append(f"{name} {ours_ms:.3f} ms over {sum(e.count for e in ours)} kernels "
+                      f"({', '.join(f'{e.key[:48]} x{e.count}' for e in ours)})")
     log(f"{label}: one control step under torch.profiler: device time {total_ms:.3f} ms over "
-        f"{sum(e.count for e in kernels)} kernels; of it {kernel} {ours_ms:.3f} ms over "
-        f"{sum(e.count for e in ours)} kernels "
-        f"({', '.join(f'{e.key[:40]} x{e.count}' for e in ours)})")
+        f"{sum(e.count for e in kernels)} kernels; of it {'; '.join(shares)}")
     if not total_ms > 0:
         raise RuntimeError("the profiler saw no device time")
 
@@ -794,7 +822,7 @@ def served_w4a8_steps(device) -> dict:
     _check_launches("serve-w4a8", launches, {"flash_attention": n_layers - 1,
                                              "int4_matmul": per_step, "int8_matmul": 0})
     _step_median(server, image, proprio, "serve-w4a8")
-    _step_device_time(server, image, proprio, "serve-w4a8", "int4_matmul")
+    _step_device_time(server, image, proprio, "serve-w4a8", "int4_matmul", "flash_attention")
     return launches
 
 
@@ -849,7 +877,7 @@ def served_int8_steps(device, cache_fp: bool) -> dict:
     _check_launches(label, launches, {"flash_attention": n_layers - 1,
                                       "int4_matmul": 0, "int8_matmul": per_step})
     _step_median(server, image, proprio, label)
-    _step_device_time(server, image, proprio, label, "int8_matmul")
+    _step_device_time(server, image, proprio, label, "int8_matmul", "flash_attention")
     return launches
 
 
