@@ -17,7 +17,11 @@ plain version ``w8a8_matmul_reference`` alike, so the two agree bit for bit.
 
 ``w8a8_matmul`` launches the kernel for CUDA tensors, runs the plain version
 only for CPU tensors, and counts its kernel launches in
-``w8a8_matmul.launches``. Nothing on the control step calls it: JAX leaves
+``w8a8_matmul.launches``. The kernel runs int8 ``mma.sync`` on the tensor
+cores, fed by ``cp.async``, and where its tiles alone leave the card short it
+splits K over a thread block cluster whose int32 partial dots add exactly
+before the one conversion (the source's header); ``grid`` and ``slices`` give
+that geometry. Nothing on the control step calls it: JAX leaves
 the w8a8 product to XLA, and the port to ``torch._int_mm`` (``ops/quant.py``).
 """
 
@@ -113,6 +117,23 @@ def w8a8_matmul(
 w8a8_matmul.launches = 0
 
 
+def grid(m: int, k: int, n: int, bn: int) -> tuple:
+    """The kernel's grid for an (M, K, N) product with blocks of BN columns:
+    (column tiles of 64, or of 128 above 64 rows; S slices of K; row blocks
+    of up to 144 rows); S is also the cluster size. Builds the kernel."""
+    out = (ctypes.c_int * 3)()
+    err = _library().blurr_w8a8_matmul_grid(m, k, n, bn, out)
+    if err:
+        raise ValueError(f"w8a8_matmul takes no (M, K, N, BN) = {(m, k, n, bn)}")
+    return tuple(out)
+
+
+def slices(m: int, k: int, n: int, bn: int) -> int:
+    """S, the slices of K the kernel splits an (M, K, N) product into.
+    Builds the kernel."""
+    return grid(m, k, n, bn)[1]
+
+
 def _library() -> ctypes.CDLL:
     lib = kernels.load("w8a8_matmul")
     fn = lib.blurr_w8a8_matmul
@@ -120,6 +141,8 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.blurr_w8a8_matmul_grid.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.blurr_w8a8_matmul_grid.restype = i
         lib.blurr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.blurr_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -35,7 +35,8 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 4. serve   - the port's ActionServer at the full bridge.yaml width with the
              blurr preset (bf16, prefix KV cache, one flow step) and
              joint.config.use_flash_attn set, random weights drawn on the
-             card; 3 requests through blurr_tpu.serving.ActionClient. Each
+             card; 3 requests through the port's
+             blurr_tpu_torch.serving.client.ActionClient. Each
              answer must be a finite [4, 7] chunk in [-1, 1], and the flash
              kernel must have launched exactly 17 times per control step
              (18 layers, the last computes only K/V); one step under
@@ -84,8 +85,11 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              the split-half int4 product K5 signed and biased (M 8 and 32),
              K2 at one group on the adjacent-row (bitcast) packing (M 8, 32,
              96); the fused GeGLU FFN K6 at (280, 2048, 16384) within one
-             bf16 step at its largest output. Each timed as the other
-             kernels, K4 beside torch._int_mm.
+             bf16 step at its largest output; K4 the same bits on a second
+             call, its grid and split of K (S) logged. Each timed as the
+             other kernels: K4 at all six harness shapes beside
+             torch._int_mm and its bound (and, for information, _int_mm on a
+             column-major copy of the weight), K6 beside three bf16 matmuls.
 13. experiments - the two experiment entry points run as a user runs them
              (bench_lowbit_matmul, bench_fused_ffn at 18 layers), with the
              counts set to 0 just before: K4, K5, K2 and K6 must each launch.
@@ -482,8 +486,9 @@ def experiments_vs_plain(device) -> dict:
     at every harness shape, with scales that are not 1 so the rounding of
     the int32 dot and the multiply show: K4, K5 and K2 at one group bit for
     bit, K6 within one bf16 step at its largest output. Then each timed at
-    its first shape (K4 also at the bridge gate/up shape, K6 beside the
-    three bf16 matmuls). Returns each kernel's entry of the kernels line."""
+    its first shape (K4 at every harness shape beside torch._int_mm, K6
+    beside the three bf16 matmuls). Returns each kernel's entry of the
+    kernels line."""
     from blurr_tpu_torch.experiments import bench_fused_ffn, bench_lowbit_matmul, lowbit
     from blurr_tpu_torch.experiments.bench_lowbit_matmul import (
         ADJACENT_M,
@@ -498,6 +503,7 @@ def experiments_vs_plain(device) -> dict:
         int4_split_matmul_reference,
     )
     from blurr_tpu_torch.ops.quant import INT_MM_PAD_ROWS
+    from blurr_tpu_torch.ops.w8a8_matmul import grid as w8a8_grid
     from blurr_tpu_torch.ops.w8a8_matmul import w8a8_matmul, w8a8_matmul_reference
 
     g = torch.Generator(device=device).manual_seed(3)
@@ -519,32 +525,43 @@ def experiments_vs_plain(device) -> dict:
         return err
 
     entries = {}
-    # K4: the w8a8 product, row-major and block-major
+    # K4: the w8a8 product, row-major and block-major, each the same bits on
+    # a second call, then timed at every harness shape (the kernels line's
+    # entry: the first)
     w8a8_shapes = ([(m, k, n, None) for m in ROW_MAJOR_M]
                    + [(m, kk, nn, block_major_width(nn)) for m, kk, nn in BLOCK_MAJOR])
-    operands, worst = {}, 0.0
+    worst = 0.0
     for m, kk, nn, bn in w8a8_shapes:
         x, w, s = randint((m, kk)), randint((kk, nn)), scales(nn)
         wl = w if bn is None else lowbit.int8_block_major(w, bn)
-        worst = max(worst, held(
-            f"w8a8_matmul {'row-major' if bn is None else f'block-major BN {bn}'}",
-            (m, kk, nn), w8a8_matmul(x, wl, s), w8a8_matmul_reference(x, wl, s)))
-        operands[(m, kk, nn)] = (x, w, wl, s)
-    for shape in ((ROW_MAJOR_M[0], k, n), BLOCK_MAJOR[2]):
-        x, w, wl, s = operands[shape]
-        m = shape[0]
-        # torch._int_mm takes M > 16 on CUDA: the rows padded once, outside
+        out = w8a8_matmul(x, wl, s)
+        again = torch.equal(out, w8a8_matmul(x, wl, s))
+        blocks = w8a8_grid(m, kk, nn, bn or nn)
+        layout = "row-major" if bn is None else f"block-major BN {bn}"
+        worst = max(worst, held(f"w8a8_matmul {layout}", (m, kk, nn), out,
+                                w8a8_matmul_reference(x, wl, s)))
+        log(f"kernel-experiments: w8a8_matmul (M, K, N)={(m, kk, nn)} same bits on a second "
+            f"call {again}; S={blocks[1]} slices of K, grid {blocks} (column tiles, S, row "
+            f"blocks)")
+        if not again:
+            raise RuntimeError(f"w8a8_matmul gives other bits on a second call at {(m, kk, nn)}")
+        # torch._int_mm takes M > 16 on CUDA: the rows padded once, outside;
+        # its column-major copy of the weight, made once, is for information
         xp = torch.nn.functional.pad(x, (0, 0, 0, max(0, INT_MM_PAD_ROWS - m)))
+        w_cm = w.t().contiguous().t()
         times = _kernel_times(lambda: w8a8_matmul(x, wl, s),
                               lambda: w8a8_matmul_reference(x, wl, s),
                               lambda: torch._int_mm(xp, w))
-        least = _bound((x, wl, s), (torch.empty(m, shape[2], device=device),),
-                       2 * m * shape[1] * shape[2], "int8")
-        log(f"kernel-experiments: w8a8_matmul time at (M, K, N)={shape}: "
-            f"{_fmt_times(times)} (library: torch._int_mm alone, no scaling); bound "
-            f"{least['bound_ms']:.5f} ms ({least['bound_by']})")
-        if shape[0] == ROW_MAJOR_M[0]:
-            entries["w8a8_matmul"] = {"max_abs_err": worst, **times, **least}
+        least = _bound((x, wl, s), (out,), 2 * m * kk * nn, "int8")
+        col_major = _graph_ms(lambda: torch._int_mm(xp, w_cm))
+        log(f"kernel-experiments: w8a8_matmul time at (M, K, N)={(m, kk, nn)} {layout}: "
+            f"{_fmt_times(times)} (library: torch._int_mm alone, no scaling); torch._int_mm "
+            f"on a column-major copy of the weight {col_major:.4f} ms (graph); bound "
+            f"{least['bound_ms']:.5f} ms ({least['bound_by']}); in a graph the kernel beats "
+            f"torch._int_mm: {times['graph_ms'] < times['library_graph_ms']}")
+        if "w8a8_matmul" not in entries:
+            entries["w8a8_matmul"] = {**times, **least}
+    entries["w8a8_matmul"]["max_abs_err"] = worst
     # K5: the split-half int4 product, signed and biased
     worst = 0.0
     for biased in (False, True):

@@ -424,11 +424,16 @@ def _scales(device, n, seed):
     return torch.rand(1, n, device=device, generator=g) * 1e-2 + 1e-4
 
 
-# (M, K, N, BN) of the w8a8 harnesses (BN None: row-major), and ragged ones
+# (M, K, N, BN) of the w8a8 harnesses (BN None: row-major), and ragged ones;
+# then the edges of the tiles (M 1, 16, 17, 95, 97, 145), K 16384 at the largest
+# split (S 16), BN 1024 at N 4096, N 260 row-major (4-byte weight copies)
 W8A8_CUDA_SHAPES = [(8, 4096, 11264, None), (32, 4096, 11264, None),
                     (96, 2048, 16384, 2048), (96, 16384, 2048, 2048),
                     (276, 2048, 16384, 2048), (5, 1024, 4096, 1024), (3, 100, 260, None),
-                    (17, 7, 8, 4)]
+                    (17, 7, 8, 4),
+                    (1, 4096, 11264, None), (16, 1024, 4096, 1024), (17, 2048, 2048, None),
+                    (95, 2048, 4096, 2048), (97, 1000, 260, None), (4, 16384, 256, None),
+                    (33, 256, 260, None), (145, 256, 384, 128)]
 
 
 @pytest.mark.cuda
@@ -443,6 +448,28 @@ def test_w8a8_kernel_equals_plain_on_cuda(cuda_device, m, k, n, bn):
     torch.cuda.synchronize()
     assert t_w8a8.w8a8_matmul.launches == before + 1
     assert torch.equal(out, t_w8a8.w8a8_matmul_reference(x, w, s))
+    assert torch.equal(out, t_w8a8.w8a8_matmul(x, w, s))  # the same bits again
+
+
+@pytest.mark.cuda
+def test_w8a8_kernel_grid_fills_the_card_at_the_harness_shapes(cuda_device):
+    """The split of K the source's header names: where the column tiles
+    leave the 132 SMs short (2 blocks to an SM for the 4-warp tiles, 1 for
+    the 8- and 12-warp ones), K is split until they are full; no split where
+    the tiles fill the card; at most 16 slices."""
+    assert t_w8a8.grid(8, 4096, 11264, 11264) == (176, 2, 1)
+    assert t_w8a8.grid(32, 4096, 11264, 11264) == (176, 2, 1)
+    assert t_w8a8.grid(96, 2048, 16384, 2048) == (128, 1, 1)
+    assert t_w8a8.grid(96, 16384, 2048, 2048) == (16, 8, 1)
+    assert t_w8a8.grid(276, 2048, 16384, 2048) == (128, 1, 2)
+    assert t_w8a8.grid(5, 1024, 4096, 1024) == (64, 4, 1)
+    assert t_w8a8.slices(4, 16384, 256, 256) == 16
+    for m, k, n, bn in ((8, 4096, 11264, 11264), (32, 4096, 11264, 11264),
+                        (96, 2048, 16384, 2048), (96, 16384, 2048, 2048),
+                        (276, 2048, 16384, 2048), (5, 1024, 4096, 1024)):
+        cols, s, rows = t_w8a8.grid(m, k, n, bn)
+        per_sm = 2 if m <= 64 else 1
+        assert cols * s * rows >= 132 * per_sm * 15 // 16
 
 
 @pytest.mark.cuda
