@@ -85,11 +85,16 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              the split-half int4 product K5 signed and biased (M 8 and 32),
              K2 at one group on the adjacent-row (bitcast) packing (M 8, 32,
              96); the fused GeGLU FFN K6 at (280, 2048, 16384) within one
-             bf16 step at its largest output; K4 the same bits on a second
-             call, its grid and split of K (S) logged. Each timed as the
-             other kernels: K4 at all six harness shapes beside
-             torch._int_mm and its bound (and, for information, _int_mm on a
-             column-major copy of the weight), K6 beside three bf16 matmuls.
+             bf16 step at its largest output and the same bits on a second
+             call, the grid of its two phases (phase 1 gate, up and GeGLU
+             on wgmma, a through L2; phase 2 the down product, K split into
+             S slices in a cluster) and ptxas's registers and spills logged;
+             K4 the same bits on a second call, its grid and split of K (S)
+             logged. Each timed as the other kernels: K4 at all six harness
+             shapes beside torch._int_mm and its bound (and, for
+             information, _int_mm on a column-major copy of the weight), K6
+             beside three bf16 matmuls, and one K6 call's device time split
+             between its two phases under torch.profiler.
 13. experiments - the two experiment entry points run as a user runs them
              (bench_lowbit_matmul, bench_fused_ffn at 18 layers), with the
              counts set to 0 just before: K4, K5, K2 and K6 must each launch.
@@ -496,7 +501,11 @@ def experiments_vs_plain(device) -> dict:
         ROW_MAJOR_M,
         block_major_width,
     )
+    from blurr_tpu_torch.ops import kernels
     from blurr_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_reference
+    from blurr_tpu_torch.ops.fused_ffn import _CLUSTERS as FFN_CLUSTERS
+    from blurr_tpu_torch.ops.fused_ffn import card_clusters as ffn_clusters
+    from blurr_tpu_torch.ops.fused_ffn import kernel_grid as ffn_grid
     from blurr_tpu_torch.ops.int4_matmul import int4_matmul_reference, pack_int4, to_block_major
     from blurr_tpu_torch.ops.int4_split_matmul import (
         int4_split_matmul,
@@ -592,8 +601,19 @@ def experiments_vs_plain(device) -> dict:
              int4_matmul_reference(x, relaid, s))
         held("int4_matmul at one group against the dense int4 weight", (m, k, n), out,
              (x.double() @ q.double()).float() * s)
-    # K6: the fused GeGLU FFN
+    # K6: the fused GeGLU FFN, its two phases' geometry and ptxas's lines
     m, h, inter = bench_fused_ffn.M, bench_fused_ffn.H, bench_fused_ffn.I
+    (rows, i_tiles), (rows2, s, h_tiles) = ffn_grid(m, h, inter)
+    log(f"kernel-experiments: fused_ffn (M, H, I)={(m, h, inter)}: phase 1 (gate, up, "
+        f"GeGLU) grid {(rows, i_tiles)} (row blocks of 288, column tiles of 64 of I), no "
+        f"cluster; phase 2 (down) grid {(rows2, s, h_tiles)} (row blocks, S={s} slices of K, "
+        f"column tiles of 64 of H), cluster (1, {s}, 1)")
+    clusters = ffn_clusters()
+    log(f"kernel-experiments: fused_ffn phase 2 clusters of 1..8 blocks the card runs at once "
+        f"{list(clusters[1:])} (the S rule's table for an H100 SXM: {list(FFN_CLUSTERS[1:])})")
+    for line in kernels.build_log("fused_ffn").splitlines():
+        if "registers" in line or "spill" in line or "serialized" in line:
+            log(f"kernel-experiments: fused_ffn ptxas {line.strip()}")
     x = (torch.rand(m, h, generator=g, device=device) * 2 - 1).to(torch.bfloat16)
     weights = bench_fused_ffn.layer_weights(h, inter, g, device)
     out = fused_ffn(x, *weights)
@@ -611,9 +631,32 @@ def experiments_vs_plain(device) -> dict:
     three = _fmt_times(times, lambda: bench_fused_ffn.ffn_bf16(x, *weights),
                        "the three weights (the FFN)")
     log(f"kernel-experiments: fused_ffn time at (M, H, I)={(m, h, inter)}: {three}")
+    _ffn_phase_split(lambda: fused_ffn(x, *weights))
     entries["fused_ffn"] = {"max_abs_err": err, **times,
                             **_bound((x, *weights), (out,), 6 * m * h * inter, "bf16")}
     return entries
+
+
+def _ffn_phase_split(call, calls: int = 10) -> None:
+    """K6's device time split between its two kernels (phase 1: gate, up
+    and GeGLU; phase 2: the down product and its cluster merge) under
+    torch.profiler, per call over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    phases = {("phase 1 (gate, up, GeGLU)" if "<true>" in e.key else "phase 2 (down, merge)"):
+              e.self_device_time_total / calls / 1000.0
+              for e in prof.key_averages() if "ffn_kernel" in e.key}
+    if len(phases) != 2:
+        raise RuntimeError(f"the profiler did not see both phases of fused_ffn: {phases}")
+    log("kernel-experiments: fused_ffn device time per call under torch.profiler: " +
+        ", ".join(f"{name} {ms:.4f} ms" for name, ms in phases.items()) +
+        f"; both {sum(phases.values()):.4f} ms")
 
 
 def experiments_run() -> dict:

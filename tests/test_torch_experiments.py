@@ -350,10 +350,28 @@ def test_fused_ffn_wrapper_rejects_what_the_kernel_does_not_take():
         t_ffn.fused_ffn(x, wg, wg, wg.t())
 
 
-def test_pick_slices_fills_the_card():
-    assert t_ffn.pick_slices(280, 16384, 132) == 22  # 18 row tiles x 22 = 3 waves
-    assert t_ffn.pick_slices(16, 128, 132) == 2  # at most one slice per 64 columns
-    assert t_ffn.pick_slices(4096, 16384, 132) == 1
+# (M, H, I): ((row blocks, I tiles), (row blocks, S, H tiles)) of K6
+FFN_GRIDS = [((280, 2048, 16384), ((1, 256), (1, 3, 32))),  # the harness
+             ((1, 2048, 16384), ((1, 256), (1, 3, 32))),
+             ((4096, 2048, 16384), ((15, 256), (15, 1, 32))),  # 480 tiles: no split
+             ((300, 1024, 2048), ((2, 32), (2, 3, 16))),
+             ((280, 1920, 1024), ((1, 16), (1, 4, 30)))]
+
+
+@pytest.mark.parametrize("shape,want", FFN_GRIDS)
+def test_grid_fills_the_card(shape, want):
+    """K6's geometry: blocks of 288 rows by 64 weight columns; the down
+    phase splits K into the S slices whose clusters all fit on the card at
+    once (at most 39 clusters of 3, 30 of 4, 15 of 8 on an H100 SXM), each
+    slice at least 4 steps of 64."""
+    m, h, inter = shape
+    got = t_ffn.grid(m, h, inter)
+    assert got == want
+    (rows, i_tiles), (rows2, s, h_tiles) = got
+    tiles = rows2 * h_tiles
+    assert rows == rows2 and i_tiles * 64 == inter and h_tiles * 64 == h
+    assert tiles <= t_ffn._CLUSTERS[s] or s == 1
+    assert inter // 64 >= 4 * s or s == 1
 
 
 # ----------------------------------------------- counts and the card
@@ -501,15 +519,28 @@ def test_adjacent_int4_through_k2_on_cuda(cuda_device, m):
     assert torch.equal(out, (x.double() @ q.double()).float() * s)
 
 
+def _ffn_on(device, m, h, inter):
+    g = torch.Generator(device=device).manual_seed(m)
+    x = (torch.rand(m, h, device=device, generator=g) * 2 - 1).bfloat16()
+    wg, wu = (torch.randn(h, inter, device=device, generator=g).mul_(0.02).bfloat16()
+              for _ in range(2))
+    wd = torch.randn(inter, h, device=device, generator=g).mul_(0.02).bfloat16()
+    return x, wg, wu, wd
+
+
+# the harness shape and two small ones; M 1, 17, 65, 277 and 300 (two row
+# blocks), H 1920 (not a multiple of 256), I 64 (one column tile), a short
+# last slice of K (I 1088)
+FFN_CUDA_SHAPES = [(280, 2048, 16384), (40, 256, 1024), (3, 128, 64),
+                   (1, 2048, 16384), (17, 256, 1024), (65, 128, 64), (277, 2048, 16384),
+                   (300, 1024, 2048), (280, 1920, 1024), (280, 2048, 64), (17, 256, 1088)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,h,inter", [(280, 2048, 16384), (40, 256, 1024), (3, 128, 64)])
+@pytest.mark.parametrize("m,h,inter", FFN_CUDA_SHAPES)
 def test_fused_ffn_kernel_within_one_bf16_step_on_cuda(cuda_device, m, h, inter):
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device=cuda_device).manual_seed(m)
-    x = (torch.rand(m, h, device=cuda_device, generator=g) * 2 - 1).bfloat16()
-    wg, wu = (torch.randn(h, inter, device=cuda_device, generator=g).mul_(0.02).bfloat16()
-              for _ in range(2))
-    wd = torch.randn(inter, h, device=cuda_device, generator=g).mul_(0.02).bfloat16()
+    x, wg, wu, wd = _ffn_on(cuda_device, m, h, inter)
     before = t_ffn.fused_ffn.launches
     out = t_ffn.fused_ffn(x, wg, wu, wd)
     torch.cuda.synchronize()
@@ -518,3 +549,36 @@ def test_fused_ffn_kernel_within_one_bf16_step_on_cuda(cuda_device, m, h, inter)
     assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
     assert (out.float() - ref).abs().max().item() <= BF16_STEP * ref.abs().max().item()
     assert torch.equal(out, t_ffn.fused_ffn(x, wg, wu, wd))  # deterministic
+
+
+@pytest.mark.cuda
+def test_fused_ffn_graph_replay_gives_the_eager_bits(cuda_device):
+    x, wg, wu, wd = _ffn_on(cuda_device, 280, 2048, 16384)
+    eager = t_ffn.fused_ffn(x, wg, wu, wd)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        t_ffn.fused_ffn(x, wg, wu, wd)  # warm up off the default stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = t_ffn.fused_ffn(x, wg, wu, wd)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,want", FFN_GRIDS)
+def test_fused_ffn_kernel_grid_is_the_mirrored_grid(cuda_device, shape, want):
+    assert t_ffn.kernel_grid(*shape) == t_ffn.grid(*shape) == want
+
+
+@pytest.mark.cuda
+def test_fused_ffn_cluster_table_is_the_cards(cuda_device):
+    """The S rule's table of how many clusters fit at once is the card's, on
+    an H100 SXM (132 SMs); elsewhere the rule still runs, less well fitted."""
+    if torch.cuda.get_device_properties(cuda_device).multi_processor_count != 132:
+        pytest.skip("the table is an H100 SXM's")
+    assert t_ffn.card_clusters() == t_ffn._CLUSTERS
