@@ -19,7 +19,13 @@ bit for bit.
 
 ``int4_split_matmul`` launches the kernel for CUDA tensors, runs the plain
 version only for CPU tensors, and counts its kernel launches in
-``int4_split_matmul.launches``. Nothing on the control step calls it.
+``int4_split_matmul.launches``. The kernel is K4's int8 ``mma.sync`` path
+(``csrc/w8a8_matmul.cu``) on the packed bytes: each fragment word of packed
+rows is unpacked in registers into the B operands of both halves, fed by
+``cp.async``, and where its tiles alone leave the card short it splits K/2
+over a thread block cluster whose int32 partial dots add exactly before the
+one conversion (the source's header); ``grid`` and ``slices`` give that
+geometry. Nothing on the control step calls it.
 """
 
 from __future__ import annotations
@@ -116,6 +122,24 @@ def int4_split_matmul(
 int4_split_matmul.launches = 0
 
 
+def grid(m: int, k: int, n: int) -> tuple:
+    """The kernel's grid for an (M, K, N) product, signed or biased alike:
+    (column tiles of 64, or of 128 above 64 rows; S slices of K/2; row
+    blocks of up to 144 rows); S is also the cluster size. Builds the
+    kernel."""
+    out = (ctypes.c_int * 3)()
+    err = _library().blurr_int4_split_matmul_grid(m, k, n, 0, out)
+    if err:
+        raise ValueError(f"int4_split_matmul takes no (M, K, N) = {(m, k, n)}")
+    return tuple(out)
+
+
+def slices(m: int, k: int, n: int) -> int:
+    """S, the slices of K/2 the kernel splits an (M, K, N) product into.
+    Builds the kernel."""
+    return grid(m, k, n)[1]
+
+
 def _library() -> ctypes.CDLL:
     lib = kernels.load("int4_split_matmul")
     fn = lib.blurr_int4_split_matmul
@@ -123,6 +147,8 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.blurr_int4_split_matmul_grid.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.blurr_int4_split_matmul_grid.restype = i
         lib.blurr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.blurr_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -82,7 +82,9 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              their plain versions at every harness shape, bit for bit: the
              w8a8 product K4 (row-major at M 8 and 32, K 4096, N 11264;
              block-major at the 4 shapes of the int8 block-major harness),
-             the split-half int4 product K5 signed and biased (M 8 and 32),
+             the split-half int4 product K5 signed and biased (M 8 and 32,
+             each the same bits on a second call, its grid and split of K/2
+             (S) and ptxas's registers and spills logged),
              K2 at one group on the adjacent-row (bitcast) packing (M 8, 32,
              96); the fused GeGLU FFN K6 at (280, 2048, 16384) within one
              bf16 step at its largest output and the same bits on a second
@@ -92,7 +94,8 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              K4 the same bits on a second call, its grid and split of K (S)
              logged. Each timed as the other kernels: K4 at all six harness
              shapes beside torch._int_mm and its bound (and, for
-             information, _int_mm on a column-major copy of the weight), K6
+             information, _int_mm on a column-major copy of the weight), K5
+             at both M signed and biased beside K4 at the same shape, K6
              beside three bf16 matmuls, and one K6 call's device time split
              between its two phases under torch.profiler.
 13. experiments - the two experiment entry points run as a user runs them
@@ -507,6 +510,7 @@ def experiments_vs_plain(device) -> dict:
     from blurr_tpu_torch.ops.fused_ffn import card_clusters as ffn_clusters
     from blurr_tpu_torch.ops.fused_ffn import kernel_grid as ffn_grid
     from blurr_tpu_torch.ops.int4_matmul import int4_matmul_reference, pack_int4, to_block_major
+    from blurr_tpu_torch.ops.int4_split_matmul import grid as split_grid
     from blurr_tpu_torch.ops.int4_split_matmul import (
         int4_split_matmul,
         int4_split_matmul_reference,
@@ -540,6 +544,7 @@ def experiments_vs_plain(device) -> dict:
     w8a8_shapes = ([(m, k, n, None) for m in ROW_MAJOR_M]
                    + [(m, kk, nn, block_major_width(nn)) for m, kk, nn in BLOCK_MAJOR])
     worst = 0.0
+    k4_graph_ms = {}  # K4's graph time at each row-major shape: K5's yardstick
     for m, kk, nn, bn in w8a8_shapes:
         x, w, s = randint((m, kk)), randint((kk, nn)), scales(nn)
         wl = w if bn is None else lowbit.int8_block_major(w, bn)
@@ -568,29 +573,48 @@ def experiments_vs_plain(device) -> dict:
             f"on a column-major copy of the weight {col_major:.4f} ms (graph); bound "
             f"{least['bound_ms']:.5f} ms ({least['bound_by']}); in a graph the kernel beats "
             f"torch._int_mm: {times['graph_ms'] < times['library_graph_ms']}")
+        if bn is None:
+            k4_graph_ms[(m, kk, nn)] = times["graph_ms"]
         if "w8a8_matmul" not in entries:
             entries["w8a8_matmul"] = {**times, **least}
     entries["w8a8_matmul"]["max_abs_err"] = worst
-    # K5: the split-half int4 product, signed and biased
+    # K5: the split-half int4 product, signed and biased, each the same bits
+    # on a second call, its grid and S logged; timed at every shape beside
+    # K4 at the same shape (the kernels line's entry: M 8 signed)
+    for line in kernels.build_log("int4_split_matmul").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"kernel-experiments: int4_split_matmul ptxas {line.strip()}")
     worst = 0.0
     for biased in (False, True):
         pack = lowbit.pack_split_half_biased if biased else lowbit.pack_split_half
+        kind = "biased" if biased else "signed"
         for m in ROW_MAJOR_M:
             x, q, s = randint((m, k)), randint((k, n), -8, 8), scales(n)
             packed = pack(q)
             out = int4_split_matmul(x, packed, s, biased)
-            worst = max(worst, held(f"int4_split_matmul {'biased' if biased else 'signed'}",
-                                    (m, k, n), out,
+            again = torch.equal(out, int4_split_matmul(x, packed, s, biased))
+            worst = max(worst, held(f"int4_split_matmul {kind}", (m, k, n), out,
                                     int4_split_matmul_reference(x, packed, s, biased)))
             held("int4_split_matmul against the dense int4 weight", (m, k, n), out,
                  (x.double() @ q.double()).float() * s)
-            if (m, biased) == (ROW_MAJOR_M[0], False):
-                times = _kernel_times(lambda: int4_split_matmul(x, packed, s),
-                                      lambda: int4_split_matmul_reference(x, packed, s))
-                log(f"kernel-experiments: int4_split_matmul time at (M, K, N)={(m, k, n)}: "
-                    f"{_fmt_times(times)}")
-                split = {**times, **_bound((x, packed, s), (out,), 2 * m * k * n, "int8")}
-    entries["int4_split_matmul"] = {"max_abs_err": worst, **split}
+            blocks = split_grid(m, k, n)
+            log(f"kernel-experiments: int4_split_matmul {kind} (M, K, N)={(m, k, n)} same bits "
+                f"on a second call {again}; S={blocks[1]} slices of K/2, grid {blocks} (column "
+                f"tiles, S, row blocks)")
+            if not again:
+                raise RuntimeError(f"int4_split_matmul gives other bits on a second call at "
+                                   f"{(m, k, n)} {kind}")
+            times = _kernel_times(lambda: int4_split_matmul(x, packed, s, biased),
+                                  lambda: int4_split_matmul_reference(x, packed, s, biased))
+            least = _bound((x, packed, s), (out,), 2 * m * k * n, "int8")
+            yardstick = k4_graph_ms[(m, k, n)]
+            log(f"kernel-experiments: int4_split_matmul {kind} time at (M, K, N)={(m, k, n)}: "
+                f"{_fmt_times(times)}; bound {least['bound_ms']:.5f} ms ({least['bound_by']}); "
+                f"K4 at the same shape {yardstick:.4f} ms (graph); in a graph K5 beats K4: "
+                f"{times['graph_ms'] < yardstick}")
+            if "int4_split_matmul" not in entries:
+                entries["int4_split_matmul"] = {**times, **least}
+    entries["int4_split_matmul"]["max_abs_err"] = worst
     # K2 at one group: the adjacent-row (bitcast) packing
     for m in ADJACENT_M:
         x, q, s = randint((m, k)), randint((k, n), -8, 8), scales(n)

@@ -490,15 +490,29 @@ def test_w8a8_kernel_grid_fills_the_card_at_the_harness_shapes(cuda_device):
         assert cols * s * rows >= 132 * per_sm * 15 // 16
 
 
+# (M, K, N) of the split-half harnesses, then shapes that reach each path
+# of K5: S 1 (M 276, the 144-row tile; K 38 and 100), 4, 8 and 16; the
+# 96-row tile (M 96, 95, 65); 4-byte weight copies (N 260); x staged byte by
+# byte (K/2 19, odd; 50; 1000; 500); the tile edges (M 1, 17, 64, 97, 145)
+SPLIT_CUDA_SHAPES = [(8, 4096, 11264), (32, 4096, 11264), (96, 4096, 11264),
+                     (276, 4096, 11264), (5, 38, 260), (3, 100, 260), (5, 1024, 4096),
+                     (4, 16384, 2048), (4, 16384, 256), (1, 4096, 11264), (17, 2048, 2048),
+                     (64, 2000, 260), (97, 1000, 260), (95, 2048, 4096), (65, 512, 1024),
+                     (145, 256, 384)]
+
+
+def _split_on(device, m, k, n, biased):
+    x = _int8_on(device, (m, k), m)
+    q = _int8_on(device, (k, n), k, -8, 8)
+    packed = (lowbit.pack_split_half_biased if biased else lowbit.pack_split_half)(q)
+    return x, q, packed, _scales(device, n, n)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("biased", [False, True])
-@pytest.mark.parametrize("m,k,n", [(8, 4096, 11264), (32, 4096, 11264), (96, 4096, 11264),
-                                   (5, 38, 260)])
+@pytest.mark.parametrize("m,k,n", SPLIT_CUDA_SHAPES)
 def test_split_kernel_equals_plain_on_cuda(cuda_device, m, k, n, biased):
-    x = _int8_on(cuda_device, (m, k), m)
-    q = _int8_on(cuda_device, (k, n), k, -8, 8)
-    packed = (lowbit.pack_split_half_biased if biased else lowbit.pack_split_half)(q)
-    s = _scales(cuda_device, n, n)
+    x, q, packed, s = _split_on(cuda_device, m, k, n, biased)
     before = t_split.int4_split_matmul.launches
     out = t_split.int4_split_matmul(x, packed, s, biased=biased)
     torch.cuda.synchronize()
@@ -506,6 +520,44 @@ def test_split_kernel_equals_plain_on_cuda(cuda_device, m, k, n, biased):
     assert torch.equal(out, t_split.int4_split_matmul_reference(x, packed, s, biased))
     want = (x.double() @ q.double()).float() * s
     assert torch.equal(out, want)
+    assert torch.equal(out, t_split.int4_split_matmul(x, packed, s, biased))  # the same bits again
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("biased", [False, True])
+def test_split_kernel_graph_replay_gives_the_eager_bits(cuda_device, biased):
+    x, _, packed, s = _split_on(cuda_device, 8, 4096, 11264, biased)
+    eager = t_split.int4_split_matmul(x, packed, s, biased)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        t_split.int4_split_matmul(x, packed, s, biased)  # warm up off the default stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = t_split.int4_split_matmul(x, packed, s, biased)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_split_kernel_grid_fills_the_card_at_the_harness_shapes(cuda_device):
+    """K4's rule on K/2: where the column tiles leave the 132 SMs short (2
+    blocks to an SM for the 4-warp tiles, 1 for the larger ones), K/2 is
+    split until they are full; no split where the tiles fill the card; at
+    most 16 slices, of at least 64 packed rows."""
+    assert t_split.grid(8, 4096, 11264) == (176, 2, 1)
+    assert t_split.grid(32, 4096, 11264) == (176, 2, 1)
+    assert t_split.grid(276, 4096, 11264) == (88, 1, 2)
+    assert t_split.slices(5, 1024, 4096) == 4
+    assert t_split.slices(4, 16384, 2048) == 8
+    assert t_split.slices(4, 16384, 256) == 16
+    assert t_split.slices(5, 38, 260) == 1
+    for m in (8, 32):
+        cols, s, rows = t_split.grid(m, 4096, 11264)
+        assert cols * s * rows >= 132 * 2 * 15 // 16
 
 
 @pytest.mark.cuda
