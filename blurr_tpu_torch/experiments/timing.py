@@ -16,9 +16,10 @@ import subprocess
 
 import torch
 
-# the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
+# the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W); fp32
+# is the rate outside the tensor cores (full fp32, no TF32)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
 def card() -> str:
@@ -75,7 +76,7 @@ def bound(inputs, outputs, ops: float, kind: str) -> dict:
     """The least time the card could take for a function: the larger of the
     bytes it must move (each input tensor read once, each output written
     once) over the memory rate, and its ``ops`` operations over the peak rate
-    of their ``kind`` ("bf16" or "int8"). Returns ``bound_ms`` and
+    of their ``kind`` ("bf16", "int8" or "fp32"). Returns ``bound_ms`` and
     ``bound_by`` ("bytes" or "operations")."""
     n_bytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3

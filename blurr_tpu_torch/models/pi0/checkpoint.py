@@ -1,6 +1,7 @@
-"""Load a JAX Pi-0 parameter tree into the port's ``PiZero``.
+"""Pi-0 weights in and out of the port's ``PiZero``: a JAX parameter tree,
+and the reference's ``.pt`` checkpoints.
 
-Counterpart of the parameter layouts of ``blurr_tpu/models/pi0``
+**JAX trees.** Counterpart of the parameter layouts of ``blurr_tpu/models/pi0``
 (``PiZero.init_params`` in ``pizero.py``, ``init_siglip_params`` in
 ``siglip.py``, ``init_mixture_params`` in ``joint.py``). The tree holds
 numpy arrays (JAX [in, out] matrices, layers stacked on a leading [L, ...]
@@ -17,19 +18,44 @@ int8 weight-only ``{"q" [L, K, N], "s" [L, N]}`` and cached-fp ``{"fp"
 their fp biases). They load into a model quantized the same way (its
 ``enable_*_quantization`` run first): the int8 bytes are copied as they
 are, the scales stay fp32 and the cached-fp copy keeps its bf16. A dict
-whose kind differs from the model's module there is refused.
+whose kind differs from the model's module there is refused. An adaptive
+mixture's norms are ``{"to_gamma_w", "to_gamma_b", "to_beta_w"}`` dicts and
+its adaLN-Zero gates ``post_scale`` / ``final_scale`` ``{"gamma_w",
+"gamma_b"}``.
+
+**Reference checkpoints.** Counterpart of the torch bridge of
+``blurr_tpu/models/pi0/checkpoint.py`` (``load_torch_state_dict``,
+``_siglip_params_from_torch``, ``_mixture_params_from_torch``,
+``pizero_params_from_torch_checkpoint``, ``load_pizero_params_auto`` and the
+exporters ``_siglip_state_from_params``, ``_mixture_state_from_params``,
+``torch_state_dict_from_pizero_params``, ``save_torch_checkpoint``). The
+reference's state dict (``{"model": state}``, keys maybe prefixed
+``_orig_mod.``) names the reference's modules, whose linears are
+``nn.Linear``s as the port's are: one key map (``_reference_keys``) serves
+both directions, and only the SigLIP patch convolution [D, C, p, p] is
+permuted into the port's [D, p*p*C] linear. Loading casts each fp32 tensor
+to the model's device and dtype, as JAX casts the tree; writing gives fp32
+CPU tensors. The port ties the proprio mixture to the action mixture, so a
+checkpoint whose proprio tensors differ from its action tensors is refused
+(JAX would serve it untied). An orbax directory (JAX ``save_params``) is
+not read: it comes with the training port.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from blurr_tpu_torch.models.pi0.joint import AdaptiveLayerscale, AdaptiveRMSNorm
 from blurr_tpu_torch.models.pi0.pizero import PiZero
 from blurr_tpu_torch.ops.quant import CachedFpLinear, Int8Linear, W4A8Linear, W8A8Linear
+
+log = logging.getLogger(__name__)
 
 _MIXTURE_MATRICES = {
     "q_w": "q_proj", "k_w": "k_proj", "v_w": "v_proj", "o_w": "o_proj",
@@ -80,6 +106,18 @@ def _linear(mod, tree: Dict, w: str, b: str, i=None):
     yield mod.bias, tree[b] if i is None else tree[b][i]
 
 
+def _norm(norm, leaf: Dict, i=None):
+    """A mixture norm: Gemma's ``{"scale"}`` or adaLN's dict. ``i`` picks
+    one layer of a stacked leaf."""
+    pick = (lambda a: a) if i is None else (lambda a: a[i])
+    if isinstance(norm, AdaptiveRMSNorm):
+        yield norm.to_gamma.weight, pick(leaf["to_gamma_w"]).T
+        yield norm.to_gamma.bias, pick(leaf["to_gamma_b"])
+        yield norm.to_beta.weight, pick(leaf["to_beta_w"]).T
+    else:
+        yield norm, pick(leaf["scale"])
+
+
 def _pairs(model: PiZero, tree: Dict) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
     """(port parameter, JAX array) for every parameter of the model."""
     yield model.embed_tokens, tree["embed_tokens"]
@@ -106,10 +144,15 @@ def _pairs(model: PiZero, tree: Dict) -> Iterator[Tuple[torch.Tensor, np.ndarray
         for i, layer in enumerate(mixture.layers):
             for key, attr in _MIXTURE_MATRICES.items():
                 yield from _weight(getattr(layer, attr), mp[key], i)
-            yield layer.input_norm, mp["input_norm"]["scale"][i]
-            yield layer.post_norm, mp["post_norm"]["scale"][i]
+            yield from _norm(layer.input_norm, mp["input_norm"], i)
+            yield from _norm(layer.post_norm, mp["post_norm"], i)
+            for key in ("post_scale", "final_scale"):
+                gate = getattr(layer, key)
+                if gate is not None:  # adaLN-Zero
+                    yield gate.gamma.weight, mp[key]["gamma_w"][i].T
+                    yield gate.gamma.bias, mp[key]["gamma_b"][i]
         if mixture.final_norm is not None:
-            yield mixture.final_norm, mp["final_norm"]["scale"]
+            yield from _norm(mixture.final_norm, mp["final_norm"])
 
     ae = tree["action_encoder"]
     yield from _linear(model.action_encoder_w1, ae, "w1", "b1")
@@ -174,3 +217,185 @@ def load_jax_params(model: PiZero, tree: Dict) -> PiZero:
     if missing:
         raise ValueError(f"parameters not set by the tree: {missing}")
     return model
+
+
+# ---------------------------------------------------------------------------
+# The reference's .pt checkpoints
+# ---------------------------------------------------------------------------
+
+_SIGLIP_PREFIX = "vision_tower.vision_model."
+_PATCH_KEY = _SIGLIP_PREFIX + "embeddings.patch_embedding.weight"
+_SIGLIP_LINEARS = {
+    "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+    "v_proj": "self_attn.v_proj", "out_proj": "self_attn.out_proj",
+    "fc1": "mlp.fc1", "fc2": "mlp.fc2",
+}
+_MIXTURE_LINEARS = {
+    "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+    "v_proj": "self_attn.v_proj", "o_proj": "self_attn.o_proj",
+    "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+    "down_proj": "mlp.down_proj",
+}
+
+
+def _dense(key: str, mod, bias: bool = True) -> Iterator[Tuple[str, torch.Tensor]]:
+    if type(mod) is not nn.Linear:
+        raise ValueError(
+            f"{key} is a {type(mod).__name__}: the reference checkpoint holds "
+            "fp weights, so load or write it before quantizing"
+        )
+    yield key + ".weight", mod.weight
+    if bias:
+        yield key + ".bias", mod.bias
+
+
+def _siglip_keys(vt, prefix: str) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Counterpart of JAX ``_siglip_params_from_torch``."""
+    yield from _dense(prefix + "embeddings.patch_embedding", vt.patch_embedding)
+    yield prefix + "embeddings.position_embedding.weight", vt.position_embedding
+    for i, layer in enumerate(vt.layers):
+        lp = f"{prefix}encoder.layers.{i}."
+        for name in ("layer_norm1", "layer_norm2"):
+            ln = getattr(layer, name)
+            yield f"{lp}{name}.weight", ln.weight
+            yield f"{lp}{name}.bias", ln.bias
+        for attr, theirs in _SIGLIP_LINEARS.items():
+            yield from _dense(lp + theirs, getattr(layer, attr))
+    yield prefix + "post_layernorm.weight", vt.post_layernorm.weight
+    yield prefix + "post_layernorm.bias", vt.post_layernorm.bias
+
+
+def _norm_keys(key: str, norm) -> Iterator[Tuple[str, torch.Tensor]]:
+    if isinstance(norm, AdaptiveRMSNorm):  # the reference's AdaptiveRMSNorm
+        yield key + ".to_gamma.0.weight", norm.to_gamma.weight
+        yield key + ".to_gamma.0.bias", norm.to_gamma.bias
+        yield key + ".to_beta.weight", norm.to_beta.weight
+    else:
+        yield key + ".weight", norm
+
+
+def _mixture_keys(mixture, prefix: str) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Counterpart of JAX ``_mixture_params_from_torch``, adaLN included."""
+    for i, layer in enumerate(mixture.layers):
+        lp = f"{prefix}layers.{i}."
+        for attr, theirs in _MIXTURE_LINEARS.items():
+            yield from _dense(lp + theirs, getattr(layer, attr), bias=False)
+        yield from _norm_keys(lp + "input_layernorm", layer.input_norm)
+        yield from _norm_keys(lp + "post_attention_layernorm", layer.post_norm)
+        for attr, theirs in (("post_scale", "post_adaptive_scale"),
+                             ("final_scale", "final_adaptive_scale")):
+            gate = getattr(layer, attr)
+            if isinstance(gate, AdaptiveLayerscale):
+                yield from _dense(f"{lp}{theirs}.to_adaln_zero_gamma", gate.gamma)
+    if mixture.final_norm is not None:
+        yield from _norm_keys(prefix + "norm", mixture.final_norm)
+
+
+def _reference_keys(model: PiZero) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(reference key, port tensor) for every tensor of the reference's
+    Pi-0. The proprio keys name the action mixture's tensors (the tie)."""
+    yield "embed_tokens.weight", model.embed_tokens
+    yield from _siglip_keys(model.vision_tower, _SIGLIP_PREFIX)
+    yield from _dense("multi_modal_projector.linear", model.multi_modal_projector)
+    for name in ("vlm", "proprio", "action"):
+        yield from _mixture_keys(model.joint[name], f"joint_model.mixtures.{name}.")
+    for n in (1, 2, 3):
+        yield from _dense(f"action_encoder.linear_{n}",
+                          getattr(model, f"action_encoder_w{n}"))
+    yield from _dense("proprio_encoder", model.proprio_encoder)
+    yield from _dense("action_decoder", model.action_decoder)
+
+
+def _patch_from_conv(w: torch.Tensor) -> torch.Tensor:
+    """[D, C, p, p] conv weight -> the port's [D, p*p*C] ((pi, pj, c) order)."""
+    return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
+
+
+def _patch_to_conv(w: torch.Tensor) -> torch.Tensor:
+    d, n = w.shape
+    p = int(round((n // 3) ** 0.5))
+    if p * p * 3 != n:
+        raise ValueError(f"patch weight {tuple(w.shape)} is not [D, p*p*3]")
+    return w.reshape(d, p, p, 3).permute(0, 3, 1, 2)
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a reference ``.pt``: ``torch.load`` with
+    ``weights_only`` (memory-mapped, on the CPU), the ``"model"`` entry when
+    there is one, keys stripped of ``_orig_mod.`` (a compiled module's)."""
+    data = torch.load(path, weights_only=True, map_location="cpu", mmap=True)
+    state = data["model"] if isinstance(data, dict) and "model" in data else data
+    return {k.replace("_orig_mod.", ""): v for k, v in state.items()}
+
+
+@torch.no_grad()
+def load_torch_checkpoint(model: PiZero, path: str) -> PiZero:
+    """Counterpart of JAX ``pizero_params_from_torch_checkpoint``: copy a
+    reference ``.pt`` into the unquantized ``model`` in place, each tensor
+    cast to its parameter's device and dtype. Raises on a missing key, a
+    shape mismatch, or proprio tensors that differ from the action ones;
+    keys the port has no use for (e.g. a vlm final norm) are skipped, as
+    JAX skips them."""
+    state = load_torch_state_dict(path)
+    missing = []
+    loaded = {}  # id(parameter) -> its source, to check the tied mixtures
+    for key, param in _reference_keys(model):
+        if key not in state:
+            missing.append(key)
+            continue
+        src = state[key]
+        if key == _PATCH_KEY:
+            src = _patch_from_conv(src)
+        if tuple(src.shape) != tuple(param.shape):
+            raise ValueError(f"{key}: checkpoint shape {tuple(src.shape)}, "
+                             f"model shape {tuple(param.shape)}")
+        if id(param) in loaded:
+            if not torch.equal(loaded[id(param)], src):
+                raise ValueError(
+                    f"{key} differs from the action mixture's: the checkpoint's "
+                    "proprio mixture is not tied to its action mixture, and the "
+                    "port always ties them"
+                )
+            continue
+        param.copy_(src)
+        loaded[id(param)] = src
+    if missing:
+        raise ValueError(f"{len(missing)} keys missing from {path}: {missing[:8]}")
+    unread = state.keys() - {key for key, _ in _reference_keys(model)}
+    if unread:
+        log.info("%s: %d keys the port does not read", path, len(unread))
+    return model
+
+
+def load_checkpoint(model: PiZero, path: str) -> PiZero:
+    """Counterpart of JAX ``load_pizero_params_auto``: a ``.pt`` file loads
+    through ``load_torch_checkpoint``; a directory is an orbax tree, which
+    the port does not read yet."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory: an orbax parameter tree (JAX save_params) "
+            "is read by the training port (ROADMAP M13), not yet; serve a "
+            "reference .pt checkpoint"
+        )
+    return load_torch_checkpoint(model, path)
+
+
+@torch.no_grad()
+def torch_state_dict(model: PiZero) -> Dict[str, torch.Tensor]:
+    """Counterpart of JAX ``torch_state_dict_from_pizero_params``: the
+    reference's flat state dict of the unquantized ``model``, fp32 CPU
+    tensors. The proprio keys hold the action mixture's tensors (one copy
+    each, shared by the two keys, as a tied torch module's state dict)."""
+    out, copies = {}, {}
+    for key, param in _reference_keys(model):
+        if id(param) not in copies:
+            t = param.detach().to("cpu", torch.float32, copy=True)
+            copies[id(param)] = _patch_to_conv(t).contiguous() if key == _PATCH_KEY else t
+        out[key] = copies[id(param)]
+    return out
+
+
+def save_torch_checkpoint(model: PiZero, path: str) -> None:
+    """Counterpart of JAX ``save_torch_checkpoint``: ``{"model": state}``
+    with fp32 tensors, the format ``load_torch_state_dict`` reads."""
+    torch.save({"model": torch_state_dict(model)}, path)

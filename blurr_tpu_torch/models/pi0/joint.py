@@ -1,7 +1,9 @@
-"""Joint mixture transformer: prefill of the prefix and decode of the actions.
+"""Joint mixture transformer: prefill of the prefix, decode of the actions,
+and the naive step's joint forward.
 
 Counterpart of ``blurr_tpu/models/pi0/joint.py`` (``JointSpec``,
-``MixtureSpec``, ``_attention``, ``prefill``, ``decode``). The mixtures
+``MixtureSpec``, ``_apply_norm``, ``_apply_scale``, ``_attention``,
+``prefill``, ``decode``, ``naive_forward`` on one card). The mixtures
 (vlm, proprio, action expert) share one attention pattern per layer and
 keep their own weights. JAX stacks the layers on a leading [L, ...] axis
 and scans them; here each layer is an ``nn.Module`` in an ``nn.ModuleList``
@@ -17,7 +19,12 @@ A layer's linears are ``nn.Linear``s or, once a mixture is quantized, the
 int8 / cached-fp / w8a8 / w4a8 modules of ``ops/quant.py``; each mixture
 clamps the activations of its quantized linears with its own
 ``activation_clip`` (JAX ``_clip_for``).
-The adaptive (adaLN) mixtures are not ported yet and raise.
+
+An adaptive mixture (``adaptive_mode`` adaLN or adaLN-Zero) replaces its
+Gemma norms with ``AdaptiveRMSNorm``s of the flow-time conditioning
+``time_cond`` [B, time_hidden_size]; adaLN-Zero also gates the attention
+and MLP branches with ``AdaptiveLayerscale``s. A plain mixture ignores
+``time_cond``.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from blurr_tpu_torch.ops.attention import (
     split_heads,
 )
 from blurr_tpu_torch.ops.flash_attention import flash_attention
-from blurr_tpu_torch.ops.norms import rms_norm
+from blurr_tpu_torch.ops.norms import adaptive_layerscale, adaptive_rms_norm, rms_norm
 from blurr_tpu_torch.ops.quant import dequantize_kv, linear
 from blurr_tpu_torch.ops.rotary import apply_rope, rope_cos_sin
 
@@ -64,6 +71,7 @@ class MixtureSpec:
     intermediate_size: int
     rope_theta: float = 10000.0
     use_final_norm: bool = False
+    adaptive_mode: Optional[str] = None  # None | "adaLN" | "adaLN-Zero"
     # clamp before this mixture's quantized matmuls (PiZero sets it from
     # the action / vlm quantization config; it never leaks across mixtures)
     activation_clip: Optional[float] = None
@@ -76,6 +84,7 @@ class JointSpec:
     num_key_value_heads: int
     head_dim: int
     rms_norm_eps: float = 1e-6
+    time_hidden_size: int = 256  # the width of an adaptive norm's conditioning
     use_flash_attn: bool = False  # prefill attention through the CUDA kernel
     mixtures: Dict[str, MixtureSpec] = field(default_factory=dict)
 
@@ -84,17 +93,13 @@ class JointSpec:
         """Reads the keys ``blurr_tpu``'s ``JointSpec.from_config`` reads."""
         mixtures = {}
         for name, m in cfg["mixture"].items():
-            if m.get("adaptive_mode"):
-                raise NotImplementedError(
-                    f"mixture {name!r}: adaptive_mode {m['adaptive_mode']!r} "
-                    "(adaLN) is not ported yet"
-                )
             clip = m.get("activation_clip")
             mixtures[name] = MixtureSpec(
                 hidden_size=m["hidden_size"],
                 intermediate_size=m["intermediate_size"],
                 rope_theta=float(m.get("rope_theta", 10000.0)),
                 use_final_norm=bool(m.get("use_final_norm", False)),
+                adaptive_mode=m.get("adaptive_mode") or None,
                 activation_clip=float(clip) if clip is not None else None,
             )
         return JointSpec(
@@ -103,14 +108,59 @@ class JointSpec:
             num_key_value_heads=cfg["num_key_value_heads"],
             head_dim=cfg["head_dim"],
             rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-6)),
+            time_hidden_size=int(cfg.get("time_hidden_size", 256) or 256),
             use_flash_attn=bool(cfg.get("use_flash_attn", False)),
             mixtures=mixtures,
         )
 
 
+class AdaptiveRMSNorm(nn.Module):
+    """adaLN's norm (JAX ``adaptive_rms_norm``'s parameters): ``to_gamma``
+    (with bias, through a sigmoid) scales and ``to_beta`` (no bias) shifts
+    the RMS-normalized input, both linears of the conditioning."""
+
+    def __init__(self, cond_dim: int, h: int, *, device, dtype):
+        super().__init__()
+        self.to_gamma = nn.Linear(cond_dim, h, device=device, dtype=dtype)
+        self.to_beta = nn.Linear(cond_dim, h, bias=False, device=device, dtype=dtype)
+
+    def forward(self, x, cond, eps: float):
+        return adaptive_rms_norm(
+            x, cond, self.to_gamma.weight, self.to_gamma.bias, self.to_beta.weight, eps
+        )
+
+
+class AdaptiveLayerscale(nn.Module):
+    """adaLN-Zero's branch gate (JAX ``adaptive_layerscale``): ``gamma`` is
+    the linear of the conditioning whose sigmoid scales the branch."""
+
+    def __init__(self, cond_dim: int, h: int, *, device, dtype):
+        super().__init__()
+        self.gamma = nn.Linear(cond_dim, h, device=device, dtype=dtype)
+
+    def forward(self, x, cond):
+        return adaptive_layerscale(x, cond, self.gamma.weight, self.gamma.bias)
+
+
+def _norm_param(m: MixtureSpec, joint: JointSpec, *, device, dtype):
+    """A mixture norm: Gemma's scale ``w`` of ``(1 + w)``, or adaLN's
+    ``AdaptiveRMSNorm`` in an adaptive mixture."""
+    if m.adaptive_mode:
+        return AdaptiveRMSNorm(joint.time_hidden_size, m.hidden_size,
+                               device=device, dtype=dtype)
+    return nn.Parameter(torch.zeros(m.hidden_size, device=device, dtype=dtype))
+
+
+def apply_norm(norm, x, time_cond, eps: float):
+    """JAX ``_apply_norm``: the adaptive norm of ``time_cond``, or Gemma's."""
+    if isinstance(norm, AdaptiveRMSNorm):
+        return norm(x, time_cond, eps)
+    return rms_norm(x, norm, eps)
+
+
 class MixtureLayer(nn.Module):
-    """One Gemma decoder layer of one mixture (norm scales are Gemma's ``w``
-    of ``(1 + w)``)."""
+    """One Gemma decoder layer of one mixture; under adaLN-Zero with the
+    ``post_scale`` and ``final_scale`` gates of its two branches."""
 
     def __init__(self, m: MixtureSpec, joint: JointSpec, *, device, dtype):
         super().__init__()
@@ -119,38 +169,52 @@ class MixtureLayer(nn.Module):
             joint.num_attention_heads, joint.num_key_value_heads, joint.head_dim
         )
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.input_norm = nn.Parameter(torch.zeros(h, device=device, dtype=dtype))
+        self.input_norm = _norm_param(m, joint, device=device, dtype=dtype)
         self.q_proj = nn.Linear(h, nh * hd, **kw)
         self.k_proj = nn.Linear(h, kvh * hd, **kw)
         self.v_proj = nn.Linear(h, kvh * hd, **kw)
         self.o_proj = nn.Linear(nh * hd, h, **kw)
-        self.post_norm = nn.Parameter(torch.zeros(h, device=device, dtype=dtype))
+        self.post_norm = _norm_param(m, joint, device=device, dtype=dtype)
         self.gate_proj = nn.Linear(h, inter, **kw)
         self.up_proj = nn.Linear(h, inter, **kw)
         self.down_proj = nn.Linear(inter, h, **kw)
+        self.post_scale = self.final_scale = None
+        if m.adaptive_mode == "adaLN-Zero":
+            tc = joint.time_hidden_size
+            self.post_scale = AdaptiveLayerscale(tc, h, device=device, dtype=dtype)
+            self.final_scale = AdaptiveLayerscale(tc, h, device=device, dtype=dtype)
 
-    def qkv(self, h, cos, sin, joint: JointSpec, clip: Optional[float] = None):
+    def qkv(self, h, cos, sin, joint: JointSpec, clip: Optional[float] = None,
+            time_cond=None):
         """Norm, project and rope: q [B,NH,S,D], k [B,KVH,S,D] (roped), v."""
         nh, kvh, hd = (
             joint.num_attention_heads, joint.num_key_value_heads, joint.head_dim
         )
-        x = rms_norm(h, self.input_norm, joint.rms_norm_eps)
+        x = apply_norm(self.input_norm, h, time_cond, joint.rms_norm_eps)
         q = apply_rope(split_heads(linear(self.q_proj, x, clip), nh, hd), cos, sin)
         k = apply_rope(split_heads(linear(self.k_proj, x, clip), kvh, hd), cos, sin)
         v = split_heads(linear(self.v_proj, x, clip), kvh, hd)
         return q, k, v
 
-    def finish(self, h, attn, eps: float, clip: Optional[float] = None):
+    def finish(self, h, attn, eps: float, clip: Optional[float] = None,
+               time_cond=None):
         """Output projection + residual, then the GeGLU MLP + residual;
-        ``attn`` is this mixture's slice of the merged attention output."""
-        h = h + linear(self.o_proj, attn, clip)
-        x = rms_norm(h, self.post_norm, eps)
+        ``attn`` is this mixture's slice of the merged attention output.
+        adaLN-Zero gates each branch before its residual add."""
+        a = linear(self.o_proj, attn, clip)
+        if self.post_scale is not None:
+            a = self.post_scale(a, time_cond)
+        h = h + a
+        x = apply_norm(self.post_norm, h, time_cond, eps)
         inner = geglu(linear(self.gate_proj, x, clip), linear(self.up_proj, x, clip))
-        return h + linear(self.down_proj, inner, clip)
+        out = linear(self.down_proj, inner, clip)
+        if self.final_scale is not None:
+            out = self.final_scale(out, time_cond)
+        return h + out
 
 
 class Mixture(nn.Module):
-    """One mixture's layers and its optional final norm."""
+    """One mixture's layers and its optional (plain or adaptive) final norm."""
 
     def __init__(self, m: MixtureSpec, joint: JointSpec, *, device, dtype):
         super().__init__()
@@ -160,7 +224,7 @@ class Mixture(nn.Module):
             for _ in range(joint.num_hidden_layers)
         )
         self.final_norm = (
-            nn.Parameter(torch.zeros(m.hidden_size, device=device, dtype=dtype))
+            _norm_param(m, joint, device=device, dtype=dtype)
             if m.use_final_norm else None
         )
 
@@ -193,9 +257,12 @@ def prefill(
     embeds: Dict[str, torch.Tensor],  # {"vlm": [B,Sv,Hv], "proprio": [B,Sp,Hp]}
     position_ids: Dict[str, torch.Tensor],
     prefix_mask: torch.Tensor,  # bool [B, Sv+Sp, Sv+Sp]
+    time_cond: Optional[torch.Tensor] = None,
 ) -> KVCache:
     """Run the instruction prefix (image + text + proprio) once per control
-    step; returns the per-layer (k, v) cache [B, KVH, Sv+Sp, D]."""
+    step; returns the per-layer (k, v) cache [B, KVH, Sv+Sp, D]. An adaptive
+    mixture is conditioned on ``time_cond`` (the caller passes t=0's: a
+    cached K/V holds for one conditioning only)."""
     names = list(embeds)
     eps = spec.rms_norm_eps
     lens = [embeds[n].shape[1] for n in names]
@@ -208,7 +275,8 @@ def prefill(
     for i in range(spec.num_hidden_layers):
         layers = {n: mixtures[n].layers[i] for n in names}
         parts = [
-            layers[n].qkv(hs[n], *ropes[n], spec, _clip_for(spec, n)) for n in names
+            layers[n].qkv(hs[n], *ropes[n], spec, _clip_for(spec, n), time_cond)
+            for n in names
         ]
         q, k, v = (torch.cat(t, dim=2) for t in zip(*parts))
         cache.append((k, v))
@@ -218,7 +286,7 @@ def prefill(
         offset = 0
         for n, s in zip(names, lens):
             hs[n] = layers[n].finish(
-                hs[n], attn[:, offset : offset + s], eps, _clip_for(spec, n)
+                hs[n], attn[:, offset : offset + s], eps, _clip_for(spec, n), time_cond
             )
             offset += s
     return cache
@@ -232,13 +300,15 @@ def decode(
     cache: KVCache,
     action_mask: torch.Tensor,  # bool [B, A, P+A]
     kv_dequant_dtype: Optional[torch.dtype] = None,
+    time_cond: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One flow step of the action expert over the cached prefix: the K/V of
     each layer is the cache concatenated with the fresh action K/V. An int8
     cache entry (``Int8KV``) is dequantized to ``kv_dequant_dtype`` (else the action
     dtype) in its layer; the concatenation promotes, as ``jnp.concatenate``
-    does (bf16 cache + fp32 fresh K/V -> fp32). Returns the final-normed
-    action hidden states."""
+    does (bf16 cache + fp32 fresh K/V -> fp32). An adaptive action mixture
+    is conditioned on ``time_cond``, this flow step's time embedding.
+    Returns the final-normed action hidden states."""
     eps = spec.rms_norm_eps
     clip = _clip_for(spec, "action")
     dtype = kv_dequant_dtype or action_embeds.dtype
@@ -252,9 +322,60 @@ def decode(
             vc = dequantize_kv(entry.v, entry.v_scale, dtype)
         else:
             kc, vc = entry
-        q, k, v = layer.qkv(h, cos, sin, spec, clip)
+        q, k, v = layer.qkv(h, cos, sin, spec, clip, time_cond)
         k_full = torch.cat([kc, k], dim=2)
         v_full = torch.cat([vc, v], dim=2)
         attn = _attention(spec, q, k_full, v_full, action_mask)
-        h = layer.finish(h, merge_heads(attn), eps, clip)
-    return rms_norm(h, action.final_norm, eps)
+        h = layer.finish(h, merge_heads(attn), eps, clip, time_cond)
+    return apply_norm(action.final_norm, h, time_cond, eps)
+
+
+def naive_forward(
+    mixtures: Dict[str, Mixture],  # {"vlm": ..., "proprio": ..., "action": ...}
+    spec: JointSpec,
+    embeds: Dict[str, torch.Tensor],  # the three mixtures' [B, S, H]
+    position_ids: Dict[str, torch.Tensor],
+    full_mask: torch.Tensor,  # bool [B, T, T], T = Sv + Sp + A
+    time_cond: Optional[torch.Tensor] = None,
+    prefix_time_cond: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One flow step with no cache: every mixture goes through every layer,
+    and each layer's attention runs once over all T rows with the full block
+    mask (the reference's no_append path). Returns the action mixture's
+    final-normed hidden states [B, A, Ha].
+
+    An adaptive action mixture is conditioned on ``time_cond``; the other
+    adaptive mixtures on ``prefix_time_cond`` when given (the reference
+    freezes the prefix K/V at the first flow step, so its proprio mixture
+    stays conditioned on t=0), else on ``time_cond``. In the last layer only
+    the action mixture's output is read, so the others skip their output
+    projection and MLP there (JAX computes and discards them)."""
+    names = list(embeds)
+    eps = spec.rms_norm_eps
+    lens = [embeds[n].shape[1] for n in names]
+    hs = {n: scale_embeds(embeds[n]) for n in names}
+    ropes = {
+        n: rope_cos_sin(position_ids[n], spec.head_dim, spec.mixtures[n].rope_theta)
+        for n in names
+    }
+    tcs = {
+        n: time_cond if n == "action" or prefix_time_cond is None else prefix_time_cond
+        for n in names
+    }
+    last = spec.num_hidden_layers - 1
+    for i in range(spec.num_hidden_layers):
+        layers = {n: mixtures[n].layers[i] for n in names}
+        parts = [
+            layers[n].qkv(hs[n], *ropes[n], spec, _clip_for(spec, n), tcs[n])
+            for n in names
+        ]
+        q, k, v = (torch.cat(t, dim=2) for t in zip(*parts))
+        attn = merge_heads(_attention(spec, q, k, v, full_mask))
+        offset = 0
+        for n, s in zip(names, lens):
+            if i < last or n == "action":
+                hs[n] = layers[n].finish(
+                    hs[n], attn[:, offset : offset + s], eps, _clip_for(spec, n), tcs[n]
+                )
+            offset += s
+    return apply_norm(mixtures["action"].final_norm, hs["action"], tcs["action"], eps)

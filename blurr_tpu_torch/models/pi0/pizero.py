@@ -1,9 +1,11 @@
-"""Pi-0 VLA model as an ``nn.Module``: the prefix-cached control step.
+"""Pi-0 VLA model as an ``nn.Module``: the prefix-cached and the naive
+control steps.
 
 Counterpart of ``blurr_tpu/models/pi0/pizero.py`` (``PiZeroSpec``,
 ``spec_from_config``, ``PiZero`` with ``_embed_merge``,
 ``_encode_proprio``, ``_encode_action``, ``_time_embedding``,
-``_decode_action`` and ``infer_action``). One control step:
+``_decode_action``, ``infer_action`` and ``infer_action_naive``). One
+cached control step:
 
     embed merge (SigLIP + projector) -> proprio encoder
     -> joint prefill over the image/text + proprio prefix (KV cache)
@@ -11,12 +13,18 @@ Counterpart of ``blurr_tpu/models/pi0/pizero.py`` (``PiZeroSpec``,
        the action tokens over the cache -> action decoder
     -> clip
 
+The naive step (the ``baseline`` preset) runs the whole joint model over
+image/text + proprio + action in each flow step, with the full block mask.
+
 The proprio mixture IS the action mixture module (the JAX package's
 ``tie_action_proprio_weights``). The quantization tiers are in-place
 methods: ``enable_action_quantization`` (int8 weight-only or cached-fp,
 w8a8, w4a8) and ``enable_vlm_quantization`` (w8a8, w4a8). The int8 KV cache
-quantizes the prefix cache after the prefill. The adaptive (adaLN) action
-expert is not ported yet and raises.
+quantizes the prefix cache after the prefill. Under
+``action_expert_adaptive_mode`` (adaLN, adaLN-Zero) the action expert's
+norms are conditioned on the flow time's embedding of width
+``time_hidden_size`` instead of the action encoder concatenating it; the
+prefix, cached or frozen, is conditioned on t=0's.
 """
 
 from __future__ import annotations
@@ -116,16 +124,13 @@ class PiZeroSpec:
     pad_token_id: int
     vocab_size: int
     time_max_period: float
+    adaptive_mode: Optional[str]
+    time_hidden_size: int
 
 
 def spec_from_config(cfg: dict) -> PiZeroSpec:
-    """The fields of the JAX ``spec_from_config`` that the control step
-    reads. Checks the quantization modes (``_checked_mode``) and raises on
-    what is not ported: adaLN."""
-    if cfg.get("action_expert_adaptive_mode"):
-        raise NotImplementedError(
-            "action_expert_adaptive_mode (adaLN) is not ported yet"
-        )
+    """The fields of the JAX ``spec_from_config`` that the control steps
+    read. Checks the quantization modes (``_checked_mode``)."""
     for key in _QUANT_MODES:
         _checked_mode(cfg.get(key) or {}, key)
     return PiZeroSpec(
@@ -140,6 +145,8 @@ def spec_from_config(cfg: dict) -> PiZeroSpec:
         pad_token_id=cfg["pad_token_id"],
         vocab_size=cfg["vocab_size"],
         time_max_period=float(cfg.get("time_max_period", 10000.0)),
+        adaptive_mode=cfg.get("action_expert_adaptive_mode") or None,
+        time_hidden_size=int(cfg.get("time_hidden_size", 256) or 256),
     )
 
 
@@ -215,9 +222,11 @@ class PiZero(nn.Module):
         })
         self.joint["proprio"] = self.joint["action"]  # tied: one module
         # action encoder: the time embedding (action width) is concatenated
-        # FIRST, then the projected action
+        # FIRST, then the projected action; an adaptive expert takes the
+        # time through its norms instead, so its w2 is square
         self.action_encoder_w1 = nn.Linear(s.action_dim, aw, **kw)
-        self.action_encoder_w2 = nn.Linear(2 * aw, aw, **kw)
+        time_cond_in = aw if s.adaptive_mode else 2 * aw
+        self.action_encoder_w2 = nn.Linear(time_cond_in, aw, **kw)
         self.action_encoder_w3 = nn.Linear(aw, aw, **kw)
         self.proprio_encoder = nn.Linear(
             s.proprio_dim, mix["proprio"].hidden_size, **kw
@@ -243,8 +252,9 @@ class PiZero(nn.Module):
     def init_params(self, generator: torch.Generator) -> "PiZero":
         """Random weights drawn in place, on the parameters' device and in
         their dtype, from ``generator`` (which lives on that device): dense
-        weights N(0, 1/fan_in), biases and Gemma norm scales 0, LayerNorm
-        scales 1 — the JAX ``init_params`` distributions."""
+        weights N(0, 1/fan_in) (adaLN's ``to_gamma`` / ``to_beta`` too),
+        biases and Gemma norm scales 0, LayerNorm scales 1, adaLN-Zero's gate
+        weights 0 and biases -2 — the JAX ``init_params`` distributions."""
 
         def dense(w: torch.Tensor, fan_in: int):
             w.normal_(0.0, fan_in**-0.5, generator=generator)
@@ -260,6 +270,10 @@ class PiZero(nn.Module):
             elif isinstance(mod, (joint_lib.MixtureLayer, Mixture)):
                 for p in mod.parameters(recurse=False):
                     p.zero_()
+        for mod in self.modules():  # after the dense draws of their linears
+            if isinstance(mod, joint_lib.AdaptiveLayerscale):
+                mod.gamma.weight.zero_()
+                mod.gamma.bias.fill_(-2.0)  # adaln_zero_bias_init
         dense(self.embed_tokens, self.vlm_hidden)
         pos = self.vision_tower.position_embedding
         dense(pos, pos.shape[1])
@@ -332,14 +346,27 @@ class PiZero(nn.Module):
         return self.proprio_encoder(proprios)
 
     def _encode_action(self, action, time_emb) -> torch.Tensor:
+        """3-layer MLP; the non-adaptive expert concatenates the time
+        embedding first."""
         clip = self.encoder_activation_clip
         emb = linear(self.action_encoder_w1, action, clip)
-        t_full = time_emb[:, None, :].expand(-1, emb.shape[1], -1)
-        emb = silu(linear(self.action_encoder_w2, torch.cat([t_full, emb], dim=-1), clip))
+        if self.spec.adaptive_mode is None:
+            t_full = time_emb[:, None, :].expand(-1, emb.shape[1], -1)
+            emb = torch.cat([t_full, emb], dim=-1)
+        emb = silu(linear(self.action_encoder_w2, emb, clip))
         return linear(self.action_encoder_w3, emb, clip)
 
     def _time_embedding(self, t: torch.Tensor) -> torch.Tensor:
-        return sinusoidal_pos_emb(t, self.action_hidden, self.spec.time_max_period)
+        s = self.spec
+        dim = s.time_hidden_size if s.adaptive_mode else self.action_hidden
+        return sinusoidal_pos_emb(t, dim, s.time_max_period)
+
+    def _time_cond(self, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """An adaptive expert's conditioning at time ``t`` (model dtype);
+        None for the non-adaptive expert."""
+        if self.spec.adaptive_mode is None:
+            return None
+        return self._time_embedding(t).to(t.dtype)
 
     def _decode_action(self, hidden: torch.Tensor) -> torch.Tensor:
         return self.action_decoder(hidden)
@@ -382,6 +409,9 @@ class PiZero(nn.Module):
             },
             {"vlm": vlm_pos, "proprio": proprio_pos},
             prefix_mask,
+            # a cached adaptive prefix holds for one conditioning: t=0's
+            time_cond=self._time_cond(torch.zeros(bsz, dtype=noise.dtype,
+                                                  device=noise.device)),
         )
         if self.kv_quant_mode == "int8":
             cache = _quantize_cache(cache, self.kv_quant_clip)
@@ -397,10 +427,58 @@ class PiZero(nn.Module):
                 self.joint["action"], self.joint_spec,
                 self._encode_action(action, time_emb), action_pos, cache,
                 action_mask, self.kv_dequant_dtype,
+                time_emb if s.adaptive_mode else None,
             )
             action = action + delta_t * self._decode_action(hidden)
             t = t + delta_t
-        if s.final_action_clip_value is not None:
-            c = s.final_action_clip_value
-            action = torch.clamp(action, -c, c)
-        return action
+        return self._clip_actions(action)
+
+    @torch.no_grad()
+    def infer_action_naive(
+        self,
+        input_ids: torch.Tensor,  # [B, S] int
+        attention_mask: torch.Tensor,  # [B, S] int
+        pixel_values: torch.Tensor,  # [B, C, H, W] preprocessed floats
+        proprios: torch.Tensor,  # [B, cond_steps, proprio_dim]
+        noise: torch.Tensor,  # [B, horizon, action_dim]
+        num_inference_steps: Optional[int] = None,
+    ) -> torch.Tensor:
+        """No-cache flow integration: each flow step runs the whole joint
+        model (``joint.naive_forward``) over image/text + proprio + action
+        with the full block mask. Same Euler loop, time dtype and clip as
+        ``infer_action``; an adaptive prefix stays conditioned on t=0."""
+        s = self.spec
+        steps = num_inference_steps or s.num_inference_steps
+        bsz = input_ids.shape[0]
+        full_mask = mask_lib.pi0_full_mask(
+            attention_mask, s.max_image_text_tokens, s.num_proprio_tokens,
+            s.num_action_tokens,
+        )
+        vlm_pos, proprio_pos, action_pos = mask_lib.pi0_position_ids(
+            bsz, s.max_image_text_tokens, s.num_proprio_tokens,
+            s.num_action_tokens, device=input_ids.device,
+        )
+        inputs_embeds = self._embed_merge(input_ids, pixel_values)
+        proprio_embeds = self._encode_proprio(proprios)
+        dtype = noise.dtype
+        delta_t = torch.tensor(1.0 / steps, dtype=dtype, device=noise.device)
+        action = noise
+        t = torch.zeros(bsz, dtype=dtype, device=noise.device)
+        prefix_tc = self._time_cond(t)
+        for _ in range(steps):
+            time_emb = self._time_embedding(t).to(dtype)
+            hidden = joint_lib.naive_forward(
+                self.joint, self.joint_spec,
+                {"vlm": inputs_embeds, "proprio": proprio_embeds,
+                 "action": self._encode_action(action, time_emb)},
+                {"vlm": vlm_pos, "proprio": proprio_pos, "action": action_pos},
+                full_mask, time_emb if s.adaptive_mode else None,
+                prefix_time_cond=prefix_tc,
+            )
+            action = action + delta_t * self._decode_action(hidden)
+            t = t + delta_t
+        return self._clip_actions(action)
+
+    def _clip_actions(self, action: torch.Tensor) -> torch.Tensor:
+        c = self.spec.final_action_clip_value
+        return action if c is None else torch.clamp(action, -c, c)

@@ -2,19 +2,25 @@
 normalization (on the device).
 
 Counterpart of ``blurr_tpu/models/pi0/processing.py`` (``StubTokenizer``,
-``VLAProcessor``, ``process_images``), which imports ``jax.numpy`` and so
-cannot be shared. Tokenization stays on the host in numpy; the prompt is
-the PaliGemma format ``<image>*N + BOS + text + "\\n"``, padded to
-``max_seq_len``, with the image tokens always first. The real PaliGemma
-tokenizer is not in the repository; ``build_processor`` uses the stub.
+``setup_paligemma_tokenizer``, ``VLAProcessor``, ``process_images``), which
+imports ``jax.numpy`` and so cannot be shared, and of
+``blurr_tpu/benchmarks.py:build_processor``. Tokenization stays on the host
+in numpy; the prompt is the PaliGemma format ``<image>*N + BOS + text +
+"\\n"``, padded to ``max_seq_len``, with the image tokens always first.
+``build_processor`` takes the PaliGemma tokenizer from the config's local
+``pretrained_model_path`` when ``transformers`` and the files are there,
+else the stub.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import List, Sequence
 
 import numpy as np
 import torch
+
+log = logging.getLogger(__name__)
 
 IMAGENET_STANDARD_MEAN = 0.5
 IMAGENET_STANDARD_STD = 0.5
@@ -47,6 +53,12 @@ class StubTokenizer:
         self.eos_token_id = 1
         self.pad_token_id = 0
 
+    def add_special_tokens(self, tokens) -> None:
+        pass
+
+    def add_tokens(self, tokens) -> None:
+        pass
+
     def convert_tokens_to_ids(self, tok: str) -> int:
         if tok == "<image>":
             return self._image_token_id
@@ -55,7 +67,7 @@ class StubTokenizer:
     def _word_id(self, word: str) -> int:
         return abs(hash(word)) % (self.vocab_size - 3) + 3
 
-    def __call__(self, texts: Sequence[str], max_length=None,
+    def __call__(self, texts: Sequence[str], return_tensors="np", max_length=None,
                  padding="max_length", truncation=True) -> dict:
         img_tok = "<image>"
         rows, masks = [], []
@@ -85,6 +97,19 @@ class StubTokenizer:
         }
 
 
+def setup_paligemma_tokenizer(tokenizer, image_token: str) -> int:
+    """Add the ``<image>`` special token and the ``<loc####>`` /
+    ``<seg###>`` tokens, turn off the tokenizer's own BOS and EOS (the
+    prompt carries BOS); returns the image token's id."""
+    tokenizer.add_special_tokens({"additional_special_tokens": [image_token]})
+    extra = [f"<loc{i:04d}>" for i in range(1024)]
+    extra += [f"<seg{i:03d}>" for i in range(128)]
+    tokenizer.add_tokens(extra)
+    tokenizer.add_bos_token = False
+    tokenizer.add_eos_token = False
+    return tokenizer.convert_tokens_to_ids(image_token)
+
+
 class VLAProcessor:
     """Prompt processor for PaliGemma-format VLAs: ``num_image_tokens``
     image tokens first, then BOS, the instruction and a newline, padded to
@@ -98,7 +123,7 @@ class VLAProcessor:
         self.image_seq_length = num_image_tokens
         self.max_seq_len = max_seq_len
         self.tokenizer_padding = tokenizer_padding
-        self.image_token_id = tokenizer.convert_tokens_to_ids(self.IMAGE_TOKEN)
+        self.image_token_id = setup_paligemma_tokenizer(tokenizer, self.IMAGE_TOKEN)
 
     def tokenize(self, text: List[str], truncation: bool = True) -> dict:
         """-> numpy int32 ``input_ids`` and ``attention_mask`` [B, max_seq_len]."""
@@ -109,16 +134,38 @@ class VLAProcessor:
             )
             for t in text
         ]
-        return self.tokenizer(
-            prompts, max_length=self.max_seq_len,
+        out = self.tokenizer(
+            prompts, return_tensors="np", max_length=self.max_seq_len,
             padding=self.tokenizer_padding, truncation=truncation,
         )
+        return {k: np.asarray(out[k], np.int32) for k in ("input_ids", "attention_mask")}
+
+
+def _tokenizer(cfg):
+    """The PaliGemma tokenizer from the local ``pretrained_model_path``, or
+    the stub, with one warning that says why: a real checkpoint served on
+    the stub's ids reads meaningless instructions."""
+    path = cfg.get("pretrained_model_path")
+    try:
+        from transformers import AutoTokenizer
+
+        return AutoTokenizer.from_pretrained(
+            path, padding_side=cfg.get("tokenizer_padding_side", "right"),
+            local_files_only=True,
+        )
+    except Exception as exc:  # no transformers, no files: the stub, as JAX does
+        log.warning(
+            "no PaliGemma tokenizer at pretrained_model_path=%r (%s: %s); "
+            "using the stub tokenizer, whose ids mean nothing to a real "
+            "checkpoint", path, type(exc).__name__, exc,
+        )
+        return StubTokenizer(image_token_id=cfg["image_token_index"])
 
 
 def build_processor(cfg) -> VLAProcessor:
-    """The processor of a Pi-0 config, on the stub tokenizer."""
+    """The processor of a Pi-0 config (JAX ``benchmarks.build_processor``)."""
     return VLAProcessor(
-        StubTokenizer(image_token_id=cfg["image_token_index"]),
+        _tokenizer(cfg),
         cfg["vision"]["config"]["num_image_tokens"],
         cfg["max_seq_len"],
         tokenizer_padding=cfg.get("tokenizer_padding", "max_length"),

@@ -1,7 +1,7 @@
 """Pi-0 block-attention masks and position ids, built on the device.
 
-Counterpart of ``blurr_tpu/ops/masks.py`` (``pi0_prefix_mask``,
-``pi0_action_mask``, ``pi0_position_ids``). The masks are boolean (True =
+Counterpart of ``blurr_tpu/ops/masks.py`` (``pi0_full_mask``,
+``pi0_prefix_mask``, ``pi0_action_mask``, ``pi0_position_ids``). The masks are boolean (True =
 may attend) and come from the token-validity vector ``attention_mask``
 [B, max_image_text_tokens] on its own device. Pad rows of the prefix mask
 are fully masked; the attention's ``finfo.min`` fill keeps them finite.
@@ -17,6 +17,29 @@ import torch
 def _counts(attention_mask: torch.Tensor) -> torch.Tensor:
     """Valid image+text tokens per batch element, shaped [B, 1, 1]."""
     return attention_mask.to(torch.int32).sum(dim=1)[:, None, None]
+
+
+def pi0_full_mask(
+    attention_mask: torch.Tensor,
+    max_image_text_tokens: int,
+    num_proprio_tokens: int,
+    num_action_tokens: int,
+) -> torch.Tensor:
+    """Block mask [B, T, T] over image/text + proprio + action (the naive
+    step's joint attention): the prefix mask in the top-left block, and the
+    action rows over the valid image/text, proprio and action keys."""
+    p_start = max_image_text_tokens
+    p_end = p_start + num_proprio_tokens
+    total = p_end + num_action_tokens
+    cnt = _counts(attention_mask)
+    idx = torch.arange(total, device=attention_mask.device)
+    r = idx[None, :, None]
+    c = idx[None, None, :]
+    img_self = (r < cnt) & (c < cnt)
+    suffix_to_img = (r >= p_start) & (c < cnt)
+    proprio_self = (r >= p_start) & (r < p_end) & (c >= p_start) & (c < p_end)
+    action_rows = (r >= p_end) & (c >= p_start)
+    return img_self | suffix_to_img | proprio_self | action_rows
 
 
 def pi0_prefix_mask(

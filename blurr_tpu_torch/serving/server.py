@@ -10,11 +10,13 @@ server.
 
 Each request: validate, tokenize the instruction (cached), move the image
 to the device and normalize it there, draw the flow noise that JAX draws
-for (seed, request index) (``ops/prng.py``), run
-``PiZero.infer_action`` under the device lock, return the raw action chunk
-[horizon, action_dim]. Dynamic batching, tensor/data parallelism, hot
-reload, backpressure and the lanczos resize of off-size images are not
-ported yet: an image that is not ``image_size`` square is refused.
+for (seed, request index) (``ops/prng.py``), run the control step under
+the device lock (``PiZero.infer_action``, or ``infer_action_naive`` when the
+config sets ``use_prefix_kv_cache`` false, as the ``baseline`` preset
+does), return the raw action chunk [horizon, action_dim]. Dynamic
+batching, tensor/data parallelism, hot reload, backpressure and the
+lanczos resize of off-size images are not ported yet: an image that is not
+``image_size`` square is refused.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from blurr_tpu_torch.models.pi0.checkpoint import load_checkpoint
 from blurr_tpu_torch.models.pi0.pizero import PiZero
 from blurr_tpu_torch.models.pi0.processing import build_processor, process_images
 from blurr_tpu_torch.ops import prng
@@ -41,41 +44,37 @@ log = logging.getLogger(__name__)
 class ActionServer:
     """Serves Pi-0 action chunks from the port's model on ``device``.
 
-    ``checkpoint_path`` "random" draws the weights on the device from a
-    generator seeded with ``seed`` (the JAX server draws its random
-    weights from ``PRNGKey(0)`` with JAX's init, so the two random-weight
-    servers hold different weights; the noise of each request is JAX's);
-    loading a real checkpoint is not ported yet. The model dtype follows
-    the config's ``use_bf16``. Then the quantization tiers of the config
-    (action int8 / cached-fp / w8a8 / w4a8, vlm w8a8 / w4a8) quantize the
-    weights in place on the device, as
-    the JAX ``_build_params`` does after loading; the int8 KV cache is
-    quantized in every control step. adaLN, not ported yet, raises when the
-    model is built.
+    ``checkpoint_path`` "random" (or None, "none", "") draws the weights on
+    the device from a generator seeded with ``seed`` (the JAX server draws
+    its random weights from ``PRNGKey(0)`` with JAX's init, so the two
+    random-weight servers hold different weights; the noise of each request
+    is JAX's). A path loads a reference ``.pt`` checkpoint
+    (``checkpoint.load_checkpoint``) onto the device, cast to the model
+    dtype, which follows the config's ``use_bf16``; an orbax directory
+    raises ``NotImplementedError``. Then the quantization tiers of the
+    config (action int8 / cached-fp / w8a8 / w4a8, vlm w8a8 / w4a8)
+    quantize the weights in place on the device, in the order of the JAX
+    ``_build_params``; the int8 KV cache is quantized in every control step.
     """
 
-    def __init__(self, cfg, checkpoint_path: str = "random", *, device,
+    def __init__(self, cfg, checkpoint_path: Optional[str] = "random", *, device,
                  seed: int = 42):
-        if str(checkpoint_path).lower() not in ("random", "none", ""):
-            raise NotImplementedError(
-                "the port serves random weights only; loading "
-                f"{checkpoint_path!r} is not ported yet"
-            )
-        if not cfg.get("use_prefix_kv_cache", True):
-            raise NotImplementedError(
-                "the naive (no prefix cache) control step is not ported yet"
-            )
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if cfg.get("use_bf16") else torch.float32
         self.seed = int(seed)
         self.model = PiZero(cfg, device=self.device, dtype=self.dtype)
-        self.model.init_params(
-            torch.Generator(device=self.device).manual_seed(self.seed)
-        )
+        if str(checkpoint_path or "random").lower() in ("random", "none"):
+            self.model.init_params(
+                torch.Generator(device=self.device).manual_seed(self.seed)
+            )
+        else:
+            load_checkpoint(self.model, str(checkpoint_path))
         self.model.enable_action_quantization()
         self.model.enable_vlm_quantization()
         self.model.eval()
+        # the baseline / vanilla presets turn the prefix cache off
+        self.prefix_cache = bool(cfg.get("use_prefix_kv_cache", True))
         self.processor = build_processor(cfg)
         self._image_size = int(cfg["vision"]["config"]["image_size"])
         self._proprio_dim = int(cfg["proprio_dim"])
@@ -146,7 +145,8 @@ class ActionServer:
 
     def _step(self, ids, am, px, pr, request_idx: int) -> np.ndarray:
         noise = self.noise(request_idx)
-        actions = self.model.infer_action(ids, am, px, pr, noise)
+        infer = self.model.infer_action if self.prefix_cache else self.model.infer_action_naive
+        actions = infer(ids, am, px, pr, noise)
         return actions[0].float().cpu().numpy()  # waits for the device
 
     def warmup(self) -> float:

@@ -14,8 +14,10 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              with TF32 off; bf16 against the plain version in fp32 at 2e-2;
              each the same bits on a second call, its launch geometry
              logged; timed at the Pi-0 prefill shape (fp32 and bf16, the
-             kernels line's entry) and at the pool64 prefill (bf16), each
-             beside its plain version, SDPA and its bound. The int4 matmul: bit for
+             kernels line's entry), at the naive step's 281 rows (fp32)
+             and at the pool64 prefill (bf16), each beside its plain
+             version, SDPA and its bound (fp32 against the peak outside
+             the tensor cores). The int4 matmul: bit for
              bit (bound 1e-6 relative) at every w4a8 linear of the Pi-0
              step, the same bits on a second call, its split of K (S) and
              grid logged; then it, its plain version and a bf16 matmul of
@@ -44,10 +46,29 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              kernel's share.
 5. model   - the same weights and inputs through one control step with the
              kernel and with the plain attention; the actions must agree.
+5b. serve-checkpoint - the served weights written with
+             checkpoint.save_torch_checkpoint (fp32, the reference's .pt
+             layout) to a temporary directory, a second ActionServer
+             started from that path (blurr preset), the file deleted; its
+             parameters must equal the drawn ones and its 3 answers must be
+             the same bits as the first server's. Logs the file's size and
+             the write and load times.
 6. small   - a small fp32 model (bridge_tiny widths, an 80-token prefix so
              the prefill takes the kernel) on the card against the same
              weights on the CPU, where the port runs its plain versions
              (the CPU tests hold those against the JAX package).
+6b. serve-baseline - bridge.yaml with the baseline preset (fp32, no prefix
+             cache, 10 flow steps) and joint.config.use_flash_attn set,
+             random weights drawn on the card, 3 requests through
+             ActionClient, checked as in serve; K1's fp32 kernel must launch
+             exactly 180 times per control step (18 layers x 10 flow steps,
+             281 rows each); the model-step median and one step under
+             torch.profiler (device time, K1's share); the naive step
+             against the cached one (the prefix_cache preset) on the same
+             weights, inputs and noise within BASELINE_TOL, both timed.
+6c. small-adaLN-Zero - the small fp32 model with an adaLN-Zero action
+             expert, card against CPU, cached (2 launches of K1) and naive
+             (30).
 7. serve-w4a8 - bridge_pool64_w4a8_steps1.yaml at full width (vlm and action
              mixtures w4a8 through the int4 kernel, SigLIP w8a8), with
              joint.config.use_flash_attn set: random bf16 weights drawn on
@@ -101,7 +122,7 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 13. experiments - the two experiment entry points run as a user runs them
              (bench_lowbit_matmul, bench_fused_ffn at 18 layers), with the
              counts set to 0 just before: K4, K5, K2 and K6 must each launch.
-Then one JSON line of the kernels (launches summed over the four served
+Then one JSON line of the kernels (launches summed over the six served
 runs and the experiments run, the counts set to 0 just before each; errors
 and times measured here: ms and plain_ms with CUDA events, graph_ms and
 plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
@@ -167,6 +188,11 @@ SMALL_W4A8_TOL = 1e-3
 # wherever the two differ and holds that run to SMALL_TOL; a kernel that
 # skips the bf16 rounding of its input stays 1.4e-3 away there
 SMALL_INT8_TOL = 1e-3
+# the fp32 naive step against the fp32 cached step on the card (TF32 off):
+# the same function, the prefix K/V computed in every flow step and the
+# action rows attended through the kernel over 281 keys instead of the
+# plain decode attention, summed in another order through 10 flow steps
+BASELINE_TOL = 1e-3
 # the int4 kernel against its plain version: both sum exact int32 group dots
 # times the scale in fp32, in group order, without FMA; any difference is a
 # finding (PERF.md), bounded by 1e-6 of the largest output
@@ -174,9 +200,11 @@ INT4_REL_TOL = 1e-6
 MAX_W4A8_WEIGHT_BYTES = 3.0e9
 N_REQUESTS = 3
 PI0_SHAPE = (1, 8, 1, 277, 277, 256)  # b, nh, kvh, sq, skv, d
+NAIVE_SHAPE = (1, 8, 1, 281, 281, 256)  # the naive step: 276 + proprio + 4 actions
 POOL64_SHAPE = (1, 8, 1, 97, 97, 256)
 KERNEL_SHAPES = [
     PI0_SHAPE,                  # the joint prefill, pad rows fully masked
+    NAIVE_SHAPE,                # the naive step's joint attention, full block mask
     POOL64_SHAPE,               # the pool64 prefill (96 + proprio)
     (2, 4, 2, 100, 150, 64),   # ragged GQA
     (1, 4, 1, 64, 64, 32),     # smallest head_dim
@@ -259,13 +287,15 @@ def _attention_inputs(shape, device):
     q = torch.randn(b, nh, sq, d, generator=g, device=device) * 0.3
     k = torch.randn(b, kvh, skv, d, generator=g, device=device) * 0.3
     v = torch.randn(b, kvh, skv, d, generator=g, device=device)
-    if nh == 8 and kvh == 1 and sq == skv:  # a Pi-0 prefill
-        from blurr_tpu_torch.ops.masks import pi0_prefix_mask
+    if nh == 8 and kvh == 1 and sq == skv:  # a Pi-0 prefill or naive step
+        from blurr_tpu_torch.ops.masks import pi0_full_mask, pi0_prefix_mask
 
         # the image tokens and a short prompt valid, 10 pad rows fully masked
-        am = torch.zeros(b, sq - 1, dtype=torch.int32, device=device)
-        am[:, :sq - 11] = 1
-        mask = pi0_prefix_mask(am, sq - 1, 1)
+        n_text = 276 if sq == NAIVE_SHAPE[3] else sq - 1
+        am = torch.zeros(b, n_text, dtype=torch.int32, device=device)
+        am[:, :n_text - 10] = 1
+        mask = (pi0_full_mask(am, n_text, 1, 4) if sq == NAIVE_SHAPE[3]
+                else pi0_prefix_mask(am, n_text, 1))
     else:
         mask = torch.rand(b, sq, skv, generator=g, device=device) > 0.3
         mask[:, :, 0] = True
@@ -306,7 +336,9 @@ def kernel_vs_plain(device) -> dict:
     and bf16, each the same bits on a second call (its launch geometry
     logged); then timed at the two prefill shapes beside the plain version,
     SDPA (the library's fused attention, without the soft clamp) and the
-    bound. Returns the kernels line's entry: bf16 at the Pi-0 prefill."""
+    bound: bf16 and fp32 at the 277-row prefill, fp32 at the naive step's
+    281 rows, bf16 at the pool64 prefill. Returns the kernels line's entry:
+    bf16 at the Pi-0 prefill."""
     from blurr_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
@@ -339,8 +371,10 @@ def kernel_vs_plain(device) -> dict:
             errs[(shape, dtype)] = err
     times, bounds = {}, {}
     for shape, dtypes in ((PI0_SHAPE, (torch.bfloat16, torch.float32)),
+                          (NAIVE_SHAPE, (torch.float32,)),
                           (POOL64_SHAPE, (torch.bfloat16,))):
         q, k, v, mask = _attention_inputs(shape, device)
+        b, nh, _, sq, skv, d = shape
         for dtype in dtypes:
             qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
             times[(shape, dtype)] = _kernel_times(
@@ -350,13 +384,13 @@ def kernel_vs_plain(device) -> dict:
                     qc, kc, vc, attn_mask=mask[:, None], enable_gqa=True))
             log(f"kernel: time at {shape} {str(dtype)[6:]}: "
                 f"{_fmt_times(times[(shape, dtype)])}")
-        b, nh, _, sq, skv, d = shape
-        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
-        bounds[shape] = _bound((qb, kb, vb, mask), (qb,), 4 * b * nh * sq * skv * d, "bf16")
-        log(f"kernel: flash_attention bound at {shape} bf16 {bounds[shape]['bound_ms']:.5f} ms "
-            f"({bounds[shape]['bound_by']})")
-    return {"max_abs_err": errs[(PI0_SHAPE, torch.bfloat16)],
-            **times[(PI0_SHAPE, torch.bfloat16)], **bounds[PI0_SHAPE]}
+            kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+            bounds[(shape, dtype)] = bound = _bound(
+                (qc, kc, vc, mask), (qc,), 4 * b * nh * sq * skv * d, kind)
+            log(f"kernel: flash_attention bound at {shape} {kind} {bound['bound_ms']:.5f} ms "
+                f"({bound['bound_by']}{', peak outside the tensor cores' if kind == 'fp32' else ''})")
+    key = (PI0_SHAPE, torch.bfloat16)
+    return {"max_abs_err": errs[key], **times[key], **bounds[key]}
 
 
 def int4_vs_plain(device) -> dict:
@@ -725,7 +759,8 @@ def _counts() -> dict:
 
 def _serve_requests(server, cfg, label):
     """N_REQUESTS through the port's ActionClient with the kernel counts set
-    to 0 just before; returns the actions, the counts and the server stats."""
+    to 0 just before; returns the image, the proprio, the counts and the
+    actions."""
     from blurr_tpu_torch.serving.client import ActionClient
 
     ready = threading.Event()
@@ -768,7 +803,7 @@ def _serve_requests(server, cfg, label):
         f"{stats.get('latency_ms_p50')} ms, peak memory {peak / 2**30:.3f} GiB "
         f"({peak} B)")
     log(f"{label}: first action chunk row {np.round(actions[0][0], 4).tolist()}")
-    return image, proprio, launches
+    return image, proprio, launches, actions
 
 
 def _check_launches(label, launches, per_step):
@@ -797,13 +832,119 @@ def served_control_steps(device):
     n_params = sum(p.numel() for p in server.model.parameters())
     log(f"serve: bridge.yaml blurr preset, {n_params / 1e9:.3f} B params "
         f"{server.dtype} drawn on the card in {time.monotonic() - t0:.2f} s")
-    image, proprio, launches = _serve_requests(server, cfg, "serve")
+    image, proprio, launches, actions = _serve_requests(server, cfg, "serve")
     n_layers = cfg["joint"]["config"]["num_hidden_layers"]
     # 18 layers, the last computes only K/V
     _check_launches("serve", launches,
                     {"flash_attention": n_layers - 1, "int4_matmul": 0, "int8_matmul": 0})
     _step_device_time(server, image, proprio, "serve", "flash_attention")
-    return server, image, proprio, launches
+    return server, cfg, image, proprio, launches, actions
+
+
+def served_baseline_steps(device) -> dict:
+    """bridge.yaml with the baseline preset (fp32, no prefix cache, 10 flow
+    steps): every flow step runs the whole joint model, K1's fp32 kernel
+    over 281 rows in each of 18 layers. Then the naive step against the
+    cached one (the prefix_cache preset's) on the same weights, inputs and
+    noise, and both timed in turns."""
+    from blurr_tpu_torch.presets import apply_preset, load_config
+    from blurr_tpu_torch.serving.server import ActionServer
+
+    cfg = load_config("config/eval/bridge.yaml")
+    apply_preset(cfg, "baseline")
+    cfg["joint"]["config"]["use_flash_attn"] = True
+    t0 = time.monotonic()
+    server = ActionServer(cfg, "random", device=device, seed=0)
+    torch.cuda.synchronize()
+    model = server.model
+    log(f"serve-baseline: bridge.yaml baseline preset (use_prefix_kv_cache "
+        f"{cfg['use_prefix_kv_cache']}, {model.spec.num_inference_steps} flow steps, "
+        f"TF32 {torch.backends.cuda.matmul.allow_tf32}), "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params {server.dtype} "
+        f"drawn on the card in {time.monotonic() - t0:.2f} s")
+    if server.dtype != torch.float32 or server.prefix_cache:
+        raise RuntimeError("the baseline preset does not serve the fp32 naive step")
+    image, proprio, launches, _ = _serve_requests(server, cfg, "serve-baseline")
+    per_step = cfg["joint"]["config"]["num_hidden_layers"] * model.spec.num_inference_steps
+    _check_launches("serve-baseline", launches,
+                    {"flash_attention": per_step, "int4_matmul": 0, "int8_matmul": 0})
+    _step_median(server, image, proprio, "serve-baseline")
+    _step_device_time(server, image, proprio, "serve-baseline", "flash_attention")
+    inputs = server._prepare(image, "put the spoon on the towel", proprio)
+    noise = server.noise(0)
+    steps = {"naive": lambda: model.infer_action_naive(*inputs, noise),
+             "cached": lambda: model.infer_action(*inputs, noise)}
+    out = {}
+    for name, step in steps.items():
+        out[name] = step()
+    torch.cuda.synchronize()
+    diff = (out["naive"] - out["cached"]).abs().max().item()
+    log(f"serve-baseline: naive vs cached (prefix_cache preset) control step, the same "
+        f"weights, inputs and noise: max_abs_diff={diff:.3e} (tol {BASELINE_TOL:g})")
+    if not (torch.isfinite(out["naive"]).all() and diff <= BASELINE_TOL):
+        raise RuntimeError(f"the naive and the cached step disagree: {diff}")
+    times = {"naive": [], "cached": []}
+    for _ in range(3):
+        for name in ("naive", "cached", "cached", "naive"):
+            t = time.monotonic()
+            steps[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.monotonic() - t) * 1000.0)
+    for name, ts in times.items():
+        log(f"serve-baseline: fp32 {name} control step ms median {float(np.median(ts)):.3f} "
+            f"min {min(ts):.3f} over {len(ts)} (host clock, synchronized)")
+    server.prefix_cache = True  # the prefix_cache rung's device time
+    _step_device_time(server, image, proprio, "serve-baseline, cached step", "flash_attention")
+    return launches
+
+
+def served_checkpoint(device, server, cfg, want) -> dict:
+    """The blurr server's bf16 weights written as a reference .pt (fp32) to
+    a temporary directory; a second server started from that path, the file
+    deleted; its parameters and its answers must be the first server's, bit
+    for bit (same seed and noise, same kernels)."""
+    import shutil
+    import tempfile
+
+    from blurr_tpu_torch.models.pi0.checkpoint import save_torch_checkpoint
+    from blurr_tpu_torch.serving.server import ActionServer
+
+    model = server.model
+    fp32_bytes = 4 * sum(p.numel() for p in model.parameters())
+    tmp = tempfile.mkdtemp(prefix="blurr_checkpoint_")
+    path = os.path.join(tmp, "pi0.pt")
+    try:
+        log(f"serve-checkpoint: {shutil.disk_usage(tmp).free} B free in {tmp} for "
+            f"{fp32_bytes} B of fp32 weights")
+        t0 = time.monotonic()
+        save_torch_checkpoint(model, path)
+        t_write = time.monotonic() - t0
+        size = os.path.getsize(path)
+        t0 = time.monotonic()
+        loaded = ActionServer(cfg, path, device=device, seed=0)
+        torch.cuda.synchronize()
+        t_load = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"serve-checkpoint: wrote {size} B ({size / 1e9:.3f} GB) in {t_write:.2f} s; "
+        f"ActionServer(cfg, path) loaded it onto the card as {loaded.dtype} in "
+        f"{t_load:.2f} s; file deleted")
+    if loaded.stats()["checkpoint"] != path:
+        raise RuntimeError(f"stats name {loaded.stats()['checkpoint']}, not {path}")
+    pairs = list(zip(model.named_parameters(), loaded.model.parameters()))
+    if len(pairs) != len(list(model.parameters())) or not all(
+            torch.equal(p, q) for (_, p), q in pairs):
+        raise RuntimeError("the loaded parameters differ from the written ones")
+    _, _, launches, actions = _serve_requests(loaded, cfg, "serve-checkpoint")
+    n_layers = cfg["joint"]["config"]["num_hidden_layers"]
+    _check_launches("serve-checkpoint", launches,
+                    {"flash_attention": n_layers - 1, "int4_matmul": 0, "int8_matmul": 0})
+    same = [np.array_equal(a, b) for a, b in zip(actions, want)]
+    log(f"serve-checkpoint: parameters bit-equal to the drawn ones; answers the same bits "
+        f"as the drawing server's: {same}")
+    if not all(same):
+        raise RuntimeError("the checkpoint server answers other bits")
+    return launches
 
 
 def launches_per_step(model, cls) -> int:
@@ -901,7 +1042,7 @@ def served_w4a8_steps(device) -> dict:
     per_step = launches_per_step(model, W4A8Linear)
     if per_step != 370:
         raise RuntimeError(f"the pool64 w4a8 step has {per_step} int4 linears, not 370")
-    image, proprio, launches = _serve_requests(server, cfg, "serve-w4a8")
+    image, proprio, launches, _ = _serve_requests(server, cfg, "serve-w4a8")
     n_layers = cfg["joint"]["config"]["num_hidden_layers"]
     _check_launches("serve-w4a8", launches, {"flash_attention": n_layers - 1,
                                              "int4_matmul": per_step, "int8_matmul": 0})
@@ -951,7 +1092,7 @@ def served_int8_steps(device, cache_fp: bool) -> dict:
 
     joint_lib.decode = recording_decode
     try:
-        image, proprio, launches = _serve_requests(server, cfg, label)
+        image, proprio, launches, _ = _serve_requests(server, cfg, label)
     finally:
         joint_lib.decode = real_decode
     log(f"{label}: prefix cache k/v dtypes read by the decodes {sorted(map(str, cache_dtypes))}")
@@ -1002,13 +1143,16 @@ def model_kernel_vs_plain(server, image, proprio) -> None:
         model.joint_spec = flash_spec
 
 
-def small_model_vs_cpu(device, quant: str = "") -> None:
+def small_model_vs_cpu(device, quant: str = "", adaptive: str = "") -> None:
     """The small model on the card against the same weights on the CPU;
     with ``quant="w4a8"`` both hold the same w4a8 weights (quantized once,
     on the CPU), vlm and action mixtures through the int4 kernel and
     SigLIP w8a8; with ``quant="int8"`` the action expert is int8 {q, s}
     through the int8 kernel and the prefix cache is int8 (clip 1.0,
-    dequantized to bf16)."""
+    dequantized to bf16). With ``adaptive="adaLN-Zero"`` the action expert
+    is adaptive (its gates' weights redrawn, JAX's init leaves them 0), and
+    the naive step is held too."""
+    from blurr_tpu_torch.models.pi0.joint import AdaptiveLayerscale
     from blurr_tpu_torch.models.pi0.pizero import PiZero
     from blurr_tpu_torch.ops.quant import Int8Linear, W4A8Linear
     from blurr_tpu_torch.presets import apply_preset, load_config
@@ -1019,6 +1163,11 @@ def small_model_vs_cpu(device, quant: str = "") -> None:
     apply_preset(cfg, "prefix_cache")  # fp32, prefix cache, 10 flow steps
     cfg["max_image_text_tokens"] = cfg["max_seq_len"] = 80
     cfg["joint"]["config"]["use_flash_attn"] = True
+    if adaptive:
+        label = f"{label}-{adaptive}"
+        cfg["action_expert_adaptive_mode"] = adaptive
+        for mix in ("proprio", "action"):
+            cfg["joint"]["config"]["mixture"][mix]["adaptive_mode"] = adaptive
     if quant == "w4a8":
         cfg["vlm_quantization"] = {"mode": quant, "include_vision": True}
         cfg["action_quantization"] = {"mode": quant, "activation_clip": None}
@@ -1029,6 +1178,10 @@ def small_model_vs_cpu(device, quant: str = "") -> None:
                                   "dtype": "bfloat16"}
     cpu = PiZero(cfg, device="cpu", dtype=torch.float32)
     cpu.init_params(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for mod in cpu.modules():
+            if isinstance(mod, AdaptiveLayerscale):
+                mod.gamma.weight.normal_(0.0, 0.3, generator=torch.Generator().manual_seed(1))
     cpu.enable_action_quantization()
     cpu.enable_vlm_quantization()
     gpu = copy.deepcopy(cpu).to(device)
@@ -1048,23 +1201,28 @@ def small_model_vs_cpu(device, quant: str = "") -> None:
         torch.from_numpy(rng.randn(2, 1, s.proprio_dim).astype(np.float32)),
         torch.from_numpy(rng.randn(2, 4, s.action_dim).astype(np.float32)),
     ]
-    ref = cpu.infer_action(*inputs)
-    _zero_counts()
-    out = gpu.infer_action(*(t.to(device) for t in inputs))
-    torch.cuda.synchronize()
-    launches = _counts()
-    expected = {name: 0 for name in KERNEL_NAMES}
-    expected.update({"flash_attention": cfg["joint"]["config"]["num_hidden_layers"] - 1,
-                     "int4_matmul": launches_per_step(gpu, W4A8Linear),
-                     "int8_matmul": launches_per_step(gpu, Int8Linear)})
-    err = (out.cpu() - ref).abs().max().item()
-    log(f"{label}: fp32 bridge_tiny widths, prefix 81, card vs CPU actions "
-        f"max_abs_err={err:.3e} (tol {tol:g}), kernel launches {launches} "
-        f"(expected {expected})")
-    if not (torch.isfinite(out).all() and err <= tol):
-        raise RuntimeError(f"card and CPU disagree on the {label} model: {err}")
-    if launches != expected:
-        raise RuntimeError(f"the {label} model launched {launches}, not {expected}")
+    n_layers = cfg["joint"]["config"]["num_hidden_layers"]
+    # the naive step attends over 85 rows in every layer of every flow step
+    flash = {"infer_action": n_layers - 1,
+             "infer_action_naive": n_layers * s.num_inference_steps}
+    for infer in ("infer_action", "infer_action_naive") if adaptive else ("infer_action",):
+        ref = getattr(cpu, infer)(*inputs)
+        _zero_counts()
+        out = getattr(gpu, infer)(*(t.to(device) for t in inputs))
+        torch.cuda.synchronize()
+        launches = _counts()
+        expected = {name: 0 for name in KERNEL_NAMES}
+        expected.update({"flash_attention": flash[infer],
+                         "int4_matmul": launches_per_step(gpu, W4A8Linear),
+                         "int8_matmul": launches_per_step(gpu, Int8Linear)})
+        err = (out.cpu() - ref).abs().max().item()
+        log(f"{label}: fp32 bridge_tiny widths, prefix 81, {infer}, card vs CPU actions "
+            f"max_abs_err={err:.3e} (tol {tol:g}), kernel launches {launches} "
+            f"(expected {expected})")
+        if not (torch.isfinite(out).all() and err <= tol):
+            raise RuntimeError(f"card and CPU disagree on the {label} model: {err}")
+        if launches != expected:
+            raise RuntimeError(f"the {label} model launched {launches}, not {expected}")
     if quant == "int8":
         _int8_rounding_witness(cpu, gpu, inputs, device)
 
@@ -1138,11 +1296,15 @@ def main() -> int:
     flash = kernel_vs_plain(device)
     int4 = int4_vs_plain(device)
     int8 = int8_vs_plain(device)
-    server, image, proprio, launches = served_control_steps(device)
+    server, cfg, image, proprio, launches, actions = served_control_steps(device)
     model_kernel_vs_plain(server, image, proprio)
+    checkpoint_launches = served_checkpoint(device, server, cfg, actions)
     del server
     torch.cuda.empty_cache()
     small_model_vs_cpu(device)
+    baseline_launches = served_baseline_steps(device)
+    torch.cuda.empty_cache()
+    small_model_vs_cpu(device, adaptive="adaLN-Zero")
     w4a8_launches = served_w4a8_steps(device)
     torch.cuda.empty_cache()
     small_model_vs_cpu(device, "w4a8")
@@ -1155,7 +1317,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     experiment_launches = experiments_run()
     torch.cuda.empty_cache()
-    runs = (launches, w4a8_launches, int8_launches, cached_launches, experiment_launches)
+    runs = (launches, checkpoint_launches, baseline_launches, w4a8_launches, int8_launches,
+            cached_launches, experiment_launches)
     total = {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
     measured = {"flash_attention": flash, "int4_matmul": int4, "int8_matmul": int8,
                 **experiments}

@@ -12,14 +12,18 @@ blurr_tpu_torch.serving.client.ActionClient, or the JAX package's
 blurr_tpu.serving.ActionClient (the same wire bytes):
 .predict(image_u8_hw3, instruction, proprio) -> raw normalized action chunk
 [horizon, action_dim]; the image
-must be image_size square (224x224x3 for bridge.yaml). The weights are
-random, drawn on the device from --seed, then quantized there as the
+must be image_size square (224x224x3 for bridge.yaml). --checkpoint random
+(the default) draws random weights on the device from --seed; a path loads
+a reference .pt checkpoint ({"model": state_dict}, as
+blurr_tpu_torch.models.pi0.checkpoint.save_torch_checkpoint writes) onto
+the device in the model dtype. The weights are then quantized there as the
 config says: e.g. --config config/eval/bridge_pool64_steps2.yaml serves the
 int8 tier (action expert int8 or its cached bf16 copy, int8 KV cache). As
 in scripts/serve_pi0.py, --preset (default blurr) is applied on top of the
-config, so its num_inference_steps wins. Prefill attention runs through the
-port's CUDA flash kernel only when the config sets
-joint.config.use_flash_attn.
+config, so its num_inference_steps wins; --preset baseline (or vanilla)
+serves the naive step (no prefix cache, fp32, 10 flow steps). Joint
+attention runs through the port's CUDA flash kernel only when the config
+sets joint.config.use_flash_attn.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--config", type=str, default="config/eval/bridge.yaml")
     p.add_argument("--checkpoint", type=str, default="random",
-                   choices=["random"])
+                   help="random (weights drawn from --seed) or the path of a "
+                        "reference .pt checkpoint")
     p.add_argument("--preset", type=str, default="blurr",
                    choices=sorted({*PRESETS, *ALIASES}))
     p.add_argument("--host", type=str, default="127.0.0.1")

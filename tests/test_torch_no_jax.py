@@ -2,9 +2,10 @@
 
 In a subprocess where both ``import jax`` and ``import blurr_tpu`` fail:
 import blurr_tpu_torch, load a bundled config, run a tiny random
-infer_action on the CPU, build the port's ActionServer (bf16, w4a8, and int8
-with the int8 KV cache) and drive it through the port's own ActionClient,
-and import the experiment modules. Then a static check: no ``.py`` file of
+infer_action on the CPU (and its naive step with an adaLN-Zero expert),
+build the port's ActionServer (bf16, w4a8, int8 with the int8 KV cache, the
+baseline preset's naive step, and from a .pt checkpoint it wrote) and drive
+it through the port's own ActionClient, and import the experiment modules. Then a static check: no ``.py`` file of
 the port, nor ``chip_smoke.py``, has an import whose top-level module is
 ``jax`` or ``blurr_tpu``.
 """
@@ -25,11 +26,14 @@ SCRIPT = textwrap.dedent(
     import sys
     sys.modules["jax"] = None  # any `import jax` now raises ImportError
     sys.modules["blurr_tpu"] = None  # and so does any `import blurr_tpu...`
+    import copy
+    import tempfile
     import threading
     import numpy as np
     import torch
     import blurr_tpu_torch
     from blurr_tpu_torch.experiments import bench_fused_ffn, bench_lowbit_matmul, lowbit
+    from blurr_tpu_torch.models.pi0.checkpoint import save_torch_checkpoint
     from blurr_tpu_torch.models.pi0.pizero import PiZero
     from blurr_tpu_torch.presets import apply_preset, load_config
     from blurr_tpu_torch.serving.client import ActionClient
@@ -51,7 +55,27 @@ SCRIPT = textwrap.dedent(
         torch.randn(1, 4, 7, generator=torch.Generator().manual_seed(1)),
     )
     assert act.shape == (1, 4, 7) and torch.isfinite(act).all()
-    ActionServer(cfg, "random", device="cpu")
+    srv = ActionServer(cfg, "random", device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:  # reference .pt out and in
+        save_torch_checkpoint(srv.model, tmp + "/pi0.pt")
+        ActionServer(cfg, tmp + "/pi0.pt", device="cpu")
+    apply_preset(cfg, "baseline")
+    cfg["num_inference_steps"] = 1
+    srv = ActionServer(cfg, "random", device="cpu")  # the naive step
+    act = srv.predict(np.zeros((size, size, 3), np.uint8), "pick", [0.0] * 7)
+    assert act.shape == (4, 7) and np.isfinite(act).all()
+    ada = copy.deepcopy(cfg)
+    ada["action_expert_adaptive_mode"] = "adaLN-Zero"
+    for mix in ("proprio", "action"):
+        ada["joint"]["config"]["mixture"][mix]["adaptive_mode"] = "adaLN-Zero"
+    model = PiZero(ada, device="cpu", dtype=torch.float32)
+    model.init_params(torch.Generator().manual_seed(0))
+    act = model.infer_action_naive(
+        ids, am, torch.zeros(1, 3, size, size), torch.zeros(1, 1, 7),
+        torch.zeros(1, 4, 7),
+    )
+    assert act.shape == (1, 4, 7) and torch.isfinite(act).all()
+    apply_preset(cfg, "blurr")
     cfg["vlm_quantization"] = {"mode": "w4a8", "include_vision": True}
     cfg["action_quantization"] = {"mode": "w4a8"}
     ActionServer(cfg, "random", device="cpu")  # quantizes: ops.quant, int4

@@ -196,12 +196,22 @@ def test_load_rejects_untied_tree():
         load_jax_params(tm, tree)
 
 
-def test_unported_modes_raise():
-    """What the JAX package has and the port has not ported yet: adaLN."""
+@pytest.mark.parametrize("mode", ["adaLN", "adaLN-Zero"])
+def test_adaptive_modes_build_and_run(mode):
+    """The adaptive action expert builds and runs, cached and naive (its
+    parity with JAX: tests/test_torch_adaln.py). The proprio mixture is the
+    action module, so an expert adaptive in one of them only is refused."""
     cfg = _cfg(False)
-    cfg.joint.config.mixture.action.adaptive_mode = "adaLN"
-    with pytest.raises(NotImplementedError, match="adaLN"):
+    cfg.joint.config.mixture.action.adaptive_mode = mode
+    with pytest.raises(ValueError, match="tied"):
         PiZero(cfg, device="cpu", dtype=torch.float32)
+    cfg.joint.config.mixture.proprio.adaptive_mode = mode
+    cfg.action_expert_adaptive_mode = mode
+    tm = PiZero(cfg, device="cpu", dtype=torch.float32)
+    tm.init_params(torch.Generator().manual_seed(0))
+    _, t_in = _inputs(cfg)
+    for out in (tm.infer_action(**t_in), tm.infer_action_naive(**t_in)):
+        assert out.shape == (2, 4, 7) and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("key,mode", [("action_quantization", "w4a4"),

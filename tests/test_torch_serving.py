@@ -19,6 +19,7 @@ import pytest
 from blurr_tpu.paths import repo_root
 from blurr_tpu.serving import server as j_server
 from blurr_tpu.serving.client import ActionClient
+from blurr_tpu_torch.models.pi0.checkpoint import save_torch_checkpoint
 from blurr_tpu_torch.serving import protocol as t_protocol
 from blurr_tpu_torch.serving.client import ActionClient as PortActionClient
 from blurr_tpu_torch.ops.quant import CachedFpLinear, Int8Linear, W4A8Linear, W8A8Linear
@@ -128,14 +129,63 @@ def test_presets_equal_the_eval_cli_table():
     assert ALIASES == eval_pi0_simpler.ALIASES
 
 
-def test_server_requires_what_is_ported():
+def test_server_serves_the_naive_step_and_a_checkpoint(tmp_path):
+    """The baseline and vanilla presets serve the naive step; a .pt path
+    serves the weights it holds: the same answers as the server that drew
+    them (fp32 weights written and read back exactly)."""
     cfg = load_config("config/eval/bridge_tiny.yaml")
-    apply_preset(cfg, "baseline")
-    with pytest.raises(NotImplementedError, match="naive"):
-        ActionServer(cfg, "random", device="cpu")
-    apply_preset(cfg, "blurr")
-    with pytest.raises(NotImplementedError, match="random weights only"):
-        ActionServer(cfg, "/some/checkpoint.pt", device="cpu")
+    size = cfg["vision"]["config"]["image_size"]
+    image = np.random.RandomState(3).randint(0, 256, (size, size, 3), np.uint8)
+    for preset in ("baseline", "vanilla"):
+        apply_preset(cfg, preset)
+        cfg["num_inference_steps"] = 2
+        srv = ActionServer(cfg, "random", device="cpu", seed=1)
+        assert srv.prefix_cache is False
+        cached = srv.model.infer_action
+        srv.model.infer_action = None  # the naive step must not reach it
+        out = srv.predict(image, "put the spoon on the towel", [0.1] * 7)
+        assert out.shape == (4, 7) and np.isfinite(out).all()
+        srv.model.infer_action = cached
+    path = str(tmp_path / "pi0.pt")
+    save_torch_checkpoint(srv.model, path)
+    loaded = ActionServer(cfg, path, device="cpu", seed=1)
+    assert loaded.stats()["checkpoint"] == path
+    np.testing.assert_array_equal(
+        loaded.predict(image, "put the spoon on the towel", [0.1] * 7), out)
+
+
+def test_processor_takes_a_local_tokenizer_or_the_stub(tmp_path, caplog):
+    """build_processor takes the tokenizer at a local pretrained_model_path
+    (here a word-level one the test writes) and gives JAX's ids; with no
+    files there it takes the stub and warns once, saying why."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    from blurr_tpu.benchmarks import build_processor as j_build_processor
+    from blurr_tpu_torch.models.pi0.processing import StubTokenizer, build_processor
+
+    words = "<pad> <eos> <bos> <unk> put the spoon on towel".split()
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(words)}, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    PreTrainedTokenizerFast(
+        tokenizer_object=tok, bos_token="<bos>", eos_token="<eos>",
+        pad_token="<pad>", unk_token="<unk>",
+    ).save_pretrained(tmp_path)
+    cfg = {"pretrained_model_path": str(tmp_path), "image_token_index": 50,
+           "vision": {"config": {"num_image_tokens": 4}}, "max_seq_len": 12}
+    port, jax_side = build_processor(cfg), j_build_processor(cfg)
+    assert not isinstance(port.tokenizer, StubTokenizer)
+    want = jax_side.tokenize(["put the spoon on the towel"])
+    got = port.tokenize(["put the spoon on the towel"])
+    for key in ("input_ids", "attention_mask"):
+        assert got[key].dtype == np.int32
+        np.testing.assert_array_equal(got[key], np.asarray(want[key]))
+    cfg["pretrained_model_path"] = str(tmp_path / "missing")
+    with caplog.at_level("WARNING"):
+        stub = build_processor(cfg)
+    assert isinstance(stub.tokenizer, StubTokenizer)
+    warned = [r.getMessage() for r in caplog.records if r.levelname == "WARNING"]
+    assert len(warned) == 1 and "stub tokenizer" in warned[0] and "missing" in warned[0]
 
 
 def _serve_script():
@@ -204,13 +254,13 @@ def test_w4a8_server_answers_through_the_client():
     assert stats["requests_total"] == 1 and stats["errors_total"] == 0
 
 
-def test_server_refuses_unported_quantization():
-    """Every quantization mode is ported; the adaLN action expert is not."""
+def test_server_refuses_an_orbax_directory(tmp_path):
+    """A directory is an orbax tree (JAX save_params), which the training
+    port (ROADMAP M13) will read; a .pt file is what the port serves."""
     cfg = load_config("config/eval/bridge_tiny.yaml")
     apply_preset(cfg, "blurr")
-    cfg["action_expert_adaptive_mode"] = "adaLN"
-    with pytest.raises(NotImplementedError, match="adaLN"):
-        ActionServer(cfg, "random", device="cpu")
+    with pytest.raises(NotImplementedError, match="M13"):
+        ActionServer(cfg, str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("cache_fp", [False, True])
