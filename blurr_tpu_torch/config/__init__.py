@@ -1,5 +1,5 @@
 """Configs of the port (counterpart of ``blurr_tpu/config``)."""
 
-from blurr_tpu_torch.config.core import Config, load_yaml
+from blurr_tpu_torch.config.core import Config, instantiate, load_yaml, register
 
-__all__ = ["Config", "load_yaml"]
+__all__ = ["Config", "instantiate", "load_yaml", "register"]

@@ -4,9 +4,10 @@ The subset the port needs of that minimal OmegaConf-style config system,
 unchanged: ``Config`` (a dict with attribute access), ``deep_merge``,
 ``${a.b.c}`` and ``${oc.env:VAR[,default]}`` interpolation, and
 ``load_yaml`` with its ``defaults:`` list for single-parent inheritance
-(bridge_pool64_steps2.yaml inherits bridge.yaml). The ``_target_`` registry
-is not copied: nothing in the port instantiates from a config. A test holds
-``load_yaml`` to the JAX package's on every bundled eval config.
+(bridge_pool64_steps2.yaml inherits bridge.yaml), and the ``_target_``
+registry (``register``, ``instantiate``) through which the eval agent builds
+its env adapter. A test holds ``load_yaml`` to the JAX package's on every
+bundled eval config.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import copy
 import os
 import re
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable, Dict
 
 import yaml
 
@@ -155,3 +156,36 @@ def load_yaml(path: str | Path, resolve: bool = True) -> Config:
     if resolve:
         cfg = resolve_interpolations(cfg, cfg)
     return cfg
+
+
+# ---------------------------------------------------------------------------
+# Registry replacing hydra.utils.instantiate
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, Callable] = {}
+
+
+def register(name: str) -> Callable:
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def instantiate(cfg: dict, **kwargs) -> Any:
+    """Instantiate the registered target named by ``cfg._target_``.
+
+    The key is the last dotted part of ``_target_``, so the bundled YAMLs'
+    targets (``blurr_tpu.agent.env_adapter.simpler.BridgeSimplerAdapter``)
+    resolve to the port's classes of that name once their module is
+    imported.
+    """
+    cfg = dict(cfg)
+    target = cfg.pop("_target_")
+    key = target.rsplit(".", 1)[-1]
+    if key not in _REGISTRY:
+        raise KeyError(f"No registered target for {target!r} (key {key!r})")
+    ctor = _REGISTRY[key]
+    cfg.update(kwargs)
+    return ctor(**cfg)

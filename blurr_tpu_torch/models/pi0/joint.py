@@ -247,7 +247,9 @@ def _clip_for(spec: JointSpec, name: str) -> Optional[float]:
 def scale_embeds(x: torch.Tensor) -> torch.Tensor:
     """sqrt(hidden) entry scaling with the scalar rounded in ``x.dtype``
     (bf16 sqrt(2048) is 45.25)."""
-    scale = torch.tensor(x.shape[-1] ** 0.5, dtype=x.dtype, device=x.device)
+    # a fill on the device: torch.tensor(..., device=) would copy from the
+    # host and wait for the stream
+    scale = torch.full((), x.shape[-1] ** 0.5, dtype=x.dtype, device=x.device)
     return x * scale
 
 

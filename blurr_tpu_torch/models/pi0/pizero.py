@@ -4,8 +4,9 @@ control steps.
 Counterpart of ``blurr_tpu/models/pi0/pizero.py`` (``PiZeroSpec``,
 ``spec_from_config``, ``PiZero`` with ``_embed_merge``,
 ``_encode_proprio``, ``_encode_action``, ``_time_embedding``,
-``_decode_action``, ``infer_action`` and ``infer_action_naive``). One
-cached control step:
+``_decode_action``, ``infer_action``, ``infer_action_naive`` and
+``infer_action_from_frame``, which resizes raw camera frames on the device
+first). One cached control step:
 
     embed merge (SigLIP + projector) -> proprio encoder
     -> joint prefill over the image/text + proprio prefix (KV cache)
@@ -40,6 +41,7 @@ from torch.nn import functional as F
 
 from blurr_tpu_torch.models.pi0 import joint as joint_lib
 from blurr_tpu_torch.models.pi0.joint import JointSpec, Mixture
+from blurr_tpu_torch.models.pi0.processing import IMAGENET_STANDARD_MEAN, IMAGENET_STANDARD_STD
 from blurr_tpu_torch.models.pi0.siglip import SiglipVisionModel, projector
 from blurr_tpu_torch.ops import masks as mask_lib
 from blurr_tpu_torch.ops.activations import silu
@@ -53,6 +55,7 @@ from blurr_tpu_torch.ops.quant import (
     quantize_mixture_w8a8,
     quantize_vit_w8a8,
 )
+from blurr_tpu_torch.utils.image import lanczos_resize
 
 log = logging.getLogger(__name__)
 
@@ -330,8 +333,11 @@ class PiZero(nn.Module):
         s = self.spec
         text_embeds = F.embedding(input_ids, self.embed_tokens)
         feats = self.multi_modal_projector(self.vision_tower(pixel_values))
-        feats = feats / torch.tensor(
-            self.vlm_hidden**0.5, dtype=feats.dtype, device=feats.device
+        # scalars are filled on the device (torch.full), never copied from
+        # the host: such a copy waits for the stream, and the agent's async
+        # pipeline relies on a step that never waits
+        feats = feats / torch.full(
+            (), self.vlm_hidden**0.5, dtype=feats.dtype, device=feats.device
         )
         n_img = feats.shape[1]
         text_mask = (input_ids != s.image_token_index) & (
@@ -418,7 +424,7 @@ class PiZero(nn.Module):
         # t and the step size live in the MODEL dtype, as in JAX (and the
         # reference's Euler loop): bf16 presets carry bf16 time
         dtype = noise.dtype
-        delta_t = torch.tensor(1.0 / steps, dtype=dtype, device=noise.device)
+        delta_t = torch.full((), 1.0 / steps, dtype=dtype, device=noise.device)
         action = noise
         t = torch.zeros(bsz, dtype=dtype, device=noise.device)
         for _ in range(steps):
@@ -432,6 +438,32 @@ class PiZero(nn.Module):
             action = action + delta_t * self._decode_action(hidden)
             t = t + delta_t
         return self._clip_actions(action)
+
+    @torch.no_grad()
+    def infer_action_from_frame(
+        self,
+        input_ids: torch.Tensor,  # [B, S] int
+        attention_mask: torch.Tensor,  # [B, S] int
+        frame: torch.Tensor,  # raw camera frames [B, H, W, 3] uint8
+        proprios: torch.Tensor,  # [B, cond_steps, proprio_dim]
+        noise: torch.Tensor,  # [B, horizon, action_dim]
+        num_inference_steps: Optional[int] = None,
+    ) -> torch.Tensor:
+        """The control step from raw camera frames: the resize and the
+        rescale/normalize run on the frames' device ahead of the encoder,
+        as JAX's ``infer_action_from_frame`` runs them in-graph
+        (``jax.image.resize`` lanczos3, antialiased, fp32; then
+        ``(x / 255 - 0.5) / 0.5``, NCHW, the proprio dtype). The resize's
+        products are fp32 matmuls, so TF32 must be off on a card."""
+        if frame.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("infer_action_from_frame resizes in fp32: TF32 must be "
+                               "off (torch.backends.cuda.matmul.allow_tf32)")
+        size = self.vision_cfg["image_size"]
+        x = lanczos_resize(frame.float(), size, size, radius=3)
+        x = (x / 255.0 - IMAGENET_STANDARD_MEAN) / IMAGENET_STANDARD_STD
+        pixel_values = x.permute(0, 3, 1, 2).to(proprios.dtype)
+        return self.infer_action(input_ids, attention_mask, pixel_values, proprios,
+                                 noise, num_inference_steps)
 
     @torch.no_grad()
     def infer_action_naive(
@@ -461,7 +493,7 @@ class PiZero(nn.Module):
         inputs_embeds = self._embed_merge(input_ids, pixel_values)
         proprio_embeds = self._encode_proprio(proprios)
         dtype = noise.dtype
-        delta_t = torch.tensor(1.0 / steps, dtype=dtype, device=noise.device)
+        delta_t = torch.full((), 1.0 / steps, dtype=dtype, device=noise.device)
         action = noise
         t = torch.zeros(bsz, dtype=dtype, device=noise.device)
         prefix_tc = self._time_cond(t)

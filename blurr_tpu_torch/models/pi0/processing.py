@@ -140,6 +140,22 @@ class VLAProcessor:
         )
         return {k: np.asarray(out[k], np.int32) for k in ("input_ids", "attention_mask")}
 
+    def __call__(self, text: List[str], images, truncation: bool = True) -> dict:
+        """Prompts and uint8 images [B, 3, H, W] -> host tensors: int64
+        ``input_ids``, int32 ``attention_mask`` [B, max_seq_len] and fp32
+        ``pixel_values`` (``process_images``)."""
+        images = np.asarray(images)
+        if len(images) != len(text):
+            raise ValueError(f"Received {len(images)} images for {len(text)} prompts.")
+        if images.dtype != np.uint8:
+            raise ValueError(f"Expected uint8 images, got {images.dtype}.")
+        out = self.tokenize(text, truncation=truncation)
+        return {
+            "pixel_values": process_images(torch.from_numpy(images)),
+            "input_ids": torch.from_numpy(out["input_ids"]).long(),
+            "attention_mask": torch.from_numpy(out["attention_mask"]),
+        }
+
 
 def _tokenizer(cfg):
     """The PaliGemma tokenizer from the local ``pretrained_model_path``, or

@@ -13,10 +13,12 @@ to the device and normalize it there, draw the flow noise that JAX draws
 for (seed, request index) (``ops/prng.py``), run the control step under
 the device lock (``PiZero.infer_action``, or ``infer_action_naive`` when the
 config sets ``use_prefix_kv_cache`` false, as the ``baseline`` preset
-does), return the raw action chunk [horizon, action_dim]. Dynamic
-batching, tensor/data parallelism, hot reload, backpressure and the
-lanczos resize of off-size images are not ported yet: an image that is not
-``image_size`` square is refused.
+does), return the raw action chunk [horizon, action_dim]. An image of
+any HxW (uint8, 3 channels) is accepted: one that is not ``image_size``
+square goes through the Lanczos resize ladder first
+(``utils/image.py:lanczos_resize_uint8``), as in the JAX server. Dynamic
+batching, tensor/data parallelism, hot reload and backpressure are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from blurr_tpu_torch.models.pi0.pizero import PiZero
 from blurr_tpu_torch.models.pi0.processing import build_processor, process_images
 from blurr_tpu_torch.ops import prng
 from blurr_tpu_torch.serving.protocol import ProtocolError, recv_msg, send_msg
+from blurr_tpu_torch.utils.image import lanczos_resize_uint8
 
 log = logging.getLogger(__name__)
 
@@ -119,13 +122,12 @@ class ActionServer:
                 f"proprio must have shape ({self._proprio_dim},), got "
                 f"{proprio.shape}"
             )
+        if image.ndim != 3 or image.shape[2] != 3 or image.dtype != np.uint8:
+            raise ValueError(f"image must be HxWx3 uint8, got {image.dtype} {image.shape}")
         size = self._image_size
-        if image.dtype != np.uint8 or image.shape != (size, size, 3):
-            raise ValueError(
-                f"image must be uint8 [{size}, {size}, 3] (the model's "
-                f"image_size; resizing is not ported yet), got {image.dtype} "
-                f"{list(image.shape)}"
-            )
+        if image.shape[:2] != (size, size):
+            # the resize ladder the env adapters use: the same pixels
+            image = lanczos_resize_uint8(image, size, size)
         ids, am = self._tokens(instruction)
         dev = self.device
         chw = torch.from_numpy(np.ascontiguousarray(image.transpose(2, 0, 1)))

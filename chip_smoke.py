@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke test of the PyTorch port: its main path on one CUDA card.
+"""GPU smoke test of the PyTorch port: its main paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -13,7 +13,9 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              the shapes the paths give it. Flash attention: fp32 at 2e-4
              with TF32 off; bf16 against the plain version in fp32 at 2e-2;
              each the same bits on a second call, its launch geometry
-             logged; timed at the Pi-0 prefill shape (fp32 and bf16, the
+             logged, at the Pi-0 prefill over 1 and over 4 rows (the
+             batched eval's), the naive step, the pool64 prefill, a ragged
+             GQA shape and the smallest head_dim; timed at the Pi-0 prefill shape (fp32 and bf16, the
              kernels line's entry), at the naive step's 281 rows (fp32)
              and at the pool64 prefill (bf16), each beside its plain
              version, SDPA and its bound (fp32 against the peak outside
@@ -122,8 +124,47 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 13. experiments - the two experiment entry points run as a user runs them
              (bench_lowbit_matmul, bench_fused_ffn at 18 layers), with the
              counts set to 0 just before: K4, K5, K2 and K6 must each launch.
+14. eval-agent - the port's EvalAgent at the full bridge.yaml width (blurr
+             preset, joint.config.use_flash_attn set, random weights drawn
+             on the card) on the fake env (480x640 frames resized on the
+             host by the Lanczos ladder, whose rung is logged): 2 episodes
+             of 12 env steps, act_steps 4. Both summary lines; K1 17 times
+             per control step; every dispatched chunk bit-equal to
+             infer_action called directly on the same inputs and noise; the
+             steady p50 and the peak memory beside the card's name and power
+             limit; then the agent's control step timed 20 times on one
+             frame (median, min, max), and each rung of the resize ladder.
+15. from-frame - infer_action_from_frame on the fake env's 480x640 frame on
+             the card: the in-graph lanczos3 resize (fp32, TF32 off) against
+             the CPU's within FRAME_TOL, the step bit-equal to infer_action
+             on the card's pixel values, K1 17 times.
+16. eval-agent-async - phase 14's agent again with the async pipeline turned
+             on (its dispatch index set back to 0): the same checks and the
+             residual-fetch line; then one dispatch under
+             torch.cuda.set_sync_debug_mode("warn"), which must find no
+             synchronizing operation, its host time beside the fetch's wait.
+17. eval-batched - BatchedEvalAgent, 4 envs in lockstep over 4 episodes; each
+             row of every batched chunk against the batch-1 step on that
+             row's inputs and noise within BATCHED_TOL; K1 17 times per step;
+             then a round of 4 and a batch-1 step timed 20 times each.
+18. eval-agent-w4a8 - bridge_pool64_w4a8_steps1.yaml through the agent as
+             shipped (act_steps 1): K2 370 and K1 17 times per step, every
+             chunk bit-equal to a direct infer_action, and the agent's
+             quantization-failure warning must not fire; the control step
+             timed 20 times.
+19. eval-cli - scripts/eval_pi0_simpler_torch.py run as a user runs it
+             (bridge_pool64_w4a8_steps1.yaml, blurr preset, 2 episodes) in a
+             subprocess: exit 0, both summary lines in its run.log and no
+             quantization-failure warning there. (Its launches happen in
+             another process and cannot count; phase 18 is the one whose
+             K2 launches count.)
+20. small-agent - bridge_tiny widths (an 80-token prefix, so the prefill
+             takes K1), fp32, 10 flow steps: the same weights in an agent on
+             the CPU and one on the card, the same summary lines and every
+             chunk within SMALL_TOL.
 Then one JSON line of the kernels (launches summed over the six served
-runs and the experiments run, the counts set to 0 just before each; errors
+runs, the experiments run and the eval runs of phases 14-18 and 20, the
+counts set to 0 just before each; errors
 and times measured here: ms and plain_ms with CUDA events, graph_ms and
 plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
 function where there is one, at the first timed shape of each kernel;
@@ -141,8 +182,10 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import logging
 import os
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -199,11 +242,14 @@ BASELINE_TOL = 1e-3
 INT4_REL_TOL = 1e-6
 MAX_W4A8_WEIGHT_BYTES = 3.0e9
 N_REQUESTS = 3
+AGENT_TIMED_STEPS = 20  # control steps timed after each eval-agent run
 PI0_SHAPE = (1, 8, 1, 277, 277, 256)  # b, nh, kvh, sq, skv, d
 NAIVE_SHAPE = (1, 8, 1, 281, 281, 256)  # the naive step: 276 + proprio + 4 actions
 POOL64_SHAPE = (1, 8, 1, 97, 97, 256)
+BATCHED_SHAPE = (4, 8, 1, 277, 277, 256)  # the batched eval's prefill, 4 envs
 KERNEL_SHAPES = [
     PI0_SHAPE,                  # the joint prefill, pad rows fully masked
+    BATCHED_SHAPE,              # the same over 4 rows, each its own prompt length
     NAIVE_SHAPE,                # the naive step's joint attention, full block mask
     POOL64_SHAPE,               # the pool64 prefill (96 + proprio)
     (2, 4, 2, 100, 150, 64),   # ragged GQA
@@ -235,6 +281,7 @@ INT8_TIMED = [(4, 1024, 4096), (4, 4096, 1024)]  # action gate, action down
 INT8_FP32_REL_TOL = 1e-5
 BF16_ROUNDING = 2.0**-8  # one bf16 rounding, relative (8 significant bits)
 INT8_STEP_LAUNCHES = 380  # 17 x 7 + 3 proprio prefill, 2 x (18 x 7 + 3) decode
+W4A8_STEP_LAUNCHES = 370  # 2 x (17 x 7 + 3) prefill (vlm, proprio), 18 x 7 decode
 KERNEL_NAMES = ("flash_attention", "int4_matmul", "int8_matmul", "w8a8_matmul",
                 "int4_split_matmul", "fused_ffn")
 
@@ -291,9 +338,11 @@ def _attention_inputs(shape, device):
         from blurr_tpu_torch.ops.masks import pi0_full_mask, pi0_prefix_mask
 
         # the image tokens and a short prompt valid, 10 pad rows fully masked
+        # (3 more in each further batch row, so every row has its own mask)
         n_text = 276 if sq == NAIVE_SHAPE[3] else sq - 1
         am = torch.zeros(b, n_text, dtype=torch.int32, device=device)
-        am[:, :n_text - 10] = 1
+        for i in range(b):
+            am[i, :n_text - 10 - 3 * i] = 1
         mask = (pi0_full_mask(am, n_text, 1, 4) if sq == NAIVE_SHAPE[3]
                 else pi0_prefix_mask(am, n_text, 1))
     else:
@@ -904,7 +953,6 @@ def served_checkpoint(device, server, cfg, want) -> dict:
     deleted; its parameters and its answers must be the first server's, bit
     for bit (same seed and noise, same kernels)."""
     import shutil
-    import tempfile
 
     from blurr_tpu_torch.models.pi0.checkpoint import save_torch_checkpoint
     from blurr_tpu_torch.serving.server import ActionServer
@@ -1040,8 +1088,9 @@ def served_w4a8_steps(device) -> dict:
     if weights > MAX_W4A8_WEIGHT_BYTES:
         raise RuntimeError(f"resident weights {weights} B over the bound")
     per_step = launches_per_step(model, W4A8Linear)
-    if per_step != 370:
-        raise RuntimeError(f"the pool64 w4a8 step has {per_step} int4 linears, not 370")
+    if per_step != W4A8_STEP_LAUNCHES:
+        raise RuntimeError(f"the pool64 w4a8 step has {per_step} int4 linears, "
+                           f"not {W4A8_STEP_LAUNCHES}")
     image, proprio, launches, _ = _serve_requests(server, cfg, "serve-w4a8")
     n_layers = cfg["joint"]["config"]["num_hidden_layers"]
     _check_launches("serve-w4a8", launches, {"flash_attention": n_layers - 1,
@@ -1284,6 +1333,445 @@ def _int8_rounding_witness(cpu, gpu, inputs, device) -> None:
                            f"with the roundings repaired: {err}")
 
 
+# --------------------------------------------------------------------------
+# the closed-loop eval path: the agents on the fake env, the in-graph resize,
+# the eval CLI
+# --------------------------------------------------------------------------
+
+EVAL_TASK = "fake_widowx_carrot_on_plate"
+# the batched bf16 step (M = 4 x 277 rows in every GEMM) against the batch-1
+# step on each row's inputs and noise: cuBLAS may pick other algorithms at
+# the larger M, so the bf16 roundings differ through 27 + 18 layers, as
+# between K1 and the plain attention (MODEL_TOL)
+BATCHED_TOL = MODEL_TOL
+# the in-graph lanczos3 resize of a 480x640 frame to 224 on the card (fp32
+# matmuls, TF32 off) against the CPU's, in the normalized pixel values
+FRAME_TOL = 1e-5
+
+
+class _Lines(logging.Handler):
+    """Every log record's message from INFO up, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _run_logged(run):
+    """``run()`` with the root logger's INFO records collected; returns
+    (its result, the messages)."""
+    root, handler = logging.getLogger(), _Lines()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        return run(), handler.lines
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+
+
+def _eval_cfg(config: str, log_dir: str, **extra):
+    from blurr_tpu_torch.presets import apply_preset, load_config
+
+    cfg = load_config(config)
+    apply_preset(cfg, "blurr")
+    cfg["joint"]["config"]["use_flash_attn"] = True
+    cfg["env"]["task"] = EVAL_TASK
+    cfg.update({"n_eval_episode": 2, "n_video": 0, "seed": 42, "checkpoint_path": "random",
+                "log_dir": log_dir, **extra})
+    return cfg
+
+
+def _recording(agent, real, records: list):
+    """``real`` (a dispatch method) that appends each dispatch's (host
+    inputs, dispatch index, device output) to ``records``."""
+
+    def recording(inputs):
+        idx = agent._step_idx
+        out = real(inputs)
+        records.append((inputs, idx, out))
+        return out
+
+    return recording
+
+
+def _record_fetches(agent) -> list:
+    """The host chunks the agent's ``_fetch`` returns, in order."""
+    chunks, real = [], agent._fetch
+
+    def recording(pending):
+        chunks.append(real(pending))
+        return chunks[-1]
+
+    agent._fetch = recording
+    return chunks
+
+
+def _check_summary(label, lines, episodes: int, rate: float) -> None:
+    want = [f"Number of episodes: {episodes}", f"Success rate: {rate}"]
+    for line in want:
+        if line not in lines:
+            raise RuntimeError(f"{label}: the summary line {line!r} is missing")
+    log(f"{label}: summary lines {want}")
+    for line in lines:
+        if line.startswith(("Inference wall-clock", "Async pipeline", "Batched eval",
+                            "Allocated device memory after evaluation")):
+            log(f"{label}: {line}")
+
+
+def _check_eval_launches(label, launches, per_step: dict, steps: int) -> None:
+    expected = {name: per_step.get(name, 0) * steps for name in KERNEL_NAMES}
+    log(f"{label}: kernel launches {launches} (expected {expected}: "
+        f"{per_step} per control step x {steps} control steps)")
+    if launches != expected:
+        raise RuntimeError(f"{label}: launched {launches}, not {expected}")
+
+
+def _check_bitwise(label, agent, records) -> None:
+    """Every dispatched chunk equals ``infer_action`` called directly on the
+    same inputs and noise, bit for bit."""
+    for inputs, idx, out in records:
+        ref = agent.model.infer_action(*agent.device_inputs(inputs), agent.noise(idx, 1))
+        if not torch.equal(ref, out):
+            raise RuntimeError(f"{label}: dispatch {idx} differs from infer_action: "
+                               f"{(ref.float() - out.float()).abs().max().item()}")
+    log(f"{label}: all {len(records)} dispatched chunks bit-equal to infer_action called "
+        f"directly on the same inputs and noise")
+
+
+def eval_agent_new(device, label: str, log_dir: str,
+                   config: str = "config/eval/bridge.yaml", **extra):
+    """EvalAgent on the fake env at full width with random weights drawn on
+    the card; fails if its quantization fell back to unquantized weights."""
+    from blurr_tpu_torch.agent.eval_agent import EvalAgent
+
+    cfg = _eval_cfg(config, log_dir, **extra)
+    t0 = time.monotonic()
+    agent, init_lines = _run_logged(lambda: EvalAgent(cfg, device=device))
+    torch.cuda.synchronize()
+    if any("Quantization failed" in line for line in init_lines):
+        raise RuntimeError(f"{label}: the agent fell back to unquantized weights")
+    log(f"{label}: {Path(config).name}, blurr preset, act_steps {agent.act_steps}, "
+        f"{sum(p.numel() for p in agent.model.parameters()) / 1e9:.3f} B params "
+        f"{agent.dtype} drawn on the card in {time.monotonic() - t0:.2f} s")
+    return agent
+
+
+def eval_agent_run(agent, label: str):
+    """One run of the agent (2 episodes, 12 env steps each), the counts set
+    to 0 just before it; checks the summary lines, K1's launches (and K2's
+    under w4a8) and every chunk bit-equal to a direct infer_action. Returns
+    the resize rung lines logged and the launches."""
+    from blurr_tpu_torch.ops.quant import W4A8Linear
+
+    records = []
+    agent._dispatch = _recording(agent, type(agent)._dispatch.__get__(agent), records)
+    agent._step_idx = 0
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    rate, lines = _run_logged(agent.run)
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label}: async pipeline {agent.async_pipeline}")
+    rungs = [line for line in lines if line.startswith("lanczos_resize_uint8: the ")]
+    if rungs:
+        log(f"{label}: resize rung logged: {rungs[0]}")
+    _check_summary(label, lines, 2, 0.5)
+    log(f"{label}: peak memory {peak} B ({peak / 2**30:.3f} GiB) on {card()}")
+    n_layers = agent.cfg["joint"]["config"]["num_hidden_layers"]
+    per_step = {"flash_attention": n_layers - 1,
+                "int4_matmul": launches_per_step(agent.model, W4A8Linear)}
+    _check_eval_launches(label, launches, per_step, agent._step_idx)
+    _check_bitwise(label, agent, records)
+    return lines, rungs, launches
+
+
+def eval_agent_blurr(device, log_dir: str):
+    agent = eval_agent_new(device, "eval-agent", log_dir, act_steps=4)
+    _, rungs, launches = eval_agent_run(agent, "eval-agent")
+    if not rungs:
+        raise RuntimeError("eval-agent: no resize rung was logged")
+    inputs = _first_inputs(agent)
+    _agent_step_times("eval-agent", "the agent's control step", lambda: agent._infer(inputs))
+    _resize_rungs(agent)
+    return agent, launches
+
+
+def _agent_step_times(label, what: str, step, n: int = AGENT_TIMED_STEPS) -> float:
+    """``step()`` (host inputs up, the eager dispatch, the chunk fetched)
+    timed n times on the host clock after one untimed call; logs the median,
+    min and max beside n and returns the median in ms."""
+    step()
+    times = []
+    for _ in range(n):
+        t = time.monotonic()
+        step()
+        times.append((time.monotonic() - t) * 1000.0)
+    median = float(np.median(times))
+    log(f"{label}: {what}: median {median:.3f} ms, min {min(times):.3f}, max "
+        f"{max(times):.3f} over n={n} (host clock, synchronized by the fetch)")
+    return median
+
+
+def _first_inputs(agent) -> dict:
+    obs, _ = agent.env.reset(options={"obj_init_options": {"episode_id": 0}})
+    return agent.env_adapter.preprocess(agent.env, obs, agent.env.get_language_instruction())
+
+
+def _resize_rungs(agent) -> None:
+    """Each rung of the host resize ladder on a fake-env frame, timed on
+    the host (median of 20): cv2 where the machine has it, the native
+    library (built here), the torch rung."""
+    from blurr_tpu_torch import native
+    from blurr_tpu_torch.utils import image
+
+    obs, _ = agent.env.reset(options={"obj_init_options": {"episode_id": 0}})
+    frame = obs["image"]
+    size = agent.model.vision_cfg["image_size"]
+    found = native.library_path().is_file()
+    t0 = time.monotonic()
+    built = native.available()
+    log(f"eval-agent: native rung available={built} ({'found built' if found else 'built'} "
+        f"at {native.library_path().relative_to(REPO_ROOT)}, {time.monotonic() - t0:.2f} s "
+        f"to build and load); cv2 {getattr(image.cv2, '__version__', None)}")
+    rungs = {"torch": lambda: image._torch_rung(frame, size, size)}
+    if image.cv2 is not None:
+        rungs["cv2"] = lambda: image.cv2.resize(frame, (size, size),
+                                                interpolation=image.cv2.INTER_LANCZOS4)
+    if built:
+        rungs["native"] = lambda: native.lanczos4_resize(frame, (size, size))
+    for name, fn in rungs.items():
+        times = []
+        for _ in range(20):
+            t = time.monotonic()
+            fn()
+            times.append((time.monotonic() - t) * 1000.0)
+        log(f"eval-agent: {name} rung {frame.shape[:2]} -> {size}x{size}: median "
+            f"{float(np.median(times)):.3f} ms over 20 (host clock)")
+
+
+def _free() -> None:
+    """Release the memory of a dropped agent: its recording wrappers hold
+    it in a reference cycle."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def eval_agent_async(agent) -> dict:
+    """Phase 14's agent again with the async pipeline on; then one more
+    dispatch under torch.cuda.set_sync_debug_mode("warn"): nothing in it may
+    synchronize, and its host time is set beside the fetch that waits for
+    the device."""
+    import warnings
+
+    agent.async_pipeline = True
+    lines, _, launches = eval_agent_run(agent, "eval-agent-async")
+    if not any(line.startswith("Async pipeline: residual fetch wait") for line in lines):
+        raise RuntimeError("eval-agent-async: no residual-fetch line")
+    inputs = _first_inputs(agent)
+    agent._fetch(agent._dispatch(inputs))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.monotonic()
+            pending = agent._dispatch(inputs)
+            t_dispatch = time.monotonic() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    t0 = time.monotonic()
+    agent._fetch(pending)
+    t_fetch = time.monotonic() - t0
+    # the notice set_sync_debug_mode itself gives when turned on is no sync
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if not str(w.message).startswith("Synchronization debug mode is a prototype")]
+    log(f"eval-agent-async: one dispatch under set_sync_debug_mode('warn'): "
+        f"{len(syncs)} synchronizing operations {syncs[:3]}; dispatch returned in "
+        f"{t_dispatch * 1000:.3f} ms, the fetch then waited {t_fetch * 1000:.3f} ms "
+        f"(host clock, one dispatch)")
+    if syncs:
+        raise RuntimeError("eval-agent-async: the dispatch synchronizes the host")
+    return launches
+
+
+def eval_agent_batched(device) -> dict:
+    """BatchedEvalAgent, 4 envs in lockstep over 4 episodes; each row of
+    every batched chunk against the batch-1 step on that row's inputs and
+    noise (BATCHED_TOL)."""
+
+    from blurr_tpu_torch.agent.batched_eval import BatchedEvalAgent
+
+    label = "eval-batched"
+    with tempfile.TemporaryDirectory(prefix="blurr_eval_") as tmp:
+        cfg = _eval_cfg("config/eval/bridge.yaml", tmp, act_steps=4, batch_envs=4,
+                        n_eval_episode=4)
+        agent = BatchedEvalAgent(cfg, device=device)
+        records = []
+        agent._dispatch_batched = _recording(agent, agent._dispatch_batched, records)
+        _zero_counts()
+        rate, lines = _run_logged(agent.run)
+        torch.cuda.synchronize()
+        launches = _counts()
+    _check_summary(label, lines, 4, 0.5)
+    n_layers = cfg["joint"]["config"]["num_hidden_layers"]
+    _check_eval_launches(label, launches, {"flash_attention": n_layers - 1}, agent._step_idx)
+    err = 0.0
+    for slot_inputs, idx, out in records:
+        noise = agent.noise(idx, len(slot_inputs))
+        for i, inputs in enumerate(slot_inputs):
+            ref = agent.model.infer_action(*agent.device_inputs(inputs), noise[i:i + 1])
+            err = max(err, (ref[0].float() - out[i].float()).abs().max().item())
+    log(f"{label}: {len(records)} batched steps of {len(records[0][0])} rows, each row "
+        f"against the batch-1 step on its inputs and noise: max_abs_err={err:.3e} "
+        f"(tol {BATCHED_TOL:g})")
+    if not err <= BATCHED_TOL:
+        raise RuntimeError(f"{label}: batched rows disagree with batch 1: {err}")
+    inputs = records[0][0]
+    batched = _agent_step_times(label, f"one lockstep round of {len(inputs)} envs",
+                                lambda: agent._batched_infer(inputs))
+    single = _agent_step_times(label, "one batch-1 step of the same agent",
+                               lambda: agent._infer(inputs[0]))
+    log(f"{label}: the round of {len(inputs)} costs {batched / single:.3f} batch-1 steps")
+    return launches
+
+
+def eval_agent_w4a8(device, log_dir: str) -> dict:
+    """bridge_pool64_w4a8_steps1.yaml through the agent (act_steps 1 as
+    shipped): 370 int4 linears per step, no quantization fallback."""
+    from blurr_tpu_torch.ops.quant import W4A8Linear
+
+    agent = eval_agent_new(device, "eval-agent-w4a8", log_dir,
+                           "config/eval/bridge_pool64_w4a8_steps1.yaml")
+    _, _, launches = eval_agent_run(agent, "eval-agent-w4a8")
+    inputs = _first_inputs(agent)
+    _agent_step_times("eval-agent-w4a8", "the agent's control step",
+                      lambda: agent._infer(inputs))
+    per_step = launches_per_step(agent.model, W4A8Linear)
+    if per_step != W4A8_STEP_LAUNCHES:
+        raise RuntimeError(f"eval-agent-w4a8: {per_step} int4 linears per step, "
+                           f"not {W4A8_STEP_LAUNCHES}")
+    return launches
+
+
+def from_frame(device, agent) -> dict:
+    """infer_action_from_frame on the fake env's 480x640 frame on the card:
+    the resized, normalized pixel values against the CPU's (FRAME_TOL), and
+    the step bit-equal to infer_action on the card's pixel values."""
+    from blurr_tpu_torch.utils.image import lanczos_resize
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("from-frame: TF32 is on")
+    model = agent.model
+    obs, _ = agent.env.reset(options={"obj_init_options": {"episode_id": 0}})
+    inputs = agent.env_adapter.preprocess(agent.env, obs, agent.env.get_language_instruction())
+    ids, am, _, pr = agent.device_inputs(inputs)
+    frame = torch.from_numpy(obs["image"])[None]
+    size = model.vision_cfg["image_size"]
+
+    def normalized(x):
+        return (lanczos_resize(x.float(), size, size, 3) / 255.0 - 0.5) / 0.5
+
+    px_card = normalized(frame.to(device))
+    err = (px_card.cpu() - normalized(frame)).abs().max().item()
+    noise = agent.noise(0, 1)
+    _zero_counts()
+    out = model.infer_action_from_frame(ids, am, frame.to(device), pr, noise)
+    torch.cuda.synchronize()
+    launches = _counts()
+    ref = model.infer_action(ids, am, px_card.permute(0, 3, 1, 2).to(pr.dtype), pr, noise)
+    log(f"from-frame: {tuple(frame.shape)} uint8 frame resized to {size}x{size} on the card "
+        f"(lanczos3, fp32, TF32 off): pixel values vs the CPU max_abs_err={err:.3e} (tol "
+        f"{FRAME_TOL:g}); the step bit-equal to infer_action on them: "
+        f"{torch.equal(out, ref)}; kernel launches {launches}")
+    if not err <= FRAME_TOL:
+        raise RuntimeError(f"from-frame: the card's resize disagrees with the CPU's: {err}")
+    if not torch.equal(out, ref) or out.shape != (1, 4, 7):
+        raise RuntimeError("from-frame: the step differs from infer_action")
+    n_layers = agent.cfg["joint"]["config"]["num_hidden_layers"]
+    _check_eval_launches("from-frame", launches, {"flash_attention": n_layers - 1}, 1)
+    return launches
+
+
+def eval_cli() -> None:
+    """The port's eval CLI as a user runs it, in a subprocess on the card:
+    exit 0 and both summary lines in its run.log."""
+    import subprocess
+
+    with tempfile.TemporaryDirectory(prefix="blurr_cli_") as tmp:
+        cmd = [sys.executable, "scripts/eval_pi0_simpler_torch.py", "--task", EVAL_TASK,
+               "--checkpoint", "random", "--config",
+               "config/eval/bridge_pool64_w4a8_steps1.yaml", "--preset", "blurr",
+               "--n-eval-episode", "2", "--log-dir", tmp]
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True, text=True, timeout=600)
+        secs = time.monotonic() - t0
+        run_log = Path(tmp) / "run.log"
+        text = run_log.read_text() if run_log.is_file() else ""
+    log(f"eval-cli: {' '.join(cmd[1:])} -> exit {proc.returncode} in {secs:.1f} s")
+    if proc.returncode != 0:
+        raise RuntimeError(f"eval-cli failed:\n{proc.stderr[-3000:]}")
+    for want in ("Number of episodes: 2", "Success rate: 0.5"):
+        if want not in text:
+            raise RuntimeError(f"eval-cli: {want!r} missing from run.log")
+    if "Quantization failed" in text:
+        raise RuntimeError("eval-cli: the agent fell back to unquantized weights")
+    for line in text.splitlines():
+        if any(k in line for k in ("Number of episodes", "Success rate", "Inference wall",
+                                   "Using device", "Allocated device memory", " rung ")):
+            log(f"eval-cli: run.log: {line.split(' | ')[-1]}")
+
+
+def small_agent_vs_cpu(device) -> dict:
+    """bridge_tiny.yaml (80-token prefix, so the prefill takes K1), fp32,
+    prefix_cache preset: the same weights in an agent on the CPU and one on
+    the card, the same summary lines and every chunk within SMALL_TOL."""
+
+    from blurr_tpu_torch.agent.eval_agent import EvalAgent
+    from blurr_tpu_torch.presets import apply_preset
+
+    chunks = {}
+    with tempfile.TemporaryDirectory(prefix="blurr_eval_") as tmp:
+        agents = {}
+        for where in ("cpu", "card"):
+            cfg = _eval_cfg("config/eval/bridge_tiny.yaml", tmp)
+            apply_preset(cfg, "prefix_cache")
+            cfg["max_image_text_tokens"] = cfg["max_seq_len"] = 80
+            cfg["env"]["adapter"]["max_seq_len"] = 80
+            agents[where] = EvalAgent(cfg, device="cpu" if where == "cpu" else device)
+        with torch.no_grad():
+            for p, q in zip(agents["card"].model.parameters(), agents["cpu"].model.parameters()):
+                p.copy_(q)
+        results = {}
+        for where, agent in agents.items():
+            chunks[where] = _record_fetches(agent)
+            _zero_counts()
+            results[where] = _run_logged(agent.run)
+        torch.cuda.synchronize()
+        launches = _counts()  # the CPU's run launches no kernel
+    summaries = {w: [line for line in lines if line.startswith(("Number of ep", "Success"))]
+                 for w, (_, lines) in results.items()}
+    err = max(np.abs(a - b).max() for a, b in zip(chunks["card"], chunks["cpu"]))
+    log(f"small-agent: bridge_tiny widths, prefix 81, fp32, 10 flow steps, card vs CPU: "
+        f"summaries {summaries['card']} / {summaries['cpu']}, {len(chunks['card'])} chunks "
+        f"max_abs_err={err:.3e} (tol {SMALL_TOL:g}), card launches {launches}")
+    if summaries["card"] != summaries["cpu"] or len(chunks["card"]) != len(chunks["cpu"]):
+        raise RuntimeError("small-agent: the card's run differs from the CPU's")
+    if not err <= SMALL_TOL:
+        raise RuntimeError(f"small-agent: card and CPU chunks disagree: {err}")
+    n_layers = agents["card"].cfg["joint"]["config"]["num_hidden_layers"]
+    _check_eval_launches("small-agent", launches, {"flash_attention": n_layers - 1},
+                         agents["card"]._step_idx)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -1317,8 +1805,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     experiment_launches = experiments_run()
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="blurr_eval_") as tmp:
+        agent, eval_launches = eval_agent_blurr(device, tmp)
+        frame_launches = from_frame(device, agent)
+        async_launches = eval_agent_async(agent)
+        del agent
+        _free()
+        batched_launches = eval_agent_batched(device)
+        _free()
+        eval_w4a8_launches = eval_agent_w4a8(device, tmp)
+        _free()
+    eval_cli()
+    small_agent_launches = small_agent_vs_cpu(device)
     runs = (launches, checkpoint_launches, baseline_launches, w4a8_launches, int8_launches,
-            cached_launches, experiment_launches)
+            cached_launches, experiment_launches, eval_launches, frame_launches,
+            async_launches, batched_launches, eval_w4a8_launches, small_agent_launches)
     total = {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
     measured = {"flash_attention": flash, "int4_matmul": int4, "int8_matmul": int8,
                 **experiments}

@@ -11,8 +11,9 @@ first CUDA call: nothing falls back to the CPU. Clients: the port's
 blurr_tpu_torch.serving.client.ActionClient, or the JAX package's
 blurr_tpu.serving.ActionClient (the same wire bytes):
 .predict(image_u8_hw3, instruction, proprio) -> raw normalized action chunk
-[horizon, action_dim]; the image
-must be image_size square (224x224x3 for bridge.yaml). --checkpoint random
+[horizon, action_dim]; an image
+that is not image_size square (224x224 for bridge.yaml) is resized with the
+Lanczos ladder of blurr_tpu_torch/utils/image.py. --checkpoint random
 (the default) draws random weights on the device from --seed; a path loads
 a reference .pt checkpoint ({"model": state_dict}, as
 blurr_tpu_torch.models.pi0.checkpoint.save_torch_checkpoint writes) onto

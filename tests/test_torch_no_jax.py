@@ -5,9 +5,12 @@ import blurr_tpu_torch, load a bundled config, run a tiny random
 infer_action on the CPU (and its naive step with an adaLN-Zero expert),
 build the port's ActionServer (bf16, w4a8, int8 with the int8 KV cache, the
 baseline preset's naive step, and from a .pt checkpoint it wrote) and drive
-it through the port's own ActionClient, and import the experiment modules. Then a static check: no ``.py`` file of
-the port, nor ``chip_smoke.py``, has an import whose top-level module is
-``jax`` or ``blurr_tpu``.
+it through the port's own ActionClient, import the experiment modules,
+resize an off-size frame on the native and the torch rungs, and run the eval
+agent (serial with the async pipeline, and batched) and the eval CLI on the
+fake env. Then a static check: no ``.py`` file of the port, nor
+``chip_smoke.py`` or the port's two CLIs, has an import whose top-level
+module is ``jax`` or ``blurr_tpu``.
 """
 
 import ast
@@ -96,6 +99,35 @@ SCRIPT = textwrap.dedent(
     srv.stop()
     t.join(30)
     assert act.shape == (4, 7) and np.isfinite(act).all()
+    # off-size frames: the resize ladder's native and torch rungs
+    from blurr_tpu_torch import native
+    from blurr_tpu_torch.utils import image
+    image.cv2 = None
+    frame = np.random.RandomState(0).randint(0, 256, (48, 64, 3), np.uint8)
+    assert native.available()
+    assert image.lanczos_resize_uint8(frame, size, size).shape == (size, size, 3)
+    native.available = lambda: False
+    assert image._torch_rung(frame, size, size).shape == (size, size, 3)
+    # the closed-loop agents and the eval CLI on the fake env
+    from blurr_tpu_torch.agent.batched_eval import BatchedEvalAgent
+    from blurr_tpu_torch.agent.eval_agent import EvalAgent
+    sys.path.insert(0, "scripts")
+    import eval_pi0_simpler_torch
+    cfg = load_config("config/eval/bridge_tiny.yaml")
+    apply_preset(cfg, "blurr")
+    cfg["num_inference_steps"] = 1
+    cfg["env"]["task"] = "fake_widowx_carrot_on_plate"
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.update({"n_eval_episode": 1, "n_video": 0, "checkpoint_path": "random",
+                    "log_dir": tmp, "async_pipeline": True, "act_steps": 2})
+        assert EvalAgent(cfg, device="cpu").run() == 1.0
+        cfg.update({"batch_envs": 2, "n_eval_episode": 2})
+        assert BatchedEvalAgent(cfg, device="cpu").run() == 0.5
+        eval_pi0_simpler_torch.main([
+            "--task", "fake_widowx_carrot_on_plate", "--checkpoint", "random",
+            "--config", "config/eval/bridge_tiny.yaml", "--n-eval-episode", "1",
+            "--num-inference-steps", "1", "--device", "cpu", "--log-dir", tmp + "/cli"])
+        assert "Success rate: 1.0" in open(tmp + "/cli/run.log").read()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "blurr_tpu"))
     assert all(sys.modules[m] is None for m in loaded), loaded
@@ -127,7 +159,9 @@ def _imported_top_levels(path: Path):
             yield node.lineno, node.module.split(".")[0]
 
 
-PORT_FILES = sorted((REPO_ROOT / "blurr_tpu_torch").rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((REPO_ROOT / "blurr_tpu_torch").rglob("*.py")) + [
+    REPO_ROOT / "chip_smoke.py", REPO_ROOT / "scripts" / "eval_pi0_simpler_torch.py",
+    REPO_ROOT / "scripts" / "serve_pi0_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))

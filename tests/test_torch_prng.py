@@ -152,3 +152,34 @@ def test_server_noise_is_jax_noise(preset, dtype):
         assert noise.dtype == dtype and noise.shape == shape
         _assert_normal_matches(noise, want, dtype)
     assert not torch.equal(seen[2], seen[3])
+
+
+def test_batched_eval_noise_is_jax_noise(tmp_path):
+    """BatchedEvalAgent (blurr preset, bf16, 3 envs): round i's noise is one
+    draw jax.random.normal(fold_in(PRNGKey(seed), i), (3, n_tok, act_dim),
+    bf16), bit for bit, as JAX's batched agent draws it in-graph."""
+    from blurr_tpu_torch.agent.batched_eval import BatchedEvalAgent
+
+    cfg = load_config("config/eval/bridge_tiny.yaml")
+    apply_preset(cfg, "blurr")
+    cfg["env"]["task"] = "fake_widowx_carrot_on_plate"
+    cfg["env"]["adapter"]["pretrained_model_path"] = "(stub)"
+    cfg.update({"n_eval_episode": 3, "n_video": 0, "seed": 77, "batch_envs": 3,
+                "checkpoint_path": None, "log_dir": str(tmp_path)})
+    agent = BatchedEvalAgent(cfg, device="cpu")
+    seen = []
+
+    def record(ids, am, px, pr, noise):
+        assert ids.shape[0] == px.shape[0] == pr.shape[0] == 3
+        seen.append(noise.clone())
+        return torch.zeros(noise.shape)
+
+    agent.model.infer_action = record
+    agent.run()
+    shape = (3, agent.model.spec.num_action_tokens, agent.model.spec.action_dim)
+    assert len(seen) == 12 // cfg["act_steps"]
+    for idx, noise in enumerate(seen):
+        want = np.asarray(jax.random.normal(_jax_key(77, idx), shape, jnp.bfloat16)
+                          .astype(jnp.float32))
+        assert noise.dtype == torch.bfloat16 and noise.shape == shape
+        _assert_normal_matches(noise, want, torch.bfloat16)

@@ -113,10 +113,13 @@ def test_bad_requests_keep_the_connection(server):
     with ActionClient(port=server.port) as client:
         with pytest.raises(RuntimeError, match="proprio"):
             client.predict(np.zeros((size, size, 3), np.uint8), "x", [0.0] * 3)
-        with pytest.raises(RuntimeError, match="image must be uint8"):
-            client.predict(np.zeros((size + 4, size, 3), np.uint8), "x", [0.0] * 7)
+        with pytest.raises(RuntimeError, match="HxWx3"):
+            client.predict(np.zeros((size, size, 4), np.uint8), "x", [0.0] * 7)
+        # an off-size frame is resized (utils/image.py) and answered
+        off_size = client.predict(np.zeros((size + 4, size, 3), np.uint8), "x", [0.0] * 7)
         out = client.predict(np.zeros((size, size, 3), np.uint8), "x", [0.0] * 7)
     assert out.shape == (4, 7)
+    assert off_size.shape == (4, 7) and np.isfinite(off_size).all()
 
 
 def test_presets_equal_the_eval_cli_table():
