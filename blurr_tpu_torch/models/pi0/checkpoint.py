@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterable, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -101,7 +101,9 @@ def _weight(mod, leaf, i=None):
     )
 
 
-def _linear(mod, tree: Dict, w: str, b: str, i=None):
+def linear_pairs(mod, tree: Dict, w: str, b: str, i=None):
+    """A linear's (weight, ``tree[w]``) and (bias, ``tree[b]``); ``i`` picks
+    one layer of stacked leaves."""
     yield from _weight(mod, tree[w], i)
     yield mod.bias, tree[b] if i is None else tree[b][i]
 
@@ -118,13 +120,9 @@ def _norm(norm, leaf: Dict, i=None):
         yield norm, pick(leaf["scale"])
 
 
-def _pairs(model: PiZero, tree: Dict) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
-    """(port parameter, JAX array) for every parameter of the model."""
-    yield model.embed_tokens, tree["embed_tokens"]
-
-    sg = tree["siglip"]
-    vt = model.vision_tower
-    yield from _linear(vt.patch_embedding, sg, "patch_w", "patch_b")
+def siglip_pairs(vt, sg: Dict) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
+    """(port tensor, JAX array) of a SigLIP tower and its tree."""
+    yield from linear_pairs(vt.patch_embedding, sg, "patch_w", "patch_b")
     yield vt.position_embedding, sg["pos_embed"]
     lp = sg["layers"]
     for i, layer in enumerate(vt.layers):
@@ -132,34 +130,41 @@ def _pairs(model: PiZero, tree: Dict) -> Iterator[Tuple[torch.Tensor, np.ndarray
             yield ln.weight, lp[f"{key}_w"][i]
             yield ln.bias, lp[f"{key}_b"][i]
         for key, attr in _SIGLIP_LAYER.items():
-            yield from _linear(getattr(layer, attr), lp, f"{key}_w", f"{key}_b", i)
+            yield from linear_pairs(getattr(layer, attr), lp, f"{key}_w", f"{key}_b", i)
     yield vt.post_layernorm.weight, sg["post_ln_w"]
     yield vt.post_layernorm.bias, sg["post_ln_b"]
 
-    yield from _linear(model.multi_modal_projector, tree["projector"], "w", "b")
 
+def mixture_pairs(mixture, mp: Dict) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
+    """(port tensor, JAX array) of a mixture and its stacked tree."""
+    for i, layer in enumerate(mixture.layers):
+        for key, attr in _MIXTURE_MATRICES.items():
+            yield from _weight(getattr(layer, attr), mp[key], i)
+        yield from _norm(layer.input_norm, mp["input_norm"], i)
+        yield from _norm(layer.post_norm, mp["post_norm"], i)
+        for key in ("post_scale", "final_scale"):
+            gate = getattr(layer, key)
+            if gate is not None:  # adaLN-Zero
+                yield gate.gamma.weight, mp[key]["gamma_w"][i].T
+                yield gate.gamma.bias, mp[key]["gamma_b"][i]
+    if mixture.final_norm is not None:
+        yield from _norm(mixture.final_norm, mp["final_norm"])
+
+
+def _pairs(model: PiZero, tree: Dict) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
+    """(port parameter, JAX array) for every parameter of the model."""
+    yield model.embed_tokens, tree["embed_tokens"]
+    yield from siglip_pairs(model.vision_tower, tree["siglip"])
+    yield from linear_pairs(model.multi_modal_projector, tree["projector"], "w", "b")
     for name in ("vlm", "action"):
-        mp = tree["joint"][name]
-        mixture = model.joint[name]
-        for i, layer in enumerate(mixture.layers):
-            for key, attr in _MIXTURE_MATRICES.items():
-                yield from _weight(getattr(layer, attr), mp[key], i)
-            yield from _norm(layer.input_norm, mp["input_norm"], i)
-            yield from _norm(layer.post_norm, mp["post_norm"], i)
-            for key in ("post_scale", "final_scale"):
-                gate = getattr(layer, key)
-                if gate is not None:  # adaLN-Zero
-                    yield gate.gamma.weight, mp[key]["gamma_w"][i].T
-                    yield gate.gamma.bias, mp[key]["gamma_b"][i]
-        if mixture.final_norm is not None:
-            yield from _norm(mixture.final_norm, mp["final_norm"])
+        yield from mixture_pairs(model.joint[name], tree["joint"][name])
 
     ae = tree["action_encoder"]
-    yield from _linear(model.action_encoder_w1, ae, "w1", "b1")
-    yield from _linear(model.action_encoder_w2, ae, "w2", "b2")
-    yield from _linear(model.action_encoder_w3, ae, "w3", "b3")
-    yield from _linear(model.proprio_encoder, tree["proprio_encoder"], "w", "b")
-    yield from _linear(model.action_decoder, tree["action_decoder"], "w", "b")
+    yield from linear_pairs(model.action_encoder_w1, ae, "w1", "b1")
+    yield from linear_pairs(model.action_encoder_w2, ae, "w2", "b2")
+    yield from linear_pairs(model.action_encoder_w3, ae, "w3", "b3")
+    yield from linear_pairs(model.proprio_encoder, tree["proprio_encoder"], "w", "b")
+    yield from linear_pairs(model.action_decoder, tree["action_decoder"], "w", "b")
 
 
 def _leaves(tree, prefix=""):
@@ -187,15 +192,13 @@ def check_tied(tree: Dict) -> None:
 
 
 @torch.no_grad()
-def load_jax_params(model: PiZero, tree: Dict) -> PiZero:
-    """Copy the numpy JAX tree into ``model`` in place (each float array cast
-    to the tensor's device and dtype, int8 bytes copied as they are). Raises
-    on an untied tree, on a shape mismatch, on a quantized dict of another
-    kind than the model's module, and when a parameter or buffer of the
-    model is left unset."""
-    check_tied(tree)
+def copy_pairs(model: nn.Module, pairs: Iterable[Tuple[torch.Tensor, np.ndarray]]) -> None:
+    """Copy each (port tensor, numpy array) pair in place (a float array
+    cast to the tensor's device and dtype, int8 bytes copied as they are).
+    Raises on a dtype kind or shape mismatch and when a parameter or buffer
+    of ``model`` is left unset."""
     seen = set()
-    for param, arr in _pairs(model, tree):
+    for param, arr in pairs:
         arr = np.asarray(arr)
         if arr.dtype != np.int8 and (arr.dtype.kind != "f" or arr.dtype.itemsize < 4):
             arr = arr.astype(np.float32)  # e.g. ml_dtypes bfloat16 (exact)
@@ -216,6 +219,15 @@ def load_jax_params(model: PiZero, tree: Dict) -> PiZero:
     ]
     if missing:
         raise ValueError(f"parameters not set by the tree: {missing}")
+
+
+def load_jax_params(model: PiZero, tree: Dict) -> PiZero:
+    """Copy the numpy JAX tree into ``model`` in place (``copy_pairs``).
+    Raises on an untied tree, on a shape mismatch, on a quantized dict of
+    another kind than the model's module, and when a parameter or buffer of
+    the model is left unset."""
+    check_tied(tree)
+    copy_pairs(model, _pairs(model, tree))
     return model
 
 
@@ -399,3 +411,136 @@ def save_torch_checkpoint(model: PiZero, path: str) -> None:
     """Counterpart of JAX ``save_torch_checkpoint``: ``{"model": state}``
     with fp32 tensors, the format ``load_torch_state_dict`` reads."""
     torch.save({"model": torch_state_dict(model)}, path)
+
+
+# ---------------------------------------------------------------------------
+# PaliGemma's pretrained weights: HF safetensors
+# ---------------------------------------------------------------------------
+
+# the dtypes the reader and writer take: those of PaliGemma snapshots
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "BF16": torch.bfloat16, "F16": torch.float16}
+_HEADER_ALIGN = 8  # the header is padded with spaces to this many bytes
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of one ``.safetensors`` file, as CPU tensors over a
+    private memory map of it (pages are read when a tensor is first used).
+    The format: an 8-byte little-endian header length, a JSON header of
+    ``{name: {"dtype", "shape", "data_offsets": [begin, end]}}`` (and an
+    optional ``__metadata__``), then the raw little-endian bytes, the
+    offsets counted from the end of the header."""
+    import json
+    import mmap
+
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: {name} is {info['dtype']}; the reader takes "
+                             f"{sorted(_SAFETENSORS_DTYPES)}")
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        begin, end = info["data_offsets"]
+        count = (end - begin) // dtype.itemsize
+        shape = info["shape"]
+        if count != int(np.prod(shape)) or base + end > len(buf):
+            raise ValueError(f"{path}: {name}'s offsets {begin, end} do not hold "
+                             f"{info['dtype']} {shape}")
+        t = torch.frombuffer(buf, dtype=dtype, count=count, offset=base + begin) if count \
+            else torch.empty(0, dtype=dtype)
+        out[name] = t.reshape(shape)
+    return out
+
+
+def save_safetensors(tensors: Dict[str, torch.Tensor], path: str) -> None:
+    """Write ``tensors`` (any device; F32, BF16 or F16) as one
+    ``.safetensors`` file in the layout ``read_safetensors`` reads."""
+    import json
+
+    codes = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
+    # wider elements first, so every tensor starts at a multiple of its
+    # element size (the header's length is a multiple of 8)
+    tensors = dict(sorted(tensors.items(), key=lambda kv: -kv[1].element_size()))
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        if t.dtype not in codes:
+            raise ValueError(f"{name} is {t.dtype}; the writer takes {sorted(codes.values())}")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % _HEADER_ALIGN)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            flat = t.detach().reshape(-1).view(torch.uint8).cpu()
+            f.write(memoryview(flat.numpy()))
+
+
+def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
+    """Counterpart of JAX ``load_safetensors_dir``: the tensors of every
+    ``*.safetensors`` file in ``path`` (sorted by name), without the
+    ``safetensors`` package."""
+    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors file in {path}")
+    tensors = {}
+    for name in files:
+        tensors.update(read_safetensors(os.path.join(path, name)))
+    return tensors
+
+
+def _paligemma_keys(embed_tokens, vision_tower, projector, vlm
+                    ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(HF PaliGemma key, port tensor) of the token embedding, the SigLIP
+    tower and the projector (where given) and the vlm mixture (its final
+    norm where it has one): JAX ``paligemma_params_from_safetensors``'s
+    map."""
+    yield "language_model.model.embed_tokens.weight", embed_tokens
+    if vision_tower is not None:
+        yield from _siglip_keys(vision_tower, _SIGLIP_PREFIX)
+        yield from _dense("multi_modal_projector.linear", projector)
+    yield from _mixture_keys(vlm, "language_model.model.")
+
+
+@torch.no_grad()
+def load_paligemma_safetensors(embed_tokens, vision_tower, projector, vlm, path: str) -> None:
+    """Counterpart of JAX ``paligemma_params_from_safetensors``: copy an HF
+    PaliGemma snapshot's tensors (``path``, a directory of
+    ``*.safetensors``) into the given modules in place, each cast to its
+    parameter's device and dtype; the SigLIP patch convolution is permuted
+    into the port's linear. Raises on a missing key or a shape mismatch;
+    keys the port does not read (e.g. a vlm final norm the model lacks, an
+    untied ``lm_head``) are skipped, as JAX skips them."""
+    state = load_safetensors_dir(path)
+    pairs = list(_paligemma_keys(embed_tokens, vision_tower, projector, vlm))
+    missing = [key for key, _ in pairs if key not in state]
+    if missing:
+        raise ValueError(f"{len(missing)} keys missing from {path}: {missing[:8]}")
+    for key, param in pairs:
+        src = state[key]
+        if key == _PATCH_KEY:
+            src = _patch_from_conv(src)
+        if tuple(src.shape) != tuple(param.shape):
+            raise ValueError(f"{key}: file shape {tuple(src.shape)}, "
+                             f"model shape {tuple(param.shape)}")
+        param.copy_(src)
+    unread = state.keys() - {key for key, _ in pairs}
+    if unread:
+        log.info("%s: %d keys the port does not read", path, len(unread))
+
+
+@torch.no_grad()
+def paligemma_state_dict(embed_tokens, vision_tower, projector, vlm) -> Dict[str, torch.Tensor]:
+    """The inverse of ``load_paligemma_safetensors``: the HF keys of the
+    given modules, each tensor as it is (device and dtype), the patch
+    linear as the HF convolution."""
+    return {key: _patch_to_conv(t).contiguous() if key == _PATCH_KEY else t
+            for key, t in _paligemma_keys(embed_tokens, vision_tower, projector, vlm)}

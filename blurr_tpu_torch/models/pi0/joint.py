@@ -1,9 +1,10 @@
 """Joint mixture transformer: prefill of the prefix, decode of the actions,
-and the naive step's joint forward.
+the naive step's joint forward, and one mixture alone for text generation.
 
 Counterpart of ``blurr_tpu/models/pi0/joint.py`` (``JointSpec``,
 ``MixtureSpec``, ``_apply_norm``, ``_apply_scale``, ``_attention``,
-``prefill``, ``decode``, ``naive_forward`` on one card). The mixtures
+``prefill``, ``decode``, ``naive_forward``, ``single_forward``,
+``alloc_single_cache`` on one card). The mixtures
 (vlm, proprio, action expert) share one attention pattern per layer and
 keep their own weights. JAX stacks the layers on a leading [L, ...] axis
 and scans them; here each layer is an ``nn.Module`` in an ``nn.ModuleList``
@@ -13,7 +14,8 @@ pairs [B, KVH, P, D], with K stored after RoPE; the int8 KV cache holds
 dequantized inside each layer of each decode step.
 
 Numerics kept from JAX: embeds scaled by sqrt(hidden) rounded in the
-compute dtype, Gemma RMSNorm, fp32 RoPE, the tanh soft clamp 50. The last
+compute dtype, Gemma RMSNorm, fp32 RoPE, the tanh soft clamp 50 (off under
+``use_softclamp=False``, the standalone Gemma's attention). The last
 prefill layer computes only K/V: its attention and MLP output is never read.
 A layer's linears are ``nn.Linear``s or, once a mixture is quantized, the
 int8 / cached-fp / w8a8 / w4a8 modules of ``ops/quant.py``; each mixture
@@ -30,7 +32,7 @@ and MLP branches with ``AdaptiveLayerscale``s. A plain mixture ignores
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -85,8 +87,13 @@ class JointSpec:
     head_dim: int
     rms_norm_eps: float = 1e-6
     time_hidden_size: int = 256  # the width of an adaptive norm's conditioning
+    use_softclamp: bool = True  # the tanh soft clamp of the attention logits
     use_flash_attn: bool = False  # prefill attention through the CUDA kernel
     mixtures: Dict[str, MixtureSpec] = field(default_factory=dict)
+
+    @property
+    def softclamp(self) -> Optional[float]:
+        return DEFAULT_SOFTCLAMP if self.use_softclamp else None
 
     @staticmethod
     def from_config(cfg: dict) -> "JointSpec":
@@ -233,10 +240,14 @@ def _attention(spec: JointSpec, q, k, v, mask):
     """The JAX dispatch with "TPU" read as "CUDA": with ``use_flash_attn``
     and at least 64 query rows, attention goes to ``flash_attention``, whose
     wrapper launches the CUDA kernel for CUDA tensors (its plain version for
-    CPU tensors); otherwise to ``grouped_attention``."""
+    CPU tensors); otherwise to ``grouped_attention``. Both clamp the logits
+    by ``spec.softclamp`` (None: no clamp). The kernel takes contiguous
+    tensors: the joint paths' concatenations are, a single mixture's
+    head-split projections are not (a copy of q, at most one of K/V)."""
     if spec.use_flash_attn and q.shape[2] >= FLASH_MIN_QUERIES:
-        return flash_attention(q, k, v, mask, softclamp=DEFAULT_SOFTCLAMP)
-    return grouped_attention(q, k, v, mask, DEFAULT_SOFTCLAMP)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        return flash_attention(q, k, v, mask, softclamp=spec.softclamp)
+    return grouped_attention(q, k, v, mask, spec.softclamp)
 
 
 def _clip_for(spec: JointSpec, name: str) -> Optional[float]:
@@ -381,3 +392,62 @@ def naive_forward(
                 )
             offset += s
     return apply_norm(mixtures["action"].final_norm, hs["action"], tcs["action"], eps)
+
+
+# --------------------------------------------------------------------------
+# One mixture alone, autoregressive (text generation, append-mode cache)
+# --------------------------------------------------------------------------
+
+# (k, v), each [L, B, KVH, max_len, D]
+SingleCache = Tuple[torch.Tensor, torch.Tensor]
+
+
+def single_forward(
+    mixture: Mixture,
+    spec: JointSpec,
+    name: str,
+    embeds: torch.Tensor,  # [B, S, H]
+    position_ids: torch.Tensor,  # [B, S]
+    mask: torch.Tensor,  # bool [B, S, Skv]
+    cache: Optional[SingleCache] = None,
+    cache_len: int = 0,  # tokens already in the cache
+) -> Tuple[torch.Tensor, Optional[SingleCache]]:
+    """One forward of mixture ``name`` alone. With ``cache`` (from
+    ``alloc_single_cache``) each layer writes the K/V of the S query tokens
+    into its buffers at ``cache_len`` and attends over the whole buffer,
+    whose unwritten columns ``mask`` must hide; without, the tokens attend
+    over themselves (Skv = S). The final norm applies where the mixture has
+    one. Returns (hidden [B, S, H], cache).
+
+    Unlike JAX's functional update, the cache is written IN PLACE and the
+    same buffers are returned. ``cache_len`` is a host int, so a decode
+    step reads nothing back from the device."""
+    eps = spec.rms_norm_eps
+    clip = _clip_for(spec, name)
+    s = embeds.shape[1]
+    if cache is not None and cache_len + s > cache[0].shape[3]:
+        raise ValueError(f"{s} tokens at offset {cache_len} overflow a cache of "
+                         f"{cache[0].shape[3]}")
+    cos, sin = rope_cos_sin(position_ids, spec.head_dim, spec.mixtures[name].rope_theta)
+    h = scale_embeds(embeds)
+    for i, layer in enumerate(mixture.layers):
+        q, k, v = layer.qkv(h, cos, sin, spec, clip)
+        if cache is not None:
+            k_buf, v_buf = cache[0][i], cache[1][i]
+            k_buf[:, :, cache_len:cache_len + s] = k
+            v_buf[:, :, cache_len:cache_len + s] = v
+            k, v = k_buf, v_buf
+        attn = _attention(spec, q, k, v, mask)
+        h = layer.finish(h, merge_heads(attn), eps, clip)
+    if mixture.final_norm is not None:
+        h = apply_norm(mixture.final_norm, h, None, eps)
+    return h, cache
+
+
+def alloc_single_cache(spec: JointSpec, batch: int, max_len: int, dtype,
+                       device) -> SingleCache:
+    """A zeroed (k, v) pair of [L, B, KVH, max_len, D] for ``single_forward``."""
+    shape = (spec.num_hidden_layers, batch, spec.num_key_value_heads, max_len,
+             spec.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))

@@ -1,12 +1,13 @@
 """Pi-0 VLA model as an ``nn.Module``: the prefix-cached and the naive
-control steps.
+control steps, and the text mode.
 
 Counterpart of ``blurr_tpu/models/pi0/pizero.py`` (``PiZeroSpec``,
 ``spec_from_config``, ``PiZero`` with ``_embed_merge``,
 ``_encode_proprio``, ``_encode_action``, ``_time_embedding``,
-``_decode_action``, ``infer_action``, ``infer_action_naive`` and
+``_decode_action``, ``infer_action``, ``infer_action_naive``,
 ``infer_action_from_frame``, which resizes raw camera frames on the device
-first). One cached control step:
+first, ``infer_text_prefill``, ``infer_text_decode_step`` and
+``load_pretrained_weights``). One cached control step:
 
     embed merge (SigLIP + projector) -> proprio encoder
     -> joint prefill over the image/text + proprio prefix (KV cache)
@@ -26,6 +27,11 @@ quantizes the prefix cache after the prefill. Under
 norms are conditioned on the flow time's embedding of width
 ``time_hidden_size`` instead of the action encoder concatenating it; the
 prefix, cached or frozen, is conditioned on t=0's.
+
+The text mode runs the vlm mixture alone over image + prompt and then one
+token at a time (``joint.single_forward``), with the tied embedding as its
+head. ``materialize``, ``init_weights``, ``merge_embeds`` and the text
+masks are shared with the standalone PaliGemma and Gemma models.
 """
 
 from __future__ import annotations
@@ -112,6 +118,94 @@ def _quantize_cache(cache, clip: Optional[float]):
         (k_q, k_s), (v_q, v_s) = quantize_kv_int8(k, clip), quantize_kv_int8(v, clip)
         out.append(joint_lib.Int8KV(k_q, v_q, k_s, v_s))
     return out
+
+
+def materialize(root: nn.Module, device) -> None:
+    """Give every parameter of ``root`` (built on the meta device)
+    uninitialized storage on ``device``: what ``root.to_empty(device=device)``
+    does, without the Python meta-tensor code it runs (its first use imports
+    sympy: seconds). Each module is visited once, so a tied module stays
+    tied."""
+    for mod in root.modules():
+        for name, p in list(mod.named_parameters(recurse=False)):
+            w = torch.empty(p.shape, dtype=p.dtype, device=device)
+            setattr(mod, name, nn.Parameter(w))
+
+
+@torch.no_grad()
+def init_weights(root: nn.Module, generator: torch.Generator, embed_tokens: nn.Parameter,
+                 vision_tower: Optional[SiglipVisionModel] = None) -> None:
+    """Random weights drawn in place from ``generator``, with the JAX
+    ``init_params`` distributions: dense weights N(0, 1/fan_in) (adaLN's
+    ``to_gamma`` / ``to_beta`` too), biases and Gemma norm scales 0,
+    LayerNorm scales 1, adaLN-Zero's gate weights 0 and biases -2; then the
+    token embedding N(0, 1/hidden) and SigLIP's position embedding
+    N(0, 1/width)."""
+
+    def dense(w: torch.Tensor, fan_in: int):
+        w.normal_(0.0, fan_in**-0.5, generator=generator)
+
+    for mod in root.modules():
+        if isinstance(mod, nn.Linear):
+            dense(mod.weight, mod.in_features)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, (joint_lib.MixtureLayer, Mixture)):
+            for p in mod.parameters(recurse=False):
+                p.zero_()
+    for mod in root.modules():  # after the dense draws of their linears
+        if isinstance(mod, joint_lib.AdaptiveLayerscale):
+            mod.gamma.weight.zero_()
+            mod.gamma.bias.fill_(-2.0)  # adaln_zero_bias_init
+    dense(embed_tokens, embed_tokens.shape[1])
+    if vision_tower is not None:
+        pos = vision_tower.position_embedding
+        dense(pos, pos.shape[1])
+
+
+def merge_embeds(embed_tokens, feats, input_ids, image_token_index: int,
+                 pad_token_id: int, hidden: int) -> torch.Tensor:
+    """The token embeddings of ``input_ids`` with the projected image
+    features ``feats`` [B, N, H], divided by sqrt(``hidden``), written at
+    the image-token slots (always the first N positions of the prompt);
+    pad tokens embed as 0."""
+    text_embeds = F.embedding(input_ids, embed_tokens)
+    # scalars are filled on the device (torch.full), never copied from
+    # the host: such a copy waits for the stream, and the agent's async
+    # pipeline relies on a step that never waits
+    feats = feats / torch.full((), hidden**0.5, dtype=feats.dtype, device=feats.device)
+    n_img = feats.shape[1]
+    is_text = (input_ids != image_token_index) & (input_ids != pad_token_id)
+    merged = torch.where(is_text[..., None], text_embeds, 0.0)
+    img_mask_head = (input_ids[:, :n_img] == image_token_index)[..., None]
+    head = torch.where(img_mask_head, feats.to(merged.dtype), merged[:, :n_img])
+    return torch.cat([head, merged[:, n_img:]], dim=1)
+
+
+def text_mask(valid: torch.Tensor, q_len: int, max_len: int) -> torch.Tensor:
+    """bool [B, q_len, max_len], contiguous (the flash kernel's layout): a
+    prefill's query rows see the prompt's columns (``cols < q_len``) that
+    ``valid`` [B, q_len] marks; the columns past the prompt, which decode
+    steps fill, are hidden."""
+    cols = torch.arange(max_len, device=valid.device)
+    seen = (cols < q_len) & F.pad(valid.bool(), (0, max_len - q_len), value=True)
+    return seen[:, None].expand(-1, q_len, -1).contiguous()
+
+
+def decode_mask(cache_len: int, max_len: int, batch: int, device,
+                attn_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bool [B, 1, max_len] of a decode step: the columns written so far
+    (``cols <= cache_len``: the prompt and the tokens generated, this one
+    included), without the prompt's pad slots that ``attn_valid``
+    [B, prompt_len] marks invalid."""
+    seen = torch.arange(max_len, device=device) <= cache_len
+    if attn_valid is None:
+        return seen.expand(batch, 1, max_len)
+    valid = F.pad(attn_valid.bool(), (0, max_len - attn_valid.shape[1]), value=True)
+    return (seen & valid)[:, None]
 
 
 @dataclass(frozen=True)
@@ -235,12 +329,7 @@ class PiZero(nn.Module):
             s.proprio_dim, mix["proprio"].hidden_size, **kw
         )
         self.action_decoder = nn.Linear(aw, s.action_dim, **kw)
-        # what ``self.to_empty(device=device)`` does, without the Python
-        # meta-tensor code it runs (its first use imports sympy: seconds)
-        for mod in self.modules():  # each module once: the tie survives
-            for name, p in list(mod.named_parameters(recurse=False)):
-                w = torch.empty(p.shape, dtype=p.dtype, device=device)
-                setattr(mod, name, nn.Parameter(w))
+        materialize(self, device)
 
     @staticmethod
     def _clip(qcfg: dict, mode: Optional[str]) -> Optional[float]:
@@ -259,27 +348,7 @@ class PiZero(nn.Module):
         biases and Gemma norm scales 0, LayerNorm scales 1, adaLN-Zero's gate
         weights 0 and biases -2 — the JAX ``init_params`` distributions."""
 
-        def dense(w: torch.Tensor, fan_in: int):
-            w.normal_(0.0, fan_in**-0.5, generator=generator)
-
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                dense(mod.weight, mod.in_features)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-            elif isinstance(mod, (joint_lib.MixtureLayer, Mixture)):
-                for p in mod.parameters(recurse=False):
-                    p.zero_()
-        for mod in self.modules():  # after the dense draws of their linears
-            if isinstance(mod, joint_lib.AdaptiveLayerscale):
-                mod.gamma.weight.zero_()
-                mod.gamma.bias.fill_(-2.0)  # adaln_zero_bias_init
-        dense(self.embed_tokens, self.vlm_hidden)
-        pos = self.vision_tower.position_embedding
-        dense(pos, pos.shape[1])
+        init_weights(self, generator, self.embed_tokens, self.vision_tower)
         return self
 
     @torch.no_grad()
@@ -331,22 +400,9 @@ class PiZero(nn.Module):
         """Text embedding with the scaled image features written at the
         image-token slots (always the first positions of the prompt)."""
         s = self.spec
-        text_embeds = F.embedding(input_ids, self.embed_tokens)
         feats = self.multi_modal_projector(self.vision_tower(pixel_values))
-        # scalars are filled on the device (torch.full), never copied from
-        # the host: such a copy waits for the stream, and the agent's async
-        # pipeline relies on a step that never waits
-        feats = feats / torch.full(
-            (), self.vlm_hidden**0.5, dtype=feats.dtype, device=feats.device
-        )
-        n_img = feats.shape[1]
-        text_mask = (input_ids != s.image_token_index) & (
-            input_ids != s.pad_token_id
-        )
-        merged = torch.where(text_mask[..., None], text_embeds, 0.0)
-        img_mask_head = (input_ids[:, :n_img] == s.image_token_index)[..., None]
-        head = torch.where(img_mask_head, feats.to(merged.dtype), merged[:, :n_img])
-        return torch.cat([head, merged[:, n_img:]], dim=1)
+        return merge_embeds(self.embed_tokens, feats, input_ids, s.image_token_index,
+                            s.pad_token_id, self.vlm_hidden)
 
     def _encode_proprio(self, proprios: torch.Tensor) -> torch.Tensor:
         return self.proprio_encoder(proprios)
@@ -514,3 +570,91 @@ class PiZero(nn.Module):
     def _clip_actions(self, action: torch.Tensor) -> torch.Tensor:
         c = self.spec.final_action_clip_value
         return action if c is None else torch.clamp(action, -c, c)
+
+    # ------------------------------------------------------------------
+    # Text generation (the vlm mixture alone, append-mode cache)
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def infer_text_prefill(
+        self,
+        input_ids: torch.Tensor,  # [B, q_len] int
+        pixel_values: torch.Tensor,  # [B, C, H, W]
+        max_cache_len: int,
+        attention_mask: Optional[torch.Tensor] = None,  # [B, q_len] validity
+    ):
+        """Prefill the vlm mixture over image + prompt; returns (logits
+        [B, 1, V] of each row's last valid position, the cache, cache_len).
+
+        The prompt attends bidirectionally at positions 1..q_len;
+        ``attention_mask`` hides the pad slots of right-padded rows (omitted:
+        all valid). The vlm's final norm applies where the config gives it
+        one (bridge.yaml does not, and then none applies, as in JAX).
+        ``cache_len`` is the host int q_len."""
+        bsz, q_len = input_ids.shape
+        embeds = self._embed_merge(input_ids, pixel_values)
+        pos = torch.arange(1, q_len + 1, device=input_ids.device).expand(bsz, q_len)
+        cache = joint_lib.alloc_single_cache(
+            self.joint_spec, bsz, max_cache_len, embeds.dtype, embeds.device
+        )
+        valid = (torch.ones_like(input_ids, dtype=torch.bool) if attention_mask is None
+                 else attention_mask)
+        mask = text_mask(valid, q_len, max_cache_len)
+        hidden, cache = joint_lib.single_forward(
+            self.joint["vlm"], self.joint_spec, "vlm", embeds, pos, mask, cache, 0
+        )
+        # the tied head on each row's last valid position only (the full
+        # [B, S, V] projection is ~155 MB of logits no caller reads)
+        if attention_mask is None:
+            h_last = hidden[:, -1:]
+        else:
+            last = attention_mask.long().sum(-1) - 1
+            h_last = hidden.gather(1, last[:, None, None].expand(-1, 1, hidden.shape[-1]))
+        return h_last @ self.embed_tokens.T, cache, q_len
+
+    @torch.no_grad()
+    def infer_text_decode_step(
+        self,
+        token: torch.Tensor,  # [B] or [B, 1]
+        cache,
+        cache_len: int,
+        attn_valid: Optional[torch.Tensor] = None,  # [B, prompt_len] validity
+    ):
+        """One greedy decode step over the cache; returns (next token [B],
+        the cache, cache_len + 1). For right-padded prompts ``attn_valid``
+        hides the pad slots' cached K/V and corrects each row's RoPE
+        position to ``cache_len + 1 - n_pad`` (its pad slots took prefill
+        positions)."""
+        logits, cache, cache_len = self.text_decode_logits(token, cache, cache_len, attn_valid)
+        return logits[:, -1].argmax(-1), cache, cache_len
+
+    @torch.no_grad()
+    def text_decode_logits(self, token, cache, cache_len: int,
+                           attn_valid: Optional[torch.Tensor] = None):
+        """``infer_text_decode_step`` before its argmax: (logits [B, 1, V],
+        the cache, cache_len + 1)."""
+        if token.dim() == 1:
+            token = token[:, None]
+        bsz = token.shape[0]
+        embeds = F.embedding(token, self.embed_tokens)
+        mask = decode_mask(cache_len, cache[0].shape[3], bsz, token.device, attn_valid)
+        if attn_valid is None:
+            pos = torch.full((bsz, 1), cache_len + 1, device=token.device)
+        else:
+            n_pad = attn_valid.shape[1] - attn_valid.long().sum(-1)
+            pos = (cache_len + 1 - n_pad)[:, None]
+        hidden, cache = joint_lib.single_forward(
+            self.joint["vlm"], self.joint_spec, "vlm", embeds, pos, mask, cache, cache_len
+        )
+        return hidden @ self.embed_tokens.T, cache, cache_len + 1
+
+    def load_pretrained_weights(self, path: str) -> "PiZero":
+        """PaliGemma's pretrained weights (the token embedding, SigLIP, the
+        projector, the vlm mixture) from the HF safetensors files in
+        ``path``, in place (``checkpoint.load_paligemma_safetensors``). The
+        vlm's final norm loads only where this model has one."""
+        from blurr_tpu_torch.models.pi0.checkpoint import load_paligemma_safetensors
+
+        load_paligemma_safetensors(self.embed_tokens, self.vision_tower,
+                                   self.multi_modal_projector, self.joint["vlm"], path)
+        return self

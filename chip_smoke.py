@@ -36,6 +36,16 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              timed two ways: CUDA events around 50 eager launches (which
              for a short kernel time its wrapper's host work) and inside a
              CUDA graph (the device's time alone).
+3b. kernel-text - flash attention at Pi-0's text prefill: 276 query rows
+             over a layer's slice of the stacked cache buffer of 296 keys,
+             the last 20 masked (random there), at batch 1 and at batch 2
+             with the second row right-padded; fp32 (2e-4) and bf16 (2e-2),
+             the soft clamp 50 and off, each the same bits on a second call;
+             at small logits (|logit| < 1) and with q and k x3 (the largest
+             |logit| ~45), where clamp 50 and off must differ by more than
+             10x the tolerance;
+             timed at batch 1 in bf16 with both clamps beside the plain
+             version, the bound and, for the clamp off, SDPA.
 4. serve   - the port's ActionServer at the full bridge.yaml width with the
              blurr preset (bf16, prefix KV cache, one flow step) and
              joint.config.use_flash_attn set, random weights drawn on the
@@ -162,9 +172,44 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              takes K1), fp32, 10 flow steps: the same weights in an agent on
              the CPU and one on the card, the same summary lines and every
              chunk within SMALL_TOL.
+21. text-pi0 - Pi-0's text mode (infer_text_prefill, infer_text_decode_step)
+             at the full bridge.yaml width, bf16, joint.config.use_flash_attn
+             set, random weights drawn on the card: a 276-token prompt and 20
+             tokens at batch 1 (timed 3 times: prefill and per-token decode
+             medians, tokens/s, peak memory) and at batch 2 with a row
+             right-padded by 10. Each prefill launches K1 exactly 18 times,
+             each decode step never. The K1 route against the plain
+             attention on the same weights: the prefill's last logits and the
+             decode logits teacher-forced on the same tokens within
+             TEXT_REL_TOL of the largest |logit| (greedy agreement printed,
+             not gated: random weights tie). The padded row against that row
+             alone, the decode teacher-forced on the batch's tokens: printed
+             in bf16; in fp32 on the same weights (K1's fp32 kernel at 276
+             and 266 rows) its logits within TEXT_FP32_TOL of the largest
+             |logit| and its tokens equal.
+22. text-paligemma - PaliGemma-3B at google/paligemma-3b-pt-224's widths,
+             bf16 random weights drawn on the card, written as 2 safetensors
+             shards under HF keys with a config.json (bytes and seconds
+             logged) and loaded by load_hf_model into a fresh model: the same
+             bits, the same tokens and, teacher-forced on them, the same
+             prefill and decode logits bit for bit (random weights repeat one
+             token, so the tokens alone say little); generate and
+             generate_fused equal, generate_fused's device part
+             (fused_tokens) finds no synchronizing operation under
+             set_sync_debug_mode("warn") and its last step's logits are
+             generate's teacher-forced ones, bit for bit; the
+             prefill, per-token decode and generate_fused timed (medians,
+             tokens/s, peak memory); GemmaForCausalLM on the same weights
+             equal to PaliGemma's stack on the same embeddings, tokens and
+             teacher-forced logits bit for bit. Plain
+             attention without the clamp, as in JAX: no kernel launches.
+23. small-text - a small Pi-0 text model (bridge_tiny widths, fp32, an
+             80-token prompt so the prefill takes K1, a padded row) and a
+             small PaliGemma, each on the card against the CPU: tokens equal,
+             logits within SMALL_TOL.
 Then one JSON line of the kernels (launches summed over the six served
-runs, the experiments run and the eval runs of phases 14-18 and 20, the
-counts set to 0 just before each; errors
+runs, the experiments run, the eval runs of phases 14-18 and 20 and the
+text runs of phases 21-23, the counts set to 0 just before each; errors
 and times measured here: ms and plain_ms with CUDA events, graph_ms and
 plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
 function where there is one, at the first timed shape of each kernel;
@@ -180,6 +225,7 @@ from the checkout.
 from __future__ import annotations
 
 import copy
+import itertools
 import dataclasses
 import json
 import logging
@@ -284,6 +330,52 @@ INT8_STEP_LAUNCHES = 380  # 17 x 7 + 3 proprio prefill, 2 x (18 x 7 + 3) decode
 W4A8_STEP_LAUNCHES = 370  # 2 x (17 x 7 + 3) prefill (vlm, proprio), 18 x 7 decode
 KERNEL_NAMES = ("flash_attention", "int4_matmul", "int8_matmul", "w8a8_matmul",
                 "int4_split_matmul", "fused_ffn")
+# Pi-0's text prefill (bridge.yaml): 276 prompt rows over a cache of 296
+# keys (20 new tokens), the last 20 keys masked; and 2 rows, the second
+# right-padded by TEXT_PAD
+TEXT_NEW_TOKENS = 20
+TEXT_PAD = 10
+TEXT_SHAPE = (1, 8, 1, 276, 276 + TEXT_NEW_TOKENS, 256)
+TEXT_PADDED_SHAPE = (2, 8, 1, 276, 276 + TEXT_NEW_TOKENS, 256)
+# q and k at this scale (per element, d = 256) give logits of std ~9, the
+# largest past 20 (the clamp takes 45 to 36): where clamp 50 and off differ
+TEXT_LARGE_QK = 3.0
+# the bf16 text path through K1 against the plain attention on the same
+# weights (the prefill's last logits, the decode logits teacher-forced on
+# the same tokens), as a share of the largest |logit|: both round at the
+# same places, the kernel's P and its sums in another order, through 18
+# layers. On an H100 the sound path reads 0.76%; K1 given the cache's 20
+# masked keys unmasked (a planted fault) reads 6.9% on the prefill and 4.8%
+# teacher-forced. 2e-2 sits between them.
+TEXT_REL_TOL = 2e-2
+# fp32 (TF32 off), the padded row of a batch against that row alone, as a
+# share of the largest |logit|: the same sums, but matmuls of another M may
+# take another order. On an H100 it reads 6.3e-7; decode steps that let
+# the pad slots through (a planted fault) read 1.9e-2.
+TEXT_FP32_TOL = 1e-4
+# google/paligemma-3b-pt-224's config.json: its widths, as
+# blurr_tpu/config/eval/paligemma_arch.yaml gives them
+PALIGEMMA_3B = {
+    "model_type": "paligemma", "image_token_index": 257152, "pad_token_id": 0,
+    "projection_dim": 2048, "hidden_size": 2048, "vocab_size": 257216,
+    "text_config": {"model_type": "gemma", "vocab_size": 257216, "hidden_size": 2048,
+                    "intermediate_size": 16384, "num_hidden_layers": 18,
+                    "num_attention_heads": 8, "num_key_value_heads": 1, "head_dim": 256,
+                    "num_image_tokens": 256},
+    "vision_config": {"model_type": "siglip_vision_model", "hidden_size": 1152,
+                      "intermediate_size": 4304, "num_hidden_layers": 27,
+                      "num_attention_heads": 16, "image_size": 224, "patch_size": 14,
+                      "projection_dim": 2048},
+}
+# the small text models card against CPU (fp32, TF32 off)
+SMALL_PALIGEMMA = {
+    "vision_config": {"hidden_size": 64, "intermediate_size": 128, "num_hidden_layers": 2,
+                      "num_attention_heads": 4, "image_size": 56, "patch_size": 14},
+    "text_config": {"vocab_size": 1000, "hidden_size": 128, "intermediate_size": 512,
+                    "num_hidden_layers": 2, "num_attention_heads": 8,
+                    "num_key_value_heads": 1, "head_dim": 32},
+    "image_token_index": 999, "pad_token_id": 0, "projection_dim": 128, "hidden_size": 128,
+}
 
 
 def log(msg: str) -> None:
@@ -440,6 +532,85 @@ def kernel_vs_plain(device) -> dict:
                 f"({bound['bound_by']}{', peak outside the tensor cores' if kind == 'fp32' else ''})")
     key = (PI0_SHAPE, torch.bfloat16)
     return {"max_abs_err": errs[key], **times[key], **bounds[key]}
+
+
+def kernel_text_vs_plain(device) -> None:
+    """K1 at Pi-0's text prefill: 276 query rows over a layer's slice of the
+    stacked [L, B, KVH, 296, D] cache buffer, the 20 unwritten keys masked
+    (random there, so a leak shows), at batch 1 and at batch 2 with the
+    second row right-padded; fp32 and bf16, the soft clamp 50 and off, each
+    against the plain version and the same bits on a second call (its grid
+    logged). Each at two scales of q and k: small logits (|logit| < 1, as
+    random weights give) and TEXT_LARGE_QK, whose largest |logit| is past
+    20, where the clamp moves a logit by more than 1: there the kernel's
+    two clamps must differ by more than the tolerance, so a kernel that
+    ignored its clamp fails. Then timed at batch 1, bf16, both clamps,
+    beside the plain version, its bound and, for the clamp off, SDPA (the
+    same function)."""
+    from blurr_tpu_torch.models.pi0.pizero import text_mask
+    from blurr_tpu_torch.ops.attention import DEFAULT_SOFTCLAMP
+    from blurr_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+        grid,
+    )
+
+    smi = card()
+    inputs = {}
+    for shape, qk_scale in itertools.product((TEXT_SHAPE, TEXT_PADDED_SHAPE),
+                                             (0.3, TEXT_LARGE_QK)):
+        b, nh, kvh, sq, skv, d = shape
+        g = torch.Generator(device=device).manual_seed(4)
+        q = torch.randn(b, nh, sq, d, generator=g, device=device) * qk_scale
+        k_buf = torch.randn(2, b, kvh, skv, d, generator=g, device=device) * qk_scale
+        v_buf = torch.randn(2, b, kvh, skv, d, generator=g, device=device)
+        valid = torch.ones(b, sq, dtype=torch.bool, device=device)
+        valid[1:, sq - TEXT_PAD:] = False
+        mask = text_mask(valid, sq, skv)
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            qc, kc, vc = q.to(dtype), k_buf.to(dtype)[1], v_buf.to(dtype)[1]
+            if qk_scale != TEXT_LARGE_QK:
+                inputs[(shape, dtype)] = qc, kc, vc, mask
+            logits = torch.einsum("bhqd,bsd->bhqs", qc.float(), kc[:, 0].float()) * d ** -0.5
+            top = logits.masked_fill(~mask[:, None], 0).abs().max().item()
+            blocks, part_keys = grid(*shape, dtype)
+            outs = {}
+            for clamp in (DEFAULT_SOFTCLAMP, None):
+                out = flash_attention(qc, kc, vc, mask, softclamp=clamp)
+                again = torch.equal(out, flash_attention(qc, kc, vc, mask, softclamp=clamp))
+                ref = flash_attention_reference(qc.float(), kc.float(), vc.float(), mask, clamp)
+                torch.cuda.synchronize()
+                err = (out.float() - ref).abs().max().item()
+                log(f"kernel-text: flash_attention {shape} {str(dtype)[6:]} softclamp {clamp}, "
+                    f"q and k x{qk_scale:g} (largest |logit| {top:.2f}), K/V a layer's slice "
+                    f"of the cache buffer, keys {sq}.. masked"
+                    f"{f', row 1 padded by {TEXT_PAD}' if b > 1 else ''}: max_abs_err={err:.3e} "
+                    f"(tol {tol:g}), same bits on a second call {again}; grid {blocks}"
+                    + (f" ({blocks[1]} key parts of {part_keys} keys)" if part_keys else ""))
+                if not torch.isfinite(out).all():
+                    raise RuntimeError(f"kernel output not finite at {shape} {dtype}")
+                torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+                if not again:
+                    raise RuntimeError(f"kernel gives other bits on a second call at {shape}")
+                outs[clamp] = out.float()
+            apart = (outs[DEFAULT_SOFTCLAMP] - outs[None]).abs().max().item()
+            log(f"kernel-text: clamp 50 against off at {shape} {str(dtype)[6:]} x{qk_scale:g}: "
+                f"max_abs_diff={apart:.3e}")
+            if qk_scale == TEXT_LARGE_QK and not (top > 20 and apart > 10 * tol):
+                raise RuntimeError(f"kernel-text: the clamp does not show at {shape} {dtype}: "
+                                   f"largest |logit| {top}, clamp 50 vs off {apart}")
+    qc, kc, vc, mask = inputs[(TEXT_SHAPE, torch.bfloat16)]
+    b, nh, _, sq, skv, d = TEXT_SHAPE
+    # the work these inputs need: the 276 unmasked keys of every row
+    least = _bound((qc, kc, vc, mask), (qc,), 4 * b * nh * sq * sq * d, "bf16")
+    for clamp in (DEFAULT_SOFTCLAMP, None):
+        sdpa = None if clamp else (lambda: torch.nn.functional.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=mask[:, None], enable_gqa=True))
+        times = _kernel_times(lambda: flash_attention(qc, kc, vc, mask, softclamp=clamp),
+                              lambda: flash_attention_reference(qc, kc, vc, mask, clamp), sdpa)
+        log(f"kernel-text: time at {TEXT_SHAPE} bf16 softclamp {clamp}: {_fmt_times(times)}; "
+            f"bound {least['bound_ms']:.5f} ms ({least['bound_by']}, 276 keys a row); "
+            f"on {smi}")
 
 
 def int4_vs_plain(device) -> dict:
@@ -1772,6 +1943,467 @@ def small_agent_vs_cpu(device) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# the text-generation path: Pi-0's text mode, PaliGemma-3B and Gemma from
+# safetensors shards, the small text models card against CPU
+# --------------------------------------------------------------------------
+
+
+def _median_ms(times) -> str:
+    return f"median {float(np.median(times)):.3f} ms over n={len(times)}"
+
+
+def _text_prompt(batch: int, q_len: int, n_img: int, image_token: int, seed: int):
+    """Image tokens, BOS, random text ids; numpy int64 [batch, q_len]."""
+    rng = np.random.RandomState(seed)
+    ids = np.full((batch, q_len), image_token, np.int64)
+    ids[:, n_img] = 2
+    ids[:, n_img + 1:] = rng.randint(3, 256000, (batch, q_len - n_img - 1))
+    return ids
+
+
+def _pi0_text_run(model, ids, px, am=None, timed: bool = False):
+    """Pi-0's prefill and TEXT_NEW_TOKENS - 1 greedy decode steps, with the
+    counts set to 0 just before; returns the tokens [B, T] (host), the
+    launches of the prefill and of the whole run, and the prefill's and
+    each decode step's ms (host clock, synchronized, when ``timed``)."""
+    _zero_counts()
+    t0 = time.monotonic()
+    logits, cache, n = model.infer_text_prefill(ids, px, ids.shape[1] + TEXT_NEW_TOKENS, am)
+    tok = logits[:, -1].argmax(-1)
+    if timed:
+        torch.cuda.synchronize()
+    t_prefill = (time.monotonic() - t0) * 1000.0
+    prefill = _counts()
+    toks, steps = [tok], []
+    for _ in range(TEXT_NEW_TOKENS - 1):
+        t0 = time.monotonic()
+        tok, cache, n = model.infer_text_decode_step(tok, cache, n, am)
+        if timed:
+            torch.cuda.synchronize()
+        steps.append((time.monotonic() - t0) * 1000.0)
+        toks.append(tok)
+    out = torch.stack(toks, 1).cpu().numpy()
+    return out, prefill, _counts(), t_prefill, steps
+
+
+def _pi0_forced_logits(model, ids, px, tokens, am=None) -> torch.Tensor:
+    """Pi-0's prefill logits and its decode logits teacher-forced on
+    ``tokens`` [B, TEXT_NEW_TOKENS]: fp32 [B, TEXT_NEW_TOKENS, V]."""
+    out, cache, n = model.infer_text_prefill(ids, px, ids.shape[1] + TEXT_NEW_TOKENS, am)
+    outs = [out]
+    for i in range(TEXT_NEW_TOKENS - 1):
+        out, cache, n = model.text_decode_logits(tokens[:, i], cache, n, am)
+        outs.append(out)
+    return torch.cat(outs, 1).float()
+
+
+def _profile_text(label, what: str, call) -> None:
+    """One ``call()`` under torch.profiler (CUDA activity): its device time
+    and kernel count beside its host time, which gives the device's busy
+    share of that call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        call()
+        torch.cuda.synchronize()
+        host_ms = (time.monotonic() - t0) * 1000.0
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1000.0
+    log(f"{label}: {what} under torch.profiler: device time {device_ms:.3f} ms over "
+        f"{sum(e.count for e in kernels)} kernels in {host_ms:.3f} ms of host time (the "
+        f"device busy {device_ms / host_ms:.1%} of it, profiler on)")
+
+
+def _check_text_launches(label, prefill, run, n_layers) -> None:
+    """K1 once per layer in the prefill, never in a decode step, and no
+    other kernel."""
+    want = {name: 0 for name in KERNEL_NAMES}
+    want["flash_attention"] = n_layers
+    if prefill != want or run != want:
+        raise RuntimeError(f"{label}: launched {run} ({prefill} in the prefill), not {want}")
+
+
+def text_pi0(device) -> dict:
+    """Pi-0's text mode at the full bridge.yaml width, bf16, with
+    joint.config.use_flash_attn set and random weights drawn on the card:
+    the prefill (K1 at [B,8,276,256] over the [B,1,296,256] cache, 18
+    launches) and 19 decode steps (one query row: the plain attention), at
+    batch 1 and at batch 2 with a right-padded row. The K1 route against the
+    plain one on the same weights (TEXT_REL_TOL), tokens compared for
+    information; the padded row against that row alone, in bf16 for
+    information and in fp32 (the same weights), where its teacher-forced
+    logits must agree (TEXT_FP32_TOL) and its tokens be the same. Returns
+    the launches of every run."""
+    from blurr_tpu_torch.models.pi0.pizero import PiZero
+    from blurr_tpu_torch.presets import apply_preset, load_config
+
+    label, smi = "text-pi0", card()
+    cfg = load_config("config/eval/bridge.yaml")
+    apply_preset(cfg, "blurr")
+    cfg["joint"]["config"]["use_flash_attn"] = True
+    t0 = time.monotonic()
+    model = PiZero(cfg, device=device, dtype=torch.bfloat16)
+    model.init_params(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"{label}: bridge.yaml, {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"params bf16 drawn on the card in {time.monotonic() - t0:.2f} s")
+    s, n_layers = model.spec, cfg["joint"]["config"]["num_hidden_layers"]
+    q_len, n_img = cfg["max_seq_len"], cfg["vision"]["config"]["num_image_tokens"]
+    size = cfg["vision"]["config"]["image_size"]
+    ids = torch.from_numpy(_text_prompt(2, q_len, n_img, s.image_token_index, 0)).to(device)
+    am = torch.ones(2, q_len, dtype=torch.int32, device=device)
+    am[1, q_len - TEXT_PAD:] = 0
+    ids[1, q_len - TEXT_PAD:] = s.pad_token_id
+    g = torch.Generator(device=device).manual_seed(1)
+    px = torch.rand(2, 3, size, size, generator=g, device=device) * 2 - 1
+    totals = {name: 0 for name in KERNEL_NAMES}
+
+    def run(*args, **kwargs):
+        out = _pi0_text_run(model, *args, **kwargs)
+        _check_text_launches(label, out[1], out[2], n_layers)
+        for name in KERNEL_NAMES:
+            totals[name] += out[2][name]
+        return out
+
+    one = (ids[:1], px[:1].bfloat16())
+    run(*one)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    prefills, steps = [], []
+    for _ in range(3):
+        toks, _, _, t_prefill, t_steps = run(*one, timed=True)
+        prefills.append(t_prefill)
+        steps += t_steps
+    per_token = float(np.median(steps))
+    log(f"{label}: batch 1, prompt {q_len}, {TEXT_NEW_TOKENS} tokens: prefill "
+        f"{_median_ms(prefills)}; decode per token {_median_ms(steps)}; "
+        f"{1000.0 / per_token:.1f} tokens/s in decode; peak memory "
+        f"{torch.cuda.max_memory_allocated()} B (host clock, synchronized; on {smi})")
+    log(f"{label}: batch 1 tokens {toks[0].tolist()}")
+    prompt = model.infer_text_prefill(*one, q_len + TEXT_NEW_TOKENS)
+    _profile_text(label, "one prefill at batch 1",
+                  lambda: model.infer_text_prefill(*one, q_len + TEXT_NEW_TOKENS))
+    _profile_text(label, "one decode step at batch 1", lambda: model.infer_text_decode_step(
+        prompt[0][:, -1].argmax(-1), prompt[1], q_len))
+
+    # the K1 route against the plain attention, the same weights; decode
+    # teacher-forced on the K1 route's tokens
+    forced = torch.from_numpy(toks).to(device)
+    flash_spec = model.joint_spec
+    logits = {}
+    try:
+        for route, spec in (("kernel", flash_spec),
+                            ("plain", dataclasses.replace(flash_spec, use_flash_attn=False))):
+            model.joint_spec = spec
+            logits[route] = _pi0_forced_logits(model, *one, forced)
+    finally:
+        model.joint_spec = flash_spec
+    top = logits["kernel"].abs().max().item()
+    errs = (logits["kernel"] - logits["plain"]).abs().amax(-1)[0]
+    agree = (logits["kernel"].argmax(-1) == logits["plain"].argmax(-1)).float().mean().item()
+    log(f"{label}: K1 route vs plain attention, bf16, the same weights: prefill last logits "
+        f"max_abs_diff={errs[0].item():.3e}, teacher-forced decode logits "
+        f"max_abs_diff={errs[1:].max().item():.3e}, largest |logit| {top:.3f} (tol "
+        f"{TEXT_REL_TOL:g} of it, {TEXT_REL_TOL * top:.3e}); greedy tokens agree at "
+        f"{agree:.3f} of {TEXT_NEW_TOKENS} positions (information: random weights tie)")
+    if not (torch.isfinite(logits["kernel"]).all() and errs.max().item() <= TEXT_REL_TOL * top):
+        raise RuntimeError(f"{label}: the K1 and plain routes disagree: {errs.max().item()}")
+
+    # batch 2, row 1 right-padded, against row 1 alone, the decode
+    # teacher-forced on the batch's tokens: bf16 for information, then fp32
+    # on the same weights, where the logits must agree within TEXT_FP32_TOL
+    # of the largest |logit| and the tokens must be equal (bf16's roundings
+    # differ between the two batch shapes)
+    for dtype in (torch.bfloat16, torch.float32):
+        if dtype == torch.float32:
+            model.float()
+        batch, _, _, t_prefill, t_steps = run(ids, px.to(dtype), am, timed=True)
+        n_valid = q_len - TEXT_PAD
+        alone, *_ = run(ids[1:2, :n_valid], px[1:2].to(dtype))
+        same = (batch[1] == alone[0]).mean()
+        forced = torch.from_numpy(batch).to(device)
+        padded = _pi0_forced_logits(model, ids, px.to(dtype), forced, am)[1]
+        single = _pi0_forced_logits(model, ids[1:2, :n_valid], px[1:2].to(dtype),
+                                    forced[1:2])[0]
+        top, diff = single.abs().max().item(), (padded - single).abs().max().item()
+        gated = dtype == torch.float32
+        log(f"{label}: batch 2 {str(dtype)[6:]}, row 1 padded by {TEXT_PAD}: prefill "
+            f"{t_prefill:.3f} ms, decode per token {_median_ms(t_steps)} (host clock, on "
+            f"{smi}); row 1's tokens equal to that row alone at {same:.3f} of "
+            f"{TEXT_NEW_TOKENS}; its prefill and teacher-forced decode logits against that "
+            f"row alone max_abs_diff={diff:.3e}, largest |logit| {top:.3f}, {diff / top:.3e} "
+            f"of it" + (f" (tol {TEXT_FP32_TOL:g} of it)" if gated else " (information)"))
+        if not (np.isfinite(batch).all() and torch.isfinite(padded).all()):
+            raise RuntimeError(f"{label}: the padded batch is not finite")
+        if gated and not (same == 1.0 and diff <= TEXT_FP32_TOL * top):
+            raise RuntimeError(f"{label}: the padded row differs from that row alone: "
+                               f"tokens {same}, logits {diff}")
+    log(f"{label}: kernel launches over its {totals['flash_attention'] // n_layers} runs "
+        f"{totals}: each prefill launched flash_attention {n_layers} times, no decode "
+        f"step launched a kernel")
+    del model
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _forced_logits(model, prompt, tokens) -> torch.Tensor:
+    """A standalone model's ``prompt`` (its prefill's logits, cache and
+    length) and its decode logits teacher-forced on ``tokens`` [B, T]:
+    fp32 [B, T, V]."""
+    out, cache, n = prompt
+    outs = [out]
+    for i in range(tokens.shape[1] - 1):
+        out, cache, n = model.decode_logits(tokens[:, i], cache, n)
+        outs.append(out)
+    return torch.cat(outs, 1).float()
+
+
+def text_paligemma(device) -> dict:
+    """PaliGemma-3B at google/paligemma-3b-pt-224's widths, bf16 random
+    weights drawn on the card, written as two safetensors shards under HF
+    keys with a config.json, loaded by load_hf_model into a fresh model:
+    the same bits, tokens and teacher-forced logits. generate against
+    generate_fused (equal tokens), and generate_fused's device part under
+    set_sync_debug_mode("warn"), which must find no synchronizing call and
+    end on generate's teacher-forced logits; GemmaForCausalLM on the same
+    weights, the same tokens and logits as PaliGemma's stack. Plain attention, no clamp, as in
+    JAX: K1 must not launch. Returns the launches of the runs."""
+    import shutil
+    import warnings
+
+    from torch.nn import functional as F
+
+    from blurr_tpu_torch.models.paligemma.config import PaliGemmaConfig
+    from blurr_tpu_torch.models.paligemma.load import load_hf_model
+    from blurr_tpu_torch.models.paligemma.model import (
+        GemmaForCausalLM,
+        PaliGemmaForConditionalGeneration,
+    )
+    from blurr_tpu_torch.models.pi0.checkpoint import paligemma_state_dict, save_safetensors
+
+    label, smi = "text-paligemma", card()
+    config = PaliGemmaConfig(**PALIGEMMA_3B)
+    t0 = time.monotonic()
+    drawn = PaliGemmaForConditionalGeneration(config, device=device, dtype=torch.bfloat16)
+    drawn.init_params(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"{label}: google/paligemma-3b-pt-224 widths, "
+        f"{sum(p.numel() for p in drawn.parameters()) / 1e9:.3f} B params bf16 drawn on the "
+        f"card in {time.monotonic() - t0:.2f} s")
+    q_len = 264
+    ids = torch.from_numpy(_text_prompt(1, q_len, 256, config.image_token_index, 2)).to(device)
+    g = torch.Generator(device=device).manual_seed(3)
+    px = (torch.rand(1, 3, 224, 224, generator=g, device=device) * 2 - 1).bfloat16()
+    # timed before the files are written: the write's disk traffic would
+    # share the host with the eager dispatch
+    torch.cuda.reset_peak_memory_stats()
+    prefills, steps, fused_ms = [], [], []
+    for _ in range(5):
+        t0 = time.monotonic()
+        logits, cache, n = drawn.prefill(ids, px, q_len + TEXT_NEW_TOKENS)
+        tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        prefills.append((time.monotonic() - t0) * 1000.0)
+        for _ in range(TEXT_NEW_TOKENS - 1):
+            t0 = time.monotonic()
+            tok, cache, n = drawn.decode_step(tok, cache, n)
+            torch.cuda.synchronize()
+            steps.append((time.monotonic() - t0) * 1000.0)
+        t0 = time.monotonic()
+        drawn.generate_fused(ids, px, TEXT_NEW_TOKENS)
+        fused_ms.append((time.monotonic() - t0) * 1000.0)
+    per_token = float(np.median(steps))
+    log(f"{label}: batch 1, prompt {q_len}, {TEXT_NEW_TOKENS} tokens: prefill "
+        f"{_median_ms(prefills)}; decode per token {_median_ms(steps)}, "
+        f"{1000.0 / per_token:.1f} tokens/s; generate_fused {_median_ms(fused_ms)}; peak "
+        f"memory {torch.cuda.max_memory_allocated()} B (host clock, synchronized; on {smi})")
+    _profile_text(label, "one prefill", lambda: drawn.prefill(ids, px, q_len + TEXT_NEW_TOKENS))
+    _profile_text(label, "one decode step", lambda: drawn.decode_step(tok, cache, q_len))
+    tmp = tempfile.mkdtemp(prefix="blurr_paligemma_")
+    try:
+        state = paligemma_state_dict(drawn.embed_tokens, drawn.vision_tower,
+                                     drawn.multi_modal_projector, drawn.vlm)
+        keys = list(state)
+        shards = [k for k in keys if not k.startswith("language_model.model.layers.")], \
+            [k for k in keys if k.startswith("language_model.model.layers.")]
+        t0 = time.monotonic()
+        for i, part in enumerate(shards):
+            save_safetensors({k: state[k] for k in part},
+                             os.path.join(tmp, f"model-0000{i + 1}-of-00002.safetensors"))
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(PALIGEMMA_3B, f)
+        t_write = time.monotonic() - t0
+        del state
+        n_bytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        t0 = time.monotonic()
+        model = load_hf_model(tmp, torch.bfloat16, device)
+        torch.cuda.synchronize()
+        t_load = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"{label}: wrote {n_bytes} B ({n_bytes / 1e9:.3f} GB) as 2 safetensors shards and "
+        f"config.json in {t_write:.2f} s; load_hf_model loaded them onto the card in "
+        f"{t_load:.2f} s (host clock, on {smi}); files deleted")
+    pairs = list(zip(drawn.named_parameters(), model.parameters()))
+    if len(pairs) != len(list(drawn.parameters())) or not all(
+            torch.equal(p, q) for (_, p), q in pairs):
+        raise RuntimeError(f"{label}: the loaded weights differ from the written ones")
+    _zero_counts()
+    want = drawn.generate(ids, px, TEXT_NEW_TOKENS)
+    host = model.generate(ids, px, TEXT_NEW_TOKENS)
+    fused = model.generate_fused(ids, px, TEXT_NEW_TOKENS)
+    launches = _counts()
+    # random weights repeat one token, so the tokens say little: the logits
+    # are compared too, bit for bit (the same operations on the same
+    # inputs), teacher-forced on the tokens
+    forced = torch.from_numpy(host).to(device)
+    drawn_logits = _forced_logits(drawn, drawn.prefill(ids, px, q_len + TEXT_NEW_TOKENS), forced)
+    loaded_logits = _forced_logits(model, model.prefill(ids, px, q_len + TEXT_NEW_TOKENS),
+                                   forced)
+    log(f"{label}: tokens {host[0].tolist()}; the loaded model's equal the drawn one's "
+        f"{np.array_equal(host, want)}, its prefill and teacher-forced decode logits "
+        f"max_abs_diff={(loaded_logits - drawn_logits).abs().max().item():.3e} (gated: the "
+        f"same bits); generate_fused equal to generate {np.array_equal(fused, host)}; kernel "
+        f"launches {launches} (K1 none: plain attention)")
+    if not (np.array_equal(host, want) and np.array_equal(fused, host)
+            and torch.equal(loaded_logits, drawn_logits)):
+        raise RuntimeError(f"{label}: the loaded model or generate_fused differs")
+    if any(launches.values()):
+        raise RuntimeError(f"{label}: a kernel launched: {launches}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.monotonic()
+            pending, last = model.fused_tokens(ids, px, TEXT_NEW_TOKENS)
+            t_dispatch = time.monotonic() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    t0 = time.monotonic()
+    same = np.array_equal(pending.cpu().numpy(), fused)
+    t_wait = time.monotonic() - t0
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if not str(w.message).startswith("Synchronization debug mode is a prototype")]
+    last_diff = (last.float() - loaded_logits[:, -1]).abs().max().item()
+    log(f"{label}: generate_fused before its final copy under set_sync_debug_mode('warn'): "
+        f"{len(syncs)} synchronizing operations {syncs[:3]}; dispatched in "
+        f"{t_dispatch * 1000:.3f} ms, the copy then waited {t_wait * 1000:.3f} ms (host "
+        f"clock, on {smi}); the same tokens {same}; its last step's logits against "
+        f"generate's teacher-forced max_abs_diff={last_diff:.3e} (gated: the same bits)")
+    if syncs or not same or not torch.equal(last.float(), loaded_logits[:, -1]):
+        raise RuntimeError(f"{label}: generate_fused synchronizes or differs")
+    del drawn
+    gemma = GemmaForCausalLM(config, device=device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        gemma.embed_tokens.copy_(model.embed_tokens)
+    gemma.vlm.load_state_dict(model.vlm.state_dict())
+    text = ids[:, 256:]
+    t0 = time.monotonic()
+    toks = gemma.generate(text, TEXT_NEW_TOKENS)
+    t_gemma = (time.monotonic() - t0) * 1000.0
+    prompt = model._prefill(F.embedding(text, model.embed_tokens),
+                            text.shape[1] + TEXT_NEW_TOKENS)
+    ref = model._greedy(*prompt, TEXT_NEW_TOKENS, None)
+    forced = torch.from_numpy(ref).to(device)
+    stack_logits = _forced_logits(model, model._prefill(
+        F.embedding(text, model.embed_tokens), text.shape[1] + TEXT_NEW_TOKENS), forced)
+    gemma_logits = _forced_logits(gemma, gemma.prefill(text, text.shape[1] + TEXT_NEW_TOKENS),
+                                  forced)
+    log(f"{label}: GemmaForCausalLM on the same weights, a {text.shape[1]}-token text prompt: "
+        f"{TEXT_NEW_TOKENS} tokens in {t_gemma:.3f} ms (host clock, on {smi}); equal to "
+        f"PaliGemma's stack on the same embeddings {np.array_equal(toks, ref)}, its prefill "
+        f"and teacher-forced decode logits max_abs_diff="
+        f"{(gemma_logits - stack_logits).abs().max().item():.3e} (gated: the same bits)")
+    if not (np.array_equal(toks, ref) and torch.equal(gemma_logits, stack_logits)):
+        raise RuntimeError(f"{label}: GemmaForCausalLM differs from PaliGemma's stack")
+    del model, gemma
+    torch.cuda.empty_cache()
+    return launches
+
+
+def small_text_vs_cpu(device) -> dict:
+    """A small Pi-0 text model (bridge_tiny widths, fp32, use_flash_attn,
+    an 80-token prompt so the prefill takes K1, row 1 right-padded) and a
+    small PaliGemma (fp32, plain attention), each on the card against the
+    same weights on the CPU: the tokens equal, the logits within SMALL_TOL.
+    Returns the card's launches."""
+    import copy as copy_lib
+
+    from blurr_tpu_torch.models.paligemma.config import PaliGemmaConfig
+    from blurr_tpu_torch.models.paligemma.model import PaliGemmaForConditionalGeneration
+    from blurr_tpu_torch.models.pi0.pizero import PiZero
+    from blurr_tpu_torch.presets import apply_preset, load_config
+
+    label = "small-text"
+    cfg = load_config("config/eval/bridge_tiny.yaml")
+    apply_preset(cfg, "prefix_cache")  # fp32
+    cfg["joint"]["config"]["use_flash_attn"] = True
+    cpu = PiZero(cfg, device="cpu", dtype=torch.float32)
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = copy_lib.deepcopy(cpu).to(device)
+    s, size = cpu.spec, cfg["vision"]["config"]["image_size"]
+    n_img = cfg["vision"]["config"]["num_image_tokens"]
+    ids = _text_prompt(2, 80, n_img, s.image_token_index, 4) % s.vocab_size
+    ids[:, :n_img] = s.image_token_index
+    ids[1, -7:] = s.pad_token_id
+    am = np.ones((2, 80), np.int32)
+    am[1, -7:] = 0
+    px = np.random.RandomState(5).uniform(-1, 1, (2, 3, size, size)).astype(np.float32)
+    inputs = [torch.from_numpy(ids), torch.from_numpy(px), torch.from_numpy(am)]
+
+    def logits_and_tokens(model, ids, px, am):
+        out, cache, n = model.infer_text_prefill(ids, px, 80 + 10, am)
+        logits, toks = [out], [out[:, -1].argmax(-1)]
+        for _ in range(9):
+            out, cache, n = model.text_decode_logits(toks[-1], cache, n, am)
+            logits.append(out)
+            toks.append(out[:, -1].argmax(-1))
+        return torch.cat(logits, 1).cpu(), torch.stack(toks, 1).cpu()
+
+    ref = logits_and_tokens(cpu, *inputs)
+    _zero_counts()
+    out = logits_and_tokens(gpu, *(t.to(device) for t in inputs))
+    torch.cuda.synchronize()
+    launches = _counts()
+    err = (out[0] - ref[0]).abs().max().item()
+    n_layers = cfg["joint"]["config"]["num_hidden_layers"]
+    log(f"{label}: Pi-0 text, bridge_tiny widths, fp32, prompt 80 (row 1 padded by 7), 10 "
+        f"tokens, card vs CPU: logits max_abs_err={err:.3e} (tol {SMALL_TOL:g}), tokens equal "
+        f"{torch.equal(out[1], ref[1])}; kernel launches {launches} (expected {n_layers} of "
+        f"flash_attention)")
+    if not (err <= SMALL_TOL and torch.equal(out[1], ref[1])):
+        raise RuntimeError(f"{label}: the card's Pi-0 text differs from the CPU's: {err}")
+    if launches != {**{name: 0 for name in KERNEL_NAMES}, "flash_attention": n_layers}:
+        raise RuntimeError(f"{label}: launched {launches}")
+    config = PaliGemmaConfig(**SMALL_PALIGEMMA)
+    cpu = PaliGemmaForConditionalGeneration(config, device="cpu")
+    cpu.init_params(torch.Generator().manual_seed(1))
+    gpu = copy_lib.deepcopy(cpu).to(device)
+    n_img = config.vision_config.num_image_tokens
+    ids = _text_prompt(2, n_img + 12, n_img, config.image_token_index, 6) % 998
+    ids[:, :n_img] = config.image_token_index
+    px = np.random.RandomState(7).uniform(-1, 1, (2, 3, 56, 56)).astype(np.float32)
+    ref = cpu.prefill(torch.from_numpy(ids), torch.from_numpy(px), ids.shape[1] + 10)[0]
+    out = gpu.prefill(torch.from_numpy(ids).to(device), torch.from_numpy(px).to(device),
+                      ids.shape[1] + 10)[0].cpu()
+    err = (out - ref).abs().max().item()
+    toks_cpu = cpu.generate_fused(ids, px, 10)
+    _zero_counts()
+    toks_gpu = gpu.generate_fused(ids, px, 10)
+    launches_pg = _counts()
+    log(f"{label}: PaliGemma, fp32, prompt {ids.shape[1]}, 10 tokens, card vs CPU: prefill "
+        f"logits max_abs_err={err:.3e} (tol {SMALL_TOL:g}), generate_fused tokens equal "
+        f"{np.array_equal(toks_gpu, toks_cpu)}; kernel launches {launches_pg}")
+    if not (err <= SMALL_TOL and np.array_equal(toks_gpu, toks_cpu)):
+        raise RuntimeError(f"{label}: the card's PaliGemma differs from the CPU's: {err}")
+    if any(launches_pg.values()):
+        raise RuntimeError(f"{label}: PaliGemma launched {launches_pg}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -1782,6 +2414,7 @@ def main() -> int:
     kind = probe()
     build()
     flash = kernel_vs_plain(device)
+    kernel_text_vs_plain(device)
     int4 = int4_vs_plain(device)
     int8 = int8_vs_plain(device)
     server, cfg, image, proprio, launches, actions = served_control_steps(device)
@@ -1817,9 +2450,14 @@ def main() -> int:
         _free()
     eval_cli()
     small_agent_launches = small_agent_vs_cpu(device)
+    _free()
+    text_pi0_launches = text_pi0(device)
+    text_paligemma_launches = text_paligemma(device)
+    small_text_launches = small_text_vs_cpu(device)
     runs = (launches, checkpoint_launches, baseline_launches, w4a8_launches, int8_launches,
             cached_launches, experiment_launches, eval_launches, frame_launches,
-            async_launches, batched_launches, eval_w4a8_launches, small_agent_launches)
+            async_launches, batched_launches, eval_w4a8_launches, small_agent_launches,
+            text_pi0_launches, text_paligemma_launches, small_text_launches)
     total = {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
     measured = {"flash_attention": flash, "int4_matmul": int4, "int8_matmul": int8,
                 **experiments}

@@ -8,9 +8,12 @@ baseline preset's naive step, and from a .pt checkpoint it wrote) and drive
 it through the port's own ActionClient, import the experiment modules,
 resize an off-size frame on the native and the torch rungs, and run the eval
 agent (serial with the async pipeline, and batched) and the eval CLI on the
-fake env. Then a static check: no ``.py`` file of the port, nor
-``chip_smoke.py`` or the port's two CLIs, has an import whose top-level
-module is ``jax`` or ``blurr_tpu``.
+fake env, run a tiny Pi-0 text generation and a tiny PaliGemma
+``generate_fused``, write its weights as safetensors and load them back
+with ``load_hf_model``, and run the text demo's random mode. Then a static
+check: no ``.py`` file of the port, nor ``chip_smoke.py`` or the port's
+three CLIs, has an import whose top-level module is ``jax`` or
+``blurr_tpu``.
 """
 
 import ast
@@ -128,6 +131,35 @@ SCRIPT = textwrap.dedent(
             "--config", "config/eval/bridge_tiny.yaml", "--n-eval-episode", "1",
             "--num-inference-steps", "1", "--device", "cpu", "--log-dir", tmp + "/cli"])
         assert "Success rate: 1.0" in open(tmp + "/cli/run.log").read()
+    # the text path: Pi-0's text mode, PaliGemma, safetensors, the demo
+    from blurr_tpu_torch.models.paligemma.config import PaliGemmaConfig
+    from blurr_tpu_torch.models.paligemma.load import load_hf_model
+    from blurr_tpu_torch.models.paligemma.model import PaliGemmaForConditionalGeneration
+    from blurr_tpu_torch.models.pi0.checkpoint import paligemma_state_dict, save_safetensors
+    import demo_paligemma_text_torch
+    model = PiZero(load_config("config/eval/bridge_tiny.yaml"), device="cpu",
+                   dtype=torch.float32)
+    model.init_params(torch.Generator().manual_seed(0))
+    logits, cache, n = model.infer_text_prefill(ids, torch.zeros(1, 3, size, size),
+                                                ids.shape[1] + 2)
+    tok, cache, n = model.infer_text_decode_step(logits[:, -1].argmax(-1), cache, n)
+    assert tok.shape == (1,) and n == ids.shape[1] + 1
+    pg = PaliGemmaForConditionalGeneration(
+        PaliGemmaConfig(**demo_paligemma_text_torch.TINY_CONFIG), device="cpu")
+    pg.init_params(torch.Generator().manual_seed(0))
+    pg_ids = np.array([[260] * 4 + [5, 6, 7]])
+    toks = pg.generate_fused(pg_ids, np.zeros((1, 3, 28, 28), np.float32), 3)
+    assert toks.shape == (1, 3)
+    with tempfile.TemporaryDirectory() as tmp:  # safetensors out and in
+        save_safetensors(paligemma_state_dict(pg.embed_tokens, pg.vision_tower,
+                                              pg.multi_modal_projector, pg.vlm),
+                         tmp + "/model.safetensors")
+        import json
+        with open(tmp + "/config.json", "w") as f:
+            json.dump(demo_paligemma_text_torch.TINY_CONFIG, f)
+        back = load_hf_model(tmp, torch.float32, "cpu")
+        assert all(torch.equal(p, q) for p, q in zip(back.parameters(), pg.parameters()))
+    assert demo_paligemma_text_torch.main(["--device", "cpu", "--max-new-tokens", "2"]) == 0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "blurr_tpu"))
     assert all(sys.modules[m] is None for m in loaded), loaded
@@ -161,7 +193,8 @@ def _imported_top_levels(path: Path):
 
 PORT_FILES = sorted((REPO_ROOT / "blurr_tpu_torch").rglob("*.py")) + [
     REPO_ROOT / "chip_smoke.py", REPO_ROOT / "scripts" / "eval_pi0_simpler_torch.py",
-    REPO_ROOT / "scripts" / "serve_pi0_torch.py"]
+    REPO_ROOT / "scripts" / "serve_pi0_torch.py",
+    REPO_ROOT / "scripts" / "demo_paligemma_text_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))
