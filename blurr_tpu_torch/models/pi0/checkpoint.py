@@ -193,25 +193,25 @@ def check_tied(tree: Dict) -> None:
 
 @torch.no_grad()
 def copy_pairs(model: nn.Module, pairs: Iterable[Tuple[torch.Tensor, np.ndarray]]) -> None:
-    """Copy each (port tensor, numpy array) pair in place (a float array
-    cast to the tensor's device and dtype, int8 bytes copied as they are).
-    Raises on a dtype kind or shape mismatch and when a parameter or buffer
-    of ``model`` is left unset."""
+    """Copy each (port tensor, numpy array or CPU tensor) pair in place (a
+    float source cast to the tensor's device and dtype, int8 bytes copied as
+    they are). Raises on a dtype kind or shape mismatch and when a parameter
+    or buffer of ``model`` is left unset."""
     seen = set()
     for param, arr in pairs:
-        arr = np.asarray(arr)
-        if arr.dtype != np.int8 and (arr.dtype.kind != "f" or arr.dtype.itemsize < 4):
-            arr = arr.astype(np.float32)  # e.g. ml_dtypes bfloat16 (exact)
-        if (arr.dtype == np.int8) != (param.dtype == torch.int8):
-            raise ValueError(
-                f"dtype mismatch: JAX {arr.dtype} for a port tensor of {param.dtype}"
-            )
+        if not isinstance(arr, torch.Tensor):
+            arr = np.asarray(arr)
+            if arr.dtype != np.int8 and (arr.dtype.kind != "f" or arr.dtype.itemsize < 4):
+                arr = arr.astype(np.float32)  # e.g. ml_dtypes bfloat16 (exact)
+            arr = torch.from_numpy(np.array(arr))  # a writable copy
+        if (arr.dtype == torch.int8) != (param.dtype == torch.int8):
+            raise ValueError(f"dtype mismatch: {arr.dtype} for a port tensor of {param.dtype}")
         if tuple(arr.shape) != tuple(param.shape):
             raise ValueError(
-                f"shape mismatch: JAX {arr.shape} for a port parameter of "
+                f"shape mismatch: {tuple(arr.shape)} for a port parameter of "
                 f"shape {tuple(param.shape)}"
             )
-        param.copy_(torch.from_numpy(np.array(arr)))  # a writable copy
+        param.copy_(arr)
         seen.add(id(param))
     missing = [
         n for n, p in [*model.named_parameters(), *model.named_buffers()]

@@ -85,6 +85,12 @@ class ActionServer:
             1, self.model.spec.num_action_tokens, self.model.spec.action_dim
         )
         self._checkpoint_desc = str(checkpoint_path or "random")
+        self._init_runtime()
+
+    def _init_runtime(self) -> None:
+        """The request state every server shares: the device lock and the
+        request index, the tokenization cache, the socket and the counters
+        (JAX ``ActionServer._init_runtime``, on the single-request path)."""
         self._req_idx = 0
         self._lock = threading.Lock()  # device stream + request index
         self._tok_cache = {}
@@ -146,26 +152,35 @@ class ActionServer:
         return prng.normal(key, self._noise_shape, self.dtype, self.device)
 
     def _step(self, ids, am, px, pr, request_idx: int) -> np.ndarray:
+        """The device work of one request: the action chunk [1, horizon,
+        action_dim] on the host (the fetch waits for the device)."""
         noise = self.noise(request_idx)
         infer = self.model.infer_action if self.prefix_cache else self.model.infer_action_naive
         actions = infer(ids, am, px, pr, noise)
-        return actions[0].float().cpu().numpy()  # waits for the device
+        return actions.float().cpu().numpy()
+
+    def _post(self, out: np.ndarray) -> np.ndarray:
+        """``_step``'s output [B, ...] -> the answers [B, ...] (host side).
+        Pi-0's chunk is already continuous; the OpenVLA server detokenizes
+        (and unnormalizes) here."""
+        return out.astype(np.float32)
+
+    def _dummy_request(self):
+        """(image, instruction, proprio) of the warmup request."""
+        size = self._image_size
+        return (np.zeros((size, size, 3), np.uint8), "warmup", [0.0] * self._proprio_dim)
 
     def warmup(self) -> float:
         """Run one dummy request (builds the kernels on first use); returns
         the seconds it took. It does not count as a request."""
         t0 = time.monotonic()
-        size = self._image_size
-        inputs = self._prepare(
-            np.zeros((size, size, 3), np.uint8), "warmup",
-            [0.0] * self._proprio_dim,
-        )
+        inputs = self._prepare(*self._dummy_request())
         with self._lock:
-            self._step(*inputs, request_idx=0)
+            self._post(self._step(*inputs, request_idx=0))
         return time.monotonic() - t0
 
     def predict(self, image: np.ndarray, instruction: str, proprio) -> np.ndarray:
-        """One control step; counts requests and errors and records the
+        """One request; counts requests and errors and records the
         end-to-end (prepare + device + fetch) latency for ``stats()``."""
         t0 = time.monotonic()
         try:
@@ -173,7 +188,7 @@ class ActionServer:
             with self._lock:
                 idx = self._req_idx
                 self._req_idx += 1
-                result = self._step(*inputs, request_idx=idx)
+                result = self._post(self._step(*inputs, request_idx=idx))[0]
         except Exception:
             with self._stats_lock:
                 self._n_errors += 1

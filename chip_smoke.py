@@ -207,9 +207,61 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              80-token prompt so the prefill takes K1, a padded row) and a
              small PaliGemma, each on the card against the CPU: tokens equal,
              logits within SMALL_TOL.
+24. kernel-openvla - K2 against its plain version at every shape of the
+             OpenVLA family's w4a8 path, as (M, K, N_pad, G): OpenVLA-7B's
+             q/k/v/o, gate/up, down (G 43 of 256 rows) and head at M 1 (a
+             decode token), M 288 (the prefill) and M 6 (a Jacobi sweep),
+             OFT's M 346 (a partial row block), MiniVLA's at M 1 and M 288
+             (G 7 of 128 rows at K 896, G 19 at K 4864, the tied head); each
+             within INT4_REL_TOL and the same bits on a second call, its
+             grid and S logged, its graph_ms beside its bytes bound and a
+             bf16 matmul of the dense weight. Phases 25-30 record every
+             shape the w4a8 linears give K2; after them, served-int4-shapes
+             holds any that this list missed the same way.
+25. serve-openvla-7b - OpenVLAActionServer("random-7b") in bf16, random
+             weights drawn on the card: 5 requests at 224x224 and one
+             256x320 frame through ActionClient, each answer 7 finite
+             actions in [-1, 1], no kernel of the port launched (the ViTs
+             and LLaMA attend in plain PyTorch, as JAX does in XLA); the
+             median request time, the resident bytes, one request's device
+             time under torch.profiler.
+26. serve-openvla-7b-w4a8 - the same server w4a8 (the LLM drawn quantized):
+             K2 exactly 1,575 times a request (7 tokens x (32 x 7 + the
+             head)); the first token's logits through K2 against the same
+             prefill with every product on int4_matmul_reference, within
+             INT4_REL_TOL of the largest |logit|; then decode "jacobi": K2
+             225 x (1 + sweeps) a request (the sweeps logged), its tokens
+             against AR's, any difference explained by the AR step's top-2
+             margin (within JACOBI_REL_MARGIN of its largest |logit|), its
+             logits at the fixed point against the AR steps' within
+             JACOBI_LOGIT_REL_TOL up to the first difference; and one decode
+             from a guess away from the fixed point: two sweeps or more,
+             the same checks. The planted faults of JACOBI_FAULTS are read
+             and logged (not checked: see phase 31).
+27. serve-openvla-7b-w8a8 - the same server w8a8 (torch._int_mm), no K2.
+28. serve-openvla-oft - OFT at 7B, w4a8, with proprio: [8, 7] chunks, K2
+             224 times a request (one forward at M 346, no head); a chunk
+             through K2 against the plain route within INT4_REL_TOL.
+29. serve-minivla - random-minivla in bf16 (no K2) and w4a8 (its tied head
+             quantized: K2 1,183 times a request; the first token's logits
+             through K2 against the plain route).
+30. openvla-snapshot - OpenVLA-7B's widths at 2 LLaMA layers and 2 + 2 ViT
+             blocks, bf16, written as an HF-keyed snapshot with
+             blurr_spec.json and dataset_statistics.json, loaded by
+             build_openvla from the directory: the same bits, and its
+             answers under unnorm_key bridge_orig bit-equal to the model's
+             built in memory.
+31. jacobi-fp32 - OpenVLA-7B at full width and depth in fp32, unquantized:
+             Jacobi's logits at the fixed point against the AR steps'
+             within JACOBI_FP32_REL_TOL (bf16 at w4a8 cannot tell planted
+             faults from rounding), three frames, cold and from a guess
+             away (two sweeps or more); each planted fault of
+             JACOBI_FAULTS (tail positions shifted, the tail's mask wrong)
+             must read over that bound.
 Then one JSON line of the kernels (launches summed over the six served
-runs, the experiments run, the eval runs of phases 14-18 and 20 and the
-text runs of phases 21-23, the counts set to 0 just before each; errors
+runs, the experiments run, the eval runs of phases 14-18 and 20, the text
+runs of phases 21-23 and the OpenVLA runs of phases 25-30, the counts set
+to 0 just before each; errors
 and times measured here: ms and plain_ms with CUDA events, graph_ms and
 plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
 function where there is one, at the first timed shape of each kernel;
@@ -613,29 +665,33 @@ def kernel_text_vs_plain(device) -> None:
             f"on {smi}")
 
 
+def _int4_inputs(g: torch.Generator, m, k, n, groups, bn=None):
+    """Random K2 inputs on the generator's device: int8 x [M, K], int4
+    values [K, N_pad] packed block-major as pick_block_layout(N) gives (or
+    at block width ``bn``, N then N_pad), and fp32 scales [G, N_pad] of the
+    size the w4a8 quantizer gives Pi-0's weights. Returns (x, packed,
+    scale, the int4 values as int8)."""
+    from blurr_tpu_torch.ops.int4_matmul import pack_int4, pick_block_layout, to_block_major
+
+    device = g.device
+    bn, n_pad = pick_block_layout(n) if bn is None else (bn, n)
+    q = torch.randint(-8, 8, (k, n_pad), dtype=torch.int8, device=device, generator=g)
+    x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=device, generator=g)
+    s = torch.rand(groups, n_pad, device=device, generator=g) * 2e-3 + 1e-4
+    return x, to_block_major(pack_int4(q), bn), s, q
+
+
 def int4_vs_plain(device) -> dict:
     """The int4 kernel against its plain version at every w4a8 shape of the
     step, the same bits on a second call (its split of K and grid logged),
     then timed beside the plain version and a bf16 matmul of the dense
     weight (the yardstick: whether int4 pays on this card)."""
-    from blurr_tpu_torch.ops.int4_matmul import (
-        grid,
-        int4_matmul,
-        int4_matmul_reference,
-        pack_int4,
-        pick_block_layout,
-        to_block_major,
-    )
+    from blurr_tpu_torch.ops.int4_matmul import grid, int4_matmul, int4_matmul_reference
 
     g = torch.Generator(device=device).manual_seed(1)
 
     def inputs(m, k, n, groups):
-        bn, n_pad = pick_block_layout(n)
-        q = torch.randint(-8, 8, (k, n_pad), dtype=torch.int8, device=device, generator=g)
-        x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=device, generator=g)
-        # scales of the size the w4a8 quantizer gives Pi-0's weights
-        s = torch.rand(groups, n_pad, device=device, generator=g) * 2e-3 + 1e-4
-        return x, to_block_major(pack_int4(q), bn), s, q
+        return _int4_inputs(g, m, k, n, groups)
 
     worst = 0.0
     bounds = {}
@@ -1214,10 +1270,11 @@ def _step_median(server, image, proprio, label) -> None:
         f"min {min(times):.3f} over {len(times)} (host clock, synchronized)")
 
 
-def _step_device_time(server, image, proprio, label, *names) -> None:
+def _step_device_time(server, image, proprio, label, *names, top: int = 0) -> None:
     """One control step under torch.profiler (CUDA activity only): the
     device time of all its kernels and of those of each of ``names`` (the
-    names of the port's kernels, e.g. "int4_matmul")."""
+    names of the port's kernels, e.g. "int4_matmul"); with ``top``, the
+    ``top`` kernels launched most often, each with its count and time."""
     from torch.profiler import ProfilerActivity, profile
 
     inputs = server._prepare(image, "put the spoon on the towel", proprio)
@@ -1234,6 +1291,10 @@ def _step_device_time(server, image, proprio, label, *names) -> None:
                       f"({', '.join(f'{e.key[:48]} x{e.count}' for e in ours)})")
     log(f"{label}: one control step under torch.profiler: device time {total_ms:.3f} ms over "
         f"{sum(e.count for e in kernels)} kernels; of it {'; '.join(shares)}")
+    if top:
+        most = sorted(kernels, key=lambda e: -e.count)[:top]
+        log(f"{label}: the {top} kernels launched most often: " + "; ".join(
+            f"{e.key[:72]} x{e.count} {e.self_device_time_total / 1000.0:.3f} ms" for e in most))
     if not total_ms > 0:
         raise RuntimeError("the profiler saw no device time")
 
@@ -2404,6 +2465,558 @@ def small_text_vs_cpu(device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The OpenVLA family (phases 24-30)
+# ---------------------------------------------------------------------------
+
+# (M, K, N_pad, G) of K2 on the OpenVLA family's w4a8 path: OpenVLA-7B's
+# q/k/v/o (N 4096 -> 4224), gate/up (11008 -> 11264), down (K 11008, G 43 of
+# 256 rows) and head (32064 -> 32384) at the decode's M 1 and the prefill's
+# M 288 (1 BOS + 256 patches + 31 text tokens); the Jacobi sweep's M 6 (its
+# head at M 6 too: every tail position is verified); OFT's
+# one forward at M 346 (288 + proprio + the empty token + 56 placeholders: a
+# partial fourth block of 96 rows); MiniVLA's (Qwen2.5-0.5B) at M 1 and at
+# its prefill's M 288 (256 patches + 32 text tokens): q/o and k/v at BN 128
+# (K 896, G 7 of 128 rows, two groups to a 256-row chunk), gate/up at BN
+# 256, down (K 4864, G 19) and the tied head. The served phases record every
+# shape the w4a8 linears give K2, and any not listed here is held too.
+OPENVLA_INT4_SHAPES = [
+    (1, 4096, 4224, 8), (1, 4096, 11264, 8), (1, 11008, 4224, 43), (1, 4096, 32384, 8),
+    (288, 4096, 4224, 8), (288, 4096, 11264, 8), (288, 11008, 4224, 43),
+    (288, 4096, 32384, 8),
+    (6, 4096, 4224, 8), (6, 4096, 11264, 8), (6, 11008, 4224, 43), (6, 4096, 32384, 8),
+    (346, 4096, 4224, 8), (346, 4096, 11264, 8), (346, 11008, 4224, 43),
+    (1, 896, 896, 7), (1, 896, 128, 7), (1, 896, 4864, 7), (1, 4864, 896, 19),
+    (1, 896, 32384, 7),
+    (288, 896, 896, 7), (288, 896, 128, 7), (288, 896, 4864, 7), (288, 4864, 896, 19),
+]
+OPENVLA_FRAMES = 5  # requests at 224x224; then one off-size 256x320 frame
+OPENVLA_INSTRUCTION = "put the spoon on the towel"
+# K2 launches per request, counted from the code: 7 tokens x (32 layers x 7
+# products + the quantized head); OFT's one forward has no head; MiniVLA's
+# 24 layers and its tied head quantized
+OPENVLA_FORWARD_LAUNCHES = 32 * 7 + 1
+OPENVLA_AR_LAUNCHES = 7 * OPENVLA_FORWARD_LAUNCHES  # 1575
+OPENVLA_OFT_LAUNCHES = 32 * 7  # 224
+MINIVLA_AR_LAUNCHES = 7 * (24 * 7 + 1)  # 1183
+# Jacobi's tokens against AR's, bf16 on the card: at the first position
+# where they differ, the AR step's top-2 logit margin must be within this
+# share of its largest |logit| (4 bf16 roundings of it): a multi-token
+# forward may then round its way to the other token. Beyond the first
+# difference the two chains condition on different tokens.
+JACOBI_REL_MARGIN = 2.0**-6
+# Jacobi's logits at the fixed point against the AR steps', as a share of
+# the AR logits' largest |value|: up to the first token where the two
+# differ, every position's logits must agree within it. In bf16 at w4a8
+# (3.5 ulps of the largest logit), sound code read 0 in all but one of ~40
+# frames over four H100 runs and one ulp (4.5e-3) in that one, the bits of a
+# run's prefill differing between machines; but planted faults read the
+# same one ulp there (tail positions one late, one early or from 0, a mask
+# showing each row the next column or hiding the prompt): those random
+# int8 weights leave the logits almost blind to positions. So the bf16
+# bound only guards against gross numerics, and the fp32 bound below does
+# the work: OpenVLA-7B at full width and depth in fp32, unquantized, where
+# sound code read at most 9.6e-7 and the faults 4.5e-3 to 1.4.
+JACOBI_LOGIT_REL_TOL = 2.0**-6
+JACOBI_FP32_REL_TOL = 2.0**-14
+# the faults planted in a copy of greedy_generate_jacobi (one line of its
+# source replaced, the copy run in its module's namespace, the original
+# put back): (what was planted, the line, its faulty form)
+JACOBI_FAULTS = (
+    ("tail positions one late", "tail_pos = n_valid[:, None] + tail[None, :]",
+     "tail_pos = n_valid[:, None] + tail[None, :] + 1"),
+    ("tail positions one early", "tail_pos = n_valid[:, None] + tail[None, :]",
+     "tail_pos = n_valid[:, None] + tail[None, :] - 1"),
+    ("tail positions from 0", "tail_pos = n_valid[:, None] + tail[None, :]",
+     "tail_pos = tail[None, :].expand(b, t)"),
+    ("the mask shows each row the next column", "(cols[None, None, :] <= (s + tail)[None, :, None])",
+     "(cols[None, None, :] <= (s + tail + 1)[None, :, None])"),
+    ("the mask hides the prompt", "& valid_cols).expand(b, t, max_len)",
+     "& valid_cols & (cols >= s)[None, None, :]).expand(b, t, max_len)"),
+)
+# the shallow snapshot of phase 30: full widths, 2 LLaMA layers, 2 + 2 ViT
+# blocks run (3 each stored in the spec, feature_layer -2)
+SNAPSHOT_STATS = {"bridge_orig": {"action": {"q01": [-0.5] * 7, "q99": [0.5] * 7,
+                                             "mask": [True] * 6 + [False]}}}
+
+
+def _hold_int4(g, shape, bn, label) -> None:
+    """K2 at (M, K, N_pad, G) and block width ``bn`` against its plain
+    version, the same bits on a second call (within INT4_REL_TOL of the
+    largest output, as int4_vs_plain), its grid and split of K logged, timed
+    in a CUDA graph beside its bytes bound and a bf16 matmul of the dense
+    weight."""
+    from blurr_tpu_torch.ops.int4_matmul import grid, int4_matmul, int4_matmul_reference
+
+    m, k, n, groups = shape
+    x, packed, s, q = _int4_inputs(g, *shape, bn=bn)
+    out = int4_matmul(x, packed, s)
+    again = torch.equal(out, int4_matmul(x, packed, s))
+    ref = int4_matmul_reference(x, packed, s)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = INT4_REL_TOL * ref.abs().max().item()
+    blocks = grid(m, k, n, groups)
+    graph = _graph_ms(lambda: int4_matmul(x, packed, s))
+    least = _bound((x, packed, s), (out,), 2 * m * k * n, "int8")
+    xb, wb = x.bfloat16(), q.bfloat16()
+    dense = _graph_ms(lambda: torch.matmul(xb, wb))
+    log(f"{label}: int4_matmul (M, K, N, G)={shape} BN {packed.shape[2]} "
+        f"max_abs_err={err:.3e} bit-equal={torch.equal(out, ref)} (bound {tol:.3e}), "
+        f"same bits on a second call {again}; S={blocks[1]} slices of K, grid {blocks}; "
+        f"graph_ms {graph:.5f}, bound {least['bound_ms']:.5f} ms ({least['bound_by']}), "
+        f"bf16 matmul of the dense weight graph_ms {dense:.5f}; on {card()}")
+    if not (torch.isfinite(out).all() and err <= tol and again):
+        raise RuntimeError(f"{label}: K2 disagrees with its plain version at {shape}")
+
+
+def int4_openvla_vs_plain(device) -> set:
+    """K2 at every listed OpenVLA-family shape (``_hold_int4``), at the
+    block width pick_block_layout gives it. Returns the (M, K, N_pad, G,
+    BN) held."""
+    from blurr_tpu_torch.ops.int4_matmul import pick_block_layout
+
+    g = torch.Generator(device=device).manual_seed(2)
+    held = set()
+    for shape in OPENVLA_INT4_SHAPES:
+        bn = pick_block_layout(shape[2])[0]
+        _hold_int4(g, shape, bn, "kernel-openvla")
+        held.add((*shape, bn))
+    torch.cuda.empty_cache()
+    return held
+
+
+class _RecordInt4Shapes:
+    """While entered, the (M, K, N_pad, G, BN) of every call the w4a8
+    linears make to K2 (``quant.int4_matmul`` wrapped; the wrapper under it
+    still counts its launches)."""
+
+    def __init__(self):
+        self.seen = set()
+
+    def __enter__(self):
+        from blurr_tpu_torch.ops import quant
+
+        self.inner = inner = quant.int4_matmul
+
+        def recording(x, packed, scale):
+            self.seen.add((x.shape[0], x.shape[1], scale.shape[1], scale.shape[0],
+                           packed.shape[2]))
+            return inner(x, packed, scale)
+
+        quant.int4_matmul = recording
+        return self
+
+    def __exit__(self, *exc):
+        from blurr_tpu_torch.ops import quant
+
+        quant.int4_matmul = self.inner
+
+
+def served_int4_vs_plain(device, seen: set, held: set) -> None:
+    """Every shape the served OpenVLA phases gave K2 held against its plain
+    version: those kernel-openvla did not hold are held here."""
+    g = torch.Generator(device=device).manual_seed(3)
+    missing = sorted(seen - held)
+    log(f"served-int4-shapes: the OpenVLA phases gave K2 {len(seen)} shapes "
+        f"(M, K, N_pad, G, BN) {sorted(seen)}; {len(missing)} not held by "
+        f"kernel-openvla{f': {missing}' if missing else ''}")
+    for *shape, bn in missing:
+        _hold_int4(g, tuple(shape), bn, "served-int4-shapes")
+    torch.cuda.empty_cache()
+
+
+def _openvla_frames():
+    rng = np.random.RandomState(0)
+    return ([rng.randint(0, 256, (224, 224, 3), np.uint8) for _ in range(OPENVLA_FRAMES)]
+            + [rng.randint(0, 256, (256, 320, 3), np.uint8)])
+
+
+def _openvla_server(label, model_id, device, **kw):
+    from blurr_tpu_torch.serving.openvla_server import OpenVLAActionServer
+
+    t0 = time.monotonic()
+    server = OpenVLAActionServer(model_id, device=device, **kw)
+    torch.cuda.synchronize()
+    model = server.model
+    log(f"{label}: {model_id} {kw}, {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"fp parameters, built on the card in {time.monotonic() - t0:.2f} s; "
+        f"resident parameters and buffers {resident_bytes(model)} B (LLM "
+        f"{resident_bytes(model.llama)} B), allocated {torch.cuda.memory_allocated()} B")
+    return server
+
+
+def _serve_openvla(server, label, int4_per_request: int, proprio=None):
+    """The frames through the port's ActionClient with the counts set to 0
+    just before (after a warmup): each answer finite, [action_dim] in
+    [-1, 1] (OFT: a [chunk_len, action_dim] chunk), K2 launched exactly
+    ``int4_per_request`` times a request and no other kernel. Returns the
+    counts and the answers."""
+    from blurr_tpu_torch.serving.client import ActionClient
+
+    frames = _openvla_frames()
+    ready = threading.Event()
+    thread = threading.Thread(target=server.serve_forever,
+                              kwargs={"port": 0, "ready_event": ready}, daemon=True)
+    thread.start()
+    try:
+        if not ready.wait(60):
+            raise RuntimeError("server did not start listening")
+        log(f"{label}: warmup {server.warmup():.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        latencies, answers = [], []
+        with ActionClient(port=server.port) as client:
+            for frame in frames:
+                t = time.monotonic()
+                answers.append(client.predict(frame, OPENVLA_INSTRUCTION,
+                                              proprio if proprio is not None else [0.0] * 7))
+                latencies.append((time.monotonic() - t) * 1000.0)
+            stats = client.stats()
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.stop()
+        thread.join(30)
+    if thread.is_alive():
+        raise RuntimeError("server thread did not stop")
+    want = (server.model.chunk_len, 7) if server.oft else (7,)
+    for a in answers:
+        if a.shape != want or not np.isfinite(a).all() or (
+                not server.oft and np.abs(a).max() > 1.0):
+            raise RuntimeError(f"{label}: bad answer {a.shape}: {a}")
+    if stats["requests_total"] != len(frames):
+        raise RuntimeError(f"{label}: {stats['requests_total']} requests served")
+    log(f"{label}: {len(frames)} requests ({OPENVLA_FRAMES} at 224x224, one 256x320), latency "
+        f"ms per request (client) {[round(x, 3) for x in latencies]}, median "
+        f"{float(np.median(latencies)):.3f} ms, server p50 {stats.get('latency_ms_p50')} ms, "
+        f"peak memory {peak} B (host clock, on {card()})")
+    log(f"{label}: first answer {np.round(answers[0], 4).tolist()}")
+    expected = int4_per_request * len(frames)
+    log(f"{label}: int4_matmul launches {launches['int4_matmul']} (expected {expected} = "
+        f"{int4_per_request} per request x {len(frames)})")
+    if launches != {**{name: 0 for name in KERNEL_NAMES}, "int4_matmul": expected}:
+        raise RuntimeError(f"{label}: launched {launches}")
+    return launches, answers
+
+
+def served_openvla_7b(device) -> dict:
+    """OpenVLA-7B in bf16 at full width: no kernel of the port on its path
+    (the ViTs and LLaMA attend in plain PyTorch, as JAX does in XLA)."""
+    label = "serve-openvla-7b"
+    server = _openvla_server(label, "random-7b", device)
+    launches, _ = _serve_openvla(server, label, 0)
+    frame = _openvla_frames()[0]
+    _step_median(server, frame, None, label)
+    _step_device_time(server, frame, None, label, "int4_matmul", top=16)
+    del server
+    _free()
+    return launches
+
+
+def _first_logits(server, frame) -> torch.Tensor:
+    """The logits of the first action token for ``frame`` (fp32 [V])."""
+    from blurr_tpu_torch.models.openvla.llama import greedy_generate
+
+    ids, am, px = server._prepare(frame, OPENVLA_INSTRUCTION)
+    _, logits = greedy_generate(server.model.llama, *server.model._inputs(ids, px, am), 1,
+                                return_logits=True)
+    return logits[0, 0].float()
+
+
+def _k2_vs_plain(label, what, fn) -> None:
+    """``fn()`` (a tensor) through K2 against the same call with every w4a8
+    product on int4_matmul_reference (the launches are not counted): both
+    sum exact group dots in group order, so any difference is a finding,
+    bounded by INT4_REL_TOL of the largest |value|."""
+    from blurr_tpu_torch.ops import int4_matmul as int4_mod
+    from blurr_tpu_torch.ops import quant
+
+    kernel = fn().float()
+    inner = quant.int4_matmul
+    quant.int4_matmul = int4_mod.int4_matmul_reference
+    try:
+        plain = fn().float()
+    finally:
+        quant.int4_matmul = inner
+    err = (kernel - plain).abs().max().item()
+    bound = INT4_REL_TOL * plain.abs().max().item()
+    log(f"{label}: {what} through K2 against every product on int4_matmul_reference: "
+        f"max_abs_err={err:.3e} (bound {bound:.3e}), bit-equal {torch.equal(kernel, plain)}, "
+        f"argmax {int(kernel.argmax())} vs {int(plain.argmax())}")
+    if not (torch.isfinite(kernel).all() and err <= bound):
+        raise RuntimeError(f"{label}: {what} through K2 differ from the plain route's: {err}")
+
+
+def _openvla_k2_vs_plain(server, label) -> None:
+    """The first action token's logits through K2 against the plain route."""
+    frame = _openvla_frames()[0]
+    _k2_vs_plain(label, "the first token's logits", lambda: _first_logits(server, frame))
+
+
+def _jacobi_vs_ar(model, inputs, init_guess=None) -> dict:
+    """One Jacobi decode of 7 tokens (its sweeps and launches counted from
+    0) and the AR decode on the same inputs: the tokens, the first position
+    where they differ (7 where none), and the largest |difference| of their
+    logits up to that position (Jacobi's at the fixed point: the last
+    sweep's) beside the AR logits' largest |value|, the difference's rms as
+    a share of theirs, and the share of logits that differ at all."""
+    from blurr_tpu_torch.models.openvla.llama import greedy_generate, greedy_generate_jacobi
+
+    _zero_counts()
+    jac, sweeps, jac_lg = greedy_generate_jacobi(model.llama, *inputs, 7, init_guess=init_guess,
+                                                 return_iters=True, return_logits=True)
+    counts = _counts()
+    ar, ar_lg = greedy_generate(model.llama, *inputs, 7, return_logits=True)
+    jt, at = jac[0].tolist(), ar[0].tolist()
+    first = next((j for j in range(7) if jt[j] != at[j]), 7)
+    upto = min(first + 1, 7)
+    a, d = ar_lg[0, :upto].float(), jac_lg[0, :upto].float() - ar_lg[0, :upto].float()
+    return {"jac": jt, "ar": at, "sweeps": sweeps, "counts": counts, "first": first,
+            "logit_err": d.abs().max().item(), "scale": a.abs().max().item(),
+            "rms": (d.square().mean().sqrt() / a.square().mean().sqrt()).item(),
+            "frac": (d != 0).float().mean().item(),
+            "ar_logits": ar_lg[0].float(), "ar_tokens": ar}
+
+
+def _planted_jacobi_faults():
+    """Yields the name of each JACOBI_FAULTS entry while the faulty copy of
+    ``greedy_generate_jacobi`` stands in its module."""
+    import inspect
+
+    from blurr_tpu_torch.models.openvla import llama as llama_mod
+
+    good = llama_mod.greedy_generate_jacobi
+    src = inspect.getsource(good)
+    for name, line, faulty in JACOBI_FAULTS:
+        if line not in src:
+            raise RuntimeError(f"planted fault {name!r}: {line!r} is not in the source")
+        exec(compile(src.replace(line, faulty), llama_mod.__file__, "exec"), llama_mod.__dict__)
+        try:
+            yield name
+        finally:
+            llama_mod.greedy_generate_jacobi = good
+
+
+def _fault_readings(label, model, inputs, bound=None) -> None:
+    """Each planted fault's logits against AR's steps, logged; with
+    ``bound``, each must read over it (the check catches it)."""
+    for name in _planted_jacobi_faults():
+        r = _jacobi_vs_ar(model, inputs)
+        rel = r["logit_err"] / r["scale"]
+        log(f"{label}: planted fault ({name}): logits against AR's steps {rel:.3e} of the "
+            f"largest |logit| (rms {r['rms']:.3e}, {r['frac']:.3e} of them differ), "
+            f"{r['sweeps']} sweeps, tokens equal to AR {r['first'] == 7}")
+        if bound is not None and not rel > bound:
+            raise RuntimeError(f"{label}: the planted fault ({name}) reads {rel}, within "
+                               f"the bound {bound}")
+
+
+def _check_jacobi(label, r, what, per_forward=OPENVLA_FORWARD_LAUNCHES,
+                  rel_tol=JACOBI_LOGIT_REL_TOL) -> None:
+    """K2 launched ``per_forward`` x (1 + sweeps) times; the logits within
+    ``rel_tol`` up to the first difference; a difference only where the AR
+    step's top-2 margin is within JACOBI_REL_MARGIN."""
+    expected = per_forward * (1 + r["sweeps"])
+    step = r["ar_logits"][min(r["first"], 6)]
+    top = step.topk(2).values
+    margin = (top[0] - top[1]).item()
+    bound = JACOBI_REL_MARGIN * step.abs().max().item()
+    logit_bound = rel_tol * r["scale"]
+    first = r["first"]
+    diff = first < 7
+    log(f"{label}: jacobi {what}: {r['sweeps']} sweeps, int4_matmul launches "
+        f"{r['counts']['int4_matmul']} (expected {expected}); tokens equal to AR {not diff}"
+        f"{f' up to position {first}' if diff else ''}; "
+        f"logits against AR's steps max_abs_err {r['logit_err']:.3e} (bound {logit_bound:.3e}, "
+        f"{r['logit_err'] / r['scale']:.3e} of the largest |logit|; rms {r['rms']:.3e}, "
+        f"{r['frac']:.3e} of them differ); AR top-2 margin "
+        f"{margin:.4f} at step {min(first, 6)} (bound {bound:.4f} where they differ)")
+    if r["counts"] != {**{n: 0 for n in KERNEL_NAMES}, "int4_matmul": expected}:
+        raise RuntimeError(f"{label}: jacobi {what} launched {r['counts']}")
+    if not r["logit_err"] <= logit_bound:
+        raise RuntimeError(f"{label}: jacobi {what}: logits {r['logit_err']} from AR's "
+                           f"steps, over {logit_bound}")
+    if diff and not margin <= bound:
+        raise RuntimeError(f"{label}: jacobi {what} differs from AR at {first} with a "
+                           f"top-2 margin {margin} over {bound}")
+
+
+def _openvla_jacobi(server, label) -> dict:
+    """The same server with decode 'jacobi': each frame served (K2 exactly
+    225 x (1 + sweeps) times), its tokens those of a direct Jacobi decode
+    (``_jacobi_vs_ar``, checked by ``_check_jacobi``); then one frame from a
+    guess away from the fixed point (every token the AR one + 1), so two
+    sweeps or more run. The planted faults of JACOBI_FAULTS are read on the
+    first frame and logged. Returns the served requests' counts."""
+    server.decode = "jacobi"
+    model = server.model
+    total = {name: 0 for name in KERNEL_NAMES}
+    for i, frame in enumerate(_openvla_frames()):
+        _zero_counts()
+        served = server.predict(frame, OPENVLA_INSTRUCTION, [0.0] * 7)
+        counts = _counts()
+        total = {name: total[name] + counts[name] for name in KERNEL_NAMES}
+        ids, am, px = server._prepare(frame, OPENVLA_INSTRUCTION)
+        r = _jacobi_vs_ar(model, model._inputs(ids, px, am))
+        if counts != r["counts"]:
+            raise RuntimeError(f"{label}: served jacobi launched {counts}, direct {r['counts']}")
+        _check_jacobi(label, r, f"frame {i}")
+        if not np.array_equal(served, server._post(np.asarray([r["jac"]]))[0]):
+            raise RuntimeError(f"{label}: the served jacobi answer is not its tokens'")
+    ids, am, px = server._prepare(_openvla_frames()[0], OPENVLA_INSTRUCTION)
+    inputs = model._inputs(ids, px, am)
+    _fault_readings(label, model, inputs)  # read, not checked: see JACOBI_LOGIT_REL_TOL
+    ar = _jacobi_vs_ar(model, inputs)["ar_tokens"]
+    r = _jacobi_vs_ar(model, inputs, init_guess=(ar + 1) % model.spec.llama.vocab_size)
+    _check_jacobi(label, r, "from a guess away from the fixed point")
+    if r["sweeps"] < 2:
+        raise RuntimeError(f"{label}: a guess away from the fixed point took {r['sweeps']} sweep")
+    server.decode = "ar"
+    return total
+
+
+def served_openvla_7b_w4a8(device) -> dict:
+    """OpenVLA-7B w4a8 (drawn quantized on the card): every LLM product and
+    the head through K2, AR and Jacobi."""
+    from blurr_tpu_torch.ops.quant import W4A8Linear
+
+    label = "serve-openvla-7b-w4a8"
+    server = _openvla_server(label, "random-7b", device, quantization="w4a8")
+    n_int4 = sum(isinstance(m, W4A8Linear) for m in server.model.llama.modules())
+    if n_int4 != OPENVLA_FORWARD_LAUNCHES:
+        raise RuntimeError(f"{label}: {n_int4} w4a8 linears, not {OPENVLA_FORWARD_LAUNCHES}")
+    launches, _ = _serve_openvla(server, label, OPENVLA_AR_LAUNCHES)
+    frame = _openvla_frames()[0]
+    _step_median(server, frame, None, label)
+    _step_device_time(server, frame, None, label, "int4_matmul", top=16)
+    _openvla_k2_vs_plain(server, label)
+    jacobi = _openvla_jacobi(server, label)
+    del server
+    _free()
+    return {name: launches[name] + jacobi[name] for name in KERNEL_NAMES}
+
+
+def jacobi_fp32(device) -> None:
+    """OpenVLA-7B at full width and depth in fp32, unquantized (no kernel of
+    the port): Jacobi's logits at the fixed point against the AR steps'
+    within JACOBI_FP32_REL_TOL, on three frames from a cold start and from
+    a guess away from the fixed point; each decode's tokens AR's, or apart
+    only where AR's top-2 margin allows; and every planted fault of
+    JACOBI_FAULTS reading over the bound on the first frame."""
+    label = "jacobi-fp32"
+    server = _openvla_server(label, "random-7b", device, use_bf16=False)
+    model = server.model
+    for i, frame in enumerate(_openvla_frames()[:3]):
+        ids, am, px = server._prepare(frame, OPENVLA_INSTRUCTION)
+        inputs = model._inputs(ids, px, am)
+        r = _jacobi_vs_ar(model, inputs)
+        _check_jacobi(label, r, f"frame {i}", 0, JACOBI_FP32_REL_TOL)
+        away = (r["ar_tokens"] + 1) % model.spec.llama.vocab_size
+        r = _jacobi_vs_ar(model, inputs, init_guess=away)
+        _check_jacobi(label, r, f"frame {i} from a guess away", 0, JACOBI_FP32_REL_TOL)
+        if r["sweeps"] < 2:
+            raise RuntimeError(f"{label}: a guess away from the fixed point took {r['sweeps']} sweep")
+        if i == 0:
+            _fault_readings(label, model, inputs, JACOBI_FP32_REL_TOL)
+    del server, model
+    _free()
+
+
+def served_openvla_7b_w8a8(device) -> dict:
+    label = "serve-openvla-7b-w8a8"
+    server = _openvla_server(label, "random-7b", device, quantization="w8a8")
+    launches, _ = _serve_openvla(server, label, 0)
+    frame = _openvla_frames()[0]
+    _step_median(server, frame, None, label)
+    _step_device_time(server, frame, None, label, "int4_matmul", top=16)
+    del server
+    _free()
+    return launches
+
+
+def served_openvla_oft(device) -> dict:
+    """OpenVLA-OFT at 7B, w4a8, with proprio: [8, 7] chunks, 224 K2 launches
+    a request (one forward at M 346, no head); a chunk through K2 against
+    the plain route."""
+    label = "serve-openvla-oft"
+    server = _openvla_server(label, "random-7b", device, quantization="w4a8", oft=True,
+                             use_proprio=True)
+    proprio = np.random.RandomState(1).uniform(-1, 1, server.proprio_dim).tolist()
+    launches, _ = _serve_openvla(server, label, OPENVLA_OFT_LAUNCHES, proprio)
+    frame = _openvla_frames()[0]
+    _step_median(server, frame, proprio, label)
+    _step_device_time(server, frame, proprio, label, "int4_matmul")
+    _k2_vs_plain(label, "the [8, 7] chunk", lambda: torch.from_numpy(
+        server._step(*server._prepare(frame, OPENVLA_INSTRUCTION, proprio))))
+    del server
+    _free()
+    return launches
+
+
+def served_minivla(device) -> dict:
+    """MiniVLA (SigLIP alone, Qwen2.5-0.5B) in bf16 and in w4a8, its tied
+    head quantized: 1,183 K2 launches a request; the w4a8 first token's
+    logits through K2 against the plain route."""
+    total = {name: 0 for name in KERNEL_NAMES}
+    for quant, per_request in ((None, 0), ("w4a8", MINIVLA_AR_LAUNCHES)):
+        label = f"serve-minivla-{quant or 'bf16'}"
+        server = _openvla_server(label, "random-minivla", device, quantization=quant)
+        launches, _ = _serve_openvla(server, label, per_request)
+        _step_device_time(server, _openvla_frames()[0], None, label, "int4_matmul")
+        if quant:
+            _openvla_k2_vs_plain(server, label)
+        total = {name: total[name] + launches[name] for name in KERNEL_NAMES}
+        del server
+        _free()
+    return total
+
+
+def openvla_snapshot(device) -> dict:
+    """An HF-keyed snapshot at OpenVLA-7B's widths and a shallow depth,
+    written with blurr_spec.json and dataset_statistics.json, loaded by
+    build_openvla from the directory and served with an unnorm_key: the
+    same weights bit for bit, and answers bit-equal to those of the model
+    built in memory."""
+    from blurr_tpu_torch.models.openvla.checkpoint import save_openvla_snapshot
+    from blurr_tpu_torch.models.openvla.llama import LlamaSpec
+    from blurr_tpu_torch.models.openvla.model import DINOV2_L, SIGLIP_SO400M, OpenVLA, OpenVLASpec
+
+    label = "openvla-snapshot"
+    spec = OpenVLASpec(llama=LlamaSpec(num_layers=2),
+                       dinov2=dataclasses.replace(DINOV2_L, num_layers=3),
+                       siglip=dataclasses.replace(SIGLIP_SO400M, num_layers=3))
+    model = OpenVLA(spec, SNAPSHOT_STATS, device=device, dtype=torch.bfloat16)
+    model.init_params(torch.Generator(device=device).manual_seed(5))
+    with tempfile.TemporaryDirectory(prefix="blurr_openvla_") as tmp:
+        t0 = time.monotonic()
+        save_openvla_snapshot(model, tmp, SNAPSHOT_STATS)
+        t_write = time.monotonic() - t0
+        size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        t0 = time.monotonic()
+        server = _openvla_server(label, tmp, device, unnorm_key="bridge_orig")
+        t_load = time.monotonic() - t0
+    loaded = dict(server.model.named_parameters())
+    drawn = dict(model.named_parameters())
+    same = loaded.keys() == drawn.keys() and all(torch.equal(loaded[k], drawn[k]) for k in drawn)
+    log(f"{label}: {len(drawn)} tensors, {size} B written in {t_write:.2f} s, loaded and "
+        f"served by build_openvla in {t_load:.2f} s; the same bits {same}")
+    if not same:
+        raise RuntimeError(f"{label}: the loaded weights differ from the drawn ones")
+    launches, answers = _serve_openvla(server, label, 0)
+    for frame, answer in zip(_openvla_frames(), answers):
+        ids, am, px = server._prepare(frame, OPENVLA_INSTRUCTION)
+        direct = model.predict_action_tokens_ragged(ids, px, am).cpu().numpy()
+        want = model.unnormalize(model.detokenize_actions(direct), "bridge_orig")[0]
+        if not np.array_equal(answer, want.astype(np.float32)):
+            raise RuntimeError(f"{label}: served {answer}, the drawn model gives {want}")
+    log(f"{label}: {len(answers)} answers (unnorm_key bridge_orig) bit-equal to the model "
+        f"built in memory")
+    del server, model
+    _free()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -2454,10 +3067,18 @@ def main() -> int:
     text_pi0_launches = text_pi0(device)
     text_paligemma_launches = text_paligemma(device)
     small_text_launches = small_text_vs_cpu(device)
+    _free()
+    held = int4_openvla_vs_plain(device)
+    with _RecordInt4Shapes() as served:
+        openvla_runs = (served_openvla_7b(device), served_openvla_7b_w4a8(device),
+                        served_openvla_7b_w8a8(device), served_openvla_oft(device),
+                        served_minivla(device), openvla_snapshot(device))
+    jacobi_fp32(device)
+    served_int4_vs_plain(device, served.seen, held)
     runs = (launches, checkpoint_launches, baseline_launches, w4a8_launches, int8_launches,
             cached_launches, experiment_launches, eval_launches, frame_launches,
             async_launches, batched_launches, eval_w4a8_launches, small_agent_launches,
-            text_pi0_launches, text_paligemma_launches, small_text_launches)
+            text_pi0_launches, text_paligemma_launches, small_text_launches, *openvla_runs)
     total = {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
     measured = {"flash_attention": flash, "int4_matmul": int4, "int8_matmul": int8,
                 **experiments}

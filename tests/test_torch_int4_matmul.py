@@ -325,3 +325,39 @@ def test_kernel_grid_at_the_step_shapes(cuda_device):
     assert t_int4.grid(4, 4096, 1024, 8) == (16, 16, 1)
     assert t_int4.grid(96, 2048, 16896, 4) == (132, 1, 1)
     assert t_int4.slices(8, 4096, 11264, 1) == 2
+
+
+# (M, K, N, G) of the OpenVLA family's w4a8 products: OpenVLA-7B's q/k/v/o,
+# gate/up, down (256-row groups) and head at the decode's M 1 and the
+# prefill's M 288 (three row blocks of 96), a Jacobi sweep's M 6, OFT's
+# one forward at M 346 (a partial fourth row block); MiniVLA's
+# (Qwen2.5-0.5B) at M 1 and its prefill's M 288 with 128-row groups (K 896,
+# two groups to a chunk of 256 rows) and 256-row ones (K 4864), and its tied
+# head
+OPENVLA_SHAPES = [
+    (1, 4096, 4096, 8), (288, 4096, 4096, 8), (1, 4096, 11008, 8), (288, 4096, 11008, 8),
+    (1, 11008, 4096, 43), (288, 11008, 4096, 43), (1, 4096, 32064, 8),
+    (288, 4096, 32064, 8),
+    (6, 4096, 4096, 8), (6, 4096, 11008, 8), (6, 11008, 4096, 43), (6, 4096, 32064, 8),
+    (346, 4096, 4096, 8), (346, 4096, 11008, 8), (346, 11008, 4096, 43),
+    (1, 896, 896, 7), (1, 896, 128, 7), (1, 896, 4864, 7), (1, 4864, 896, 19),
+    (1, 896, 32064, 7),
+    (288, 896, 896, 7), (288, 896, 128, 7), (288, 896, 4864, 7), (288, 4864, 896, 19),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,groups", OPENVLA_SHAPES)
+def test_kernel_equals_plain_at_the_openvla_shapes(cuda_device, m, k, n, groups):
+    test_kernel_equals_plain_on_cuda(cuda_device, m, k, n, groups)
+
+
+@pytest.mark.cuda
+def test_kernel_grid_takes_the_openvla_shapes(cuda_device):
+    """The built kernel takes every OpenVLA shape: 96-row blocks above 64
+    rows, 16 below; at most 16 slices of K."""
+    for m, k, n, groups in OPENVLA_SHAPES:
+        n_pad = t_int4.pick_block_layout(n)[1]
+        cols, s, rows = t_int4.grid(m, k, n_pad, groups)
+        assert rows == -(-m // (96 if m > 64 else 16)) and 1 <= s <= 16
+        assert cols == -(-n_pad // (128 if m > 64 else 64))

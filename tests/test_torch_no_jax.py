@@ -10,10 +10,12 @@ resize an off-size frame on the native and the torch rungs, and run the eval
 agent (serial with the async pipeline, and batched) and the eval CLI on the
 fake env, run a tiny Pi-0 text generation and a tiny PaliGemma
 ``generate_fused``, write its weights as safetensors and load them back
-with ``load_hf_model``, and run the text demo's random mode. Then a static
-check: no ``.py`` file of the port, nor ``chip_smoke.py`` or the port's
-three CLIs, has an import whose top-level module is ``jax`` or
-``blurr_tpu``.
+with ``load_hf_model``, and run the text demo's random mode; then the
+OpenVLA family: servers (bf16 and w4a8, AR and Jacobi, OFT with proprio)
+driven through the port's client, an HF snapshot written and served, and
+``scripts/serve_openvla_torch.py``'s server. Then a static check: no
+``.py`` file of the port, nor ``chip_smoke.py`` or the port's four CLIs,
+has an import whose top-level module is ``jax`` or ``blurr_tpu``.
 """
 
 import ast
@@ -160,6 +162,40 @@ SCRIPT = textwrap.dedent(
         back = load_hf_model(tmp, torch.float32, "cpu")
         assert all(torch.equal(p, q) for p, q in zip(back.parameters(), pg.parameters()))
     assert demo_paligemma_text_torch.main(["--device", "cpu", "--max-new-tokens", "2"]) == 0
+    # the OpenVLA family: servers (bf16 and w4a8, AR and Jacobi, OFT) through
+    # the port's client, and an HF snapshot written and served
+    import serve_openvla_torch
+    from blurr_tpu_torch.models.openvla.build import build_openvla
+    from blurr_tpu_torch.models.openvla.checkpoint import save_openvla_snapshot
+    from blurr_tpu_torch.serving.openvla_server import OpenVLAActionServer
+    frame = np.zeros((28, 28, 3), np.uint8)
+    for kw in ({}, {"quantization": "w4a8", "decode": "jacobi"},
+               {"oft": True, "use_proprio": True, "proprio_dim": 7, "chunk_len": 2}):
+        srv = OpenVLAActionServer("random", device="cpu", **kw)
+        ready = threading.Event()
+        t = threading.Thread(target=srv.serve_forever,
+                             kwargs={"port": 0, "ready_event": ready}, daemon=True)
+        t.start()
+        assert ready.wait(60)
+        with ActionClient(port=srv.port) as client:
+            act = client.predict(frame, "pick", [0.1] * 7)
+        srv.stop()
+        t.join(30)
+        assert act.shape == ((2, 7) if kw.get("oft") else (7,)) and np.isfinite(act).all()
+    with tempfile.TemporaryDirectory() as tmp:  # an HF snapshot out and in
+        model = build_openvla("random", device="cpu", dtype=torch.float32).model
+        stats = {"bridge_orig": {"action": {"q01": [0.0] * 7, "q99": [1.0] * 7}}}
+        save_openvla_snapshot(model, tmp, stats)
+        srv = OpenVLAActionServer(tmp, unnorm_key="bridge_orig", use_bf16=False,
+                                  device="cpu")
+        ids = np.array([[1, 9, 29871]])
+        px = np.random.RandomState(0).rand(1, 6, 28, 28).astype(np.float32)
+        assert torch.equal(srv.model.predict_action_tokens(ids, px),
+                           model.predict_action_tokens(ids, px))
+        assert srv.predict(frame, "pick", [0.0] * 7).shape == (7,)
+    srv = serve_openvla_torch.build_server(serve_openvla_torch.parse_args(
+        ["--device", "cpu", "--decode", "jacobi"]))
+    assert srv.predict(frame, "pick", [0.0] * 7).shape == (7,)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "blurr_tpu"))
     assert all(sys.modules[m] is None for m in loaded), loaded
@@ -194,7 +230,8 @@ def _imported_top_levels(path: Path):
 PORT_FILES = sorted((REPO_ROOT / "blurr_tpu_torch").rglob("*.py")) + [
     REPO_ROOT / "chip_smoke.py", REPO_ROOT / "scripts" / "eval_pi0_simpler_torch.py",
     REPO_ROOT / "scripts" / "serve_pi0_torch.py",
-    REPO_ROOT / "scripts" / "demo_paligemma_text_torch.py"]
+    REPO_ROOT / "scripts" / "demo_paligemma_text_torch.py",
+    REPO_ROOT / "scripts" / "serve_openvla_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))

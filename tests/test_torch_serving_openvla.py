@@ -1,0 +1,181 @@
+"""The port's OpenVLA action server (``serving/openvla_server.py``) and its
+CLI (``scripts/serve_openvla_torch.py``) on the CPU: a TCP round trip
+through the port's ActionClient, answers equal to the model's own
+``predict_action`` (AR, Jacobi, MiniVLA, w4a8), OFT with and without
+proprio, ``unnorm_key``, the bounded token cache, the flags it refuses, and
+JAX's server and the port's on one snapshot giving the same answers."""
+
+import sys
+import threading
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from blurr_tpu_torch.models.openvla.processing import build_prompt
+from blurr_tpu_torch.serving.client import ActionClient
+from blurr_tpu_torch.serving.openvla_server import TOKEN_CACHE_SIZE, OpenVLAActionServer
+
+REPO_ROOT = Path(__file__).resolve().parents[1]
+
+
+def _request(seed=0, instruction="pick up the carrot", size=28):
+    image = np.random.RandomState(seed).randint(0, 256, (size, size, 3), np.uint8)
+    return image, instruction, [0.0] * 7
+
+
+def _server(model_id="random", **kw):
+    return OpenVLAActionServer(model_id, use_bf16=False, device="cpu", **kw)
+
+
+def _direct(srv, image, instruction):
+    out = srv.processor(build_prompt(instruction), image)
+    return srv.model.predict_action(out["input_ids"], out["pixel_values"], srv.unnorm_key)
+
+
+def test_tcp_round_trip_through_the_port_client():
+    srv = _server()
+    ready = threading.Event()
+    t = threading.Thread(target=srv.serve_forever, kwargs={"port": 0, "ready_event": ready},
+                         daemon=True)
+    t.start()
+    assert ready.wait(60)
+    try:
+        assert srv.warmup() > 0
+        with ActionClient(port=srv.port) as client:
+            img, instr, prop = _request()
+            actions = client.predict(img, instr, prop)
+            assert actions.shape == (7,) and np.all(np.abs(actions) <= 1.0)
+            np.testing.assert_array_equal(client.predict(img, instr, prop), actions)
+            off = client.predict(_request(1, size=40)[0], instr, prop)  # resized first
+            assert off.shape == (7,)
+            with pytest.raises(RuntimeError, match="HxWx3"):
+                client.predict(np.zeros((28, 28, 4), np.uint8), instr, prop)
+            stats = client.stats()
+        assert stats["requests_total"] == 3 and stats["errors_total"] == 1
+        assert stats["device"] == "cpu" and stats["checkpoint"] == "random"
+    finally:
+        srv.stop()
+        t.join(30)
+
+
+@pytest.mark.parametrize("model_id,kw", [
+    ("random", {}),
+    ("random", {"decode": "jacobi"}),
+    ("random", {"quantization": "w4a8"}),
+    ("random-minivla-tiny", {}),
+    ("random-minivla-tiny", {"quantization": "w8a8", "decode": "jacobi"}),
+])
+def test_predict_equals_the_model(model_id, kw):
+    """The served path (prompt right-padded to max_text_tokens, masked
+    decode) answers what the model's predict_action gives the unpadded
+    prompt."""
+    srv = _server(model_id, **kw)
+    for seed, instr in ((1, "pick up the carrot"), (2, "move the very shiny spoon left")):
+        img, _, prop = _request(seed, instr)
+        np.testing.assert_array_equal(srv.predict(img, instr, prop),
+                                      np.asarray(_direct(srv, img, instr), np.float32))
+
+
+def test_jacobi_server_answers_the_ar_server():
+    ar, jac = _server(), _server(decode="jacobi")
+    img, instr, prop = _request(3)
+    np.testing.assert_array_equal(jac.predict(img, instr, prop), ar.predict(img, instr, prop))
+
+
+def test_oft_requires_proprio_and_returns_chunks():
+    srv = _server(oft=True, use_proprio=True, proprio_dim=7, chunk_len=4)
+    img, instr, prop = _request(4)
+    out = srv.predict(img, instr, [0.3] * 7)
+    assert out.shape == (4, 7) and np.isfinite(out).all()
+    ids, am, px, pr = srv._prepare(img, instr, [0.3] * 7)
+    ref = srv.model.predict_action_continuous(ids, px, pr, attn_valid=am)[0].numpy()
+    np.testing.assert_array_equal(out, ref)
+    with pytest.raises(ValueError, match="proprio field is required"):
+        srv.predict(img, instr, None)
+    with pytest.raises(ValueError, match="server expects 7"):
+        srv.predict(img, instr, [0.0] * 3)
+    plain = _server(oft=True, chunk_len=2)  # no proprio: the field is ignored
+    assert plain.predict(img, instr, None).shape == (2, 7)
+
+
+def test_unnorm_key_is_checked_and_applied(tmp_path):
+    from tests.test_torch_openvla_checkpoint import STATS, write_snapshot
+    from blurr_tpu_torch.models.openvla.model import OpenVLASpec
+
+    with pytest.raises(ValueError, match="not in the model's norm stats"):
+        _server(unnorm_key="bridge_orig")
+    write_snapshot(tmp_path, OpenVLASpec.tiny())
+    norm = _server(str(tmp_path))
+    srv = _server(str(tmp_path), unnorm_key="bridge_orig")
+    img, instr, prop = _request(5)
+    out, raw = srv.predict(img, instr, prop), norm.predict(img, instr, prop)
+    q01, q99 = (np.asarray(STATS["bridge_orig"]["action"][k]) for k in ("q01", "q99"))
+    expected = np.where(np.arange(7) < 6, 0.5 * (raw + 1) * (q99 - q01) + q01, raw)
+    np.testing.assert_allclose(out, expected, rtol=1e-6)
+    np.testing.assert_array_equal(out, np.asarray(_direct(srv, img, instr), np.float32))
+
+
+def test_token_cache_is_bounded():
+    srv = _server()
+    img = _request()[0]
+    for i in range(TOKEN_CACHE_SIZE + 3):
+        srv._prepare(img, f"task {i}")
+    assert len(srv._tok_cache) == TOKEN_CACHE_SIZE
+    assert "task 0" not in srv._tok_cache and f"task {TOKEN_CACHE_SIZE + 2}" in srv._tok_cache
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"max_batch": 2}, "max_batch.*M10"), ({"max_queue": 4}, "max_queue.*M10"),
+    ({"bucket_mode": "max"}, "bucket_mode.*M10"), ({"tp": 2}, "tp.*M14"),
+    ({"dp": 2}, "dp.*M14"), ({"checkpoint_path": "/x"}, "checkpoint_path.*M13"),
+    ({"batch_window_ms": 25.0}, "batch_window_ms.*M10"),
+])
+def test_refused_flags_name_their_milestone(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        _server(**kw)
+
+
+def test_seed_draws_the_random_weights():
+    """A random id's weights come from ``seed``: the same seed, the same
+    weights; another, others."""
+    a, b, c = _server(seed=3), _server(seed=3), _server(seed=4)
+    wa, wb, wc = (s.model.llama.embed_tokens for s in (a, b, c))
+    assert torch.equal(wa, wb) and not torch.equal(wa, wc)
+
+
+def test_unknown_decode_is_an_error():
+    with pytest.raises(ValueError, match="decode"):
+        _server(decode="beam")
+
+
+def test_cli_builds_the_server_and_refuses_what_the_server_refuses():
+    sys.path.insert(0, str(REPO_ROOT / "scripts"))
+    import serve_openvla_torch
+
+    args = serve_openvla_torch.parse_args(
+        ["--device", "cpu", "--model-id", "random", "--no-bf16", "--oft", "--chunk-len", "2"])
+    assert serve_openvla_torch.parse_args([]).device == "cuda"
+    srv = serve_openvla_torch.build_server(args)
+    assert srv.device == torch.device("cpu") and srv.dtype == torch.float32 and srv.oft
+    with pytest.raises(NotImplementedError, match="M10"):
+        serve_openvla_torch.build_server(serve_openvla_torch.parse_args(
+            ["--device", "cpu", "--max-batch", "4"]))
+
+
+def test_jax_and_port_servers_answer_alike_on_one_snapshot(tmp_path):
+    """The same snapshot behind JAX's OpenVLAActionServer and the port's, in
+    fp32: the same answers, unnormalized, AR and Jacobi."""
+    from blurr_tpu.serving.openvla_server import OpenVLAActionServer as JServer
+    from tests.test_torch_openvla_checkpoint import write_snapshot
+    from blurr_tpu_torch.models.openvla.model import OpenVLASpec
+
+    write_snapshot(tmp_path, OpenVLASpec.tiny(), seed=6)
+    for kw in ({}, {"decode": "jacobi"}):
+        ours = _server(str(tmp_path), unnorm_key="bridge_orig", **kw)
+        theirs = JServer(str(tmp_path), unnorm_key="bridge_orig", use_bf16=False, **kw)
+        for seed in (7, 8):
+            img, instr, prop = _request(seed, f"put the cup {seed} away")
+            np.testing.assert_array_equal(ours.predict(img, instr, prop),
+                                          theirs.predict(img, instr, prop))
