@@ -1,6 +1,5 @@
 """Client for the action server's length-prefixed JSON protocol: the
-port's own copy of ``blurr_tpu/serving/client.py:ActionClient``, without
-``reload`` (the port's server has no hot reload yet)."""
+port's own copy of ``blurr_tpu/serving/client.py:ActionClient``."""
 
 from __future__ import annotations
 
@@ -40,6 +39,15 @@ class ActionClient:
         """Server-side observability snapshot ({"kind": "stats"} message);
         also serves as a health check — a live server always answers."""
         send_msg(self.sock, {"kind": "stats"})
+        return self._answer()
+
+    def reload(self, path: str, drop_first: bool = False) -> dict:
+        """Hot-reload the server's weights from ``path`` (a checkpoint its
+        startup ``--checkpoint`` would take). Atomic by default;
+        ``drop_first=True`` frees the old weights before loading (for
+        models too big to hold twice)."""
+        send_msg(self.sock, {"kind": "reload", "path": str(path),
+                             "drop_first": bool(drop_first)})
         return self._answer()
 
     def _answer(self) -> dict:

@@ -1,22 +1,23 @@
 """OpenVLA-family action serving: the port's ActionServer runtime driving
 OpenVLA, OpenVLA-OFT and MiniVLA instead of Pi-0.
 
-Counterpart of ``blurr_tpu/serving/openvla_server.py`` on its single-request
-path. Each request: the prompt built and tokenized (cached, at most 1024
-instructions), right-padded to ``max_text_tokens``; the image resized by the
-Lanczos ladder and normalized for each tower on the host; then, under the
-device lock, the greedy decode of ``action_dim`` tokens (``decode="ar"``),
-its Jacobi form (``decode="jacobi"``, the same tokens wherever a
-multi-token forward gives a single step's logits) or OFT's one parallel
-forward (``oft=True``, with the request's proprio when ``use_proprio``);
-then bin-centre detokenization and, with ``unnorm_key``, the q01 / q99
-unnormalization on the host. The wire protocol and the clients are Pi-0's.
+Counterpart of ``blurr_tpu/serving/openvla_server.py``. Each request: the
+prompt built and tokenized (cached, at most 1024 instructions), right-padded
+to ``max_text_tokens``; the image resized by the Lanczos ladder and
+normalized for each tower on the host; then, under the device lock, one step
+over the request alone or, with ``max_batch`` > 1, over its bucket (the
+Pi-0 server's dynamic batching, backpressure and stats): the greedy decode
+of ``action_dim`` tokens over the right-padded ragged prompts
+(``decode="ar"``), its Jacobi form (``decode="jacobi"``, the same tokens
+wherever a multi-token forward gives a single step's logits) or OFT's one
+parallel forward (``oft=True``, with each request's proprio when
+``use_proprio``); then bin-centre detokenization of the live rows and, with
+``unnorm_key``, the q01 / q99 unnormalization on the host. The wire
+protocol and the clients are Pi-0's.
 
-Not ported yet, and refused with ``NotImplementedError``: dynamic batching
-(``max_batch`` > 1, a ``batch_window_ms`` other than its default),
-backpressure (``max_queue``) and ``bucket_mode`` 'max' (ROADMAP M10), tensor
-and data parallelism (``tp`` / ``dp`` > 1, M14) and orbax checkpoints
-(``checkpoint_path``, M13).
+Not ported yet, and refused with ``NotImplementedError``: tensor and data
+parallelism (``tp`` / ``dp`` > 1, ROADMAP M14) and orbax checkpoints
+(``checkpoint_path`` and ``reload_checkpoint``, M13).
 """
 
 from __future__ import annotations
@@ -32,16 +33,9 @@ from blurr_tpu_torch.models.openvla.processing import (
     process_image,
     tokenize_prompt_ids,
 )
-from blurr_tpu_torch.serving.server import ActionServer
+from blurr_tpu_torch.serving.server import ActionServer, refuse
 
 TOKEN_CACHE_SIZE = 1024
-
-
-def _refuse(**flags) -> None:
-    for name, (bad, milestone) in flags.items():
-        if bad:
-            raise NotImplementedError(
-                f"{name} is not ported to the PyTorch server yet (ROADMAP {milestone})")
 
 
 class OpenVLAActionServer(ActionServer):
@@ -54,8 +48,9 @@ class OpenVLAActionServer(ActionServer):
     draws random weights from ``PRNGKey(0)``). ``quantization`` 'w8a8' /
     'w4a8' quantizes the LLM (a checkpoint-free one is drawn quantized).
     ``unnorm_key`` selects the norm statistics applied to the answers; None
-    returns normalized actions. ``batch_window_ms`` is dynamic batching's
-    window: only its default is taken, as only ``max_batch`` 1 is.
+    returns normalized actions. ``max_batch``, ``batch_window_ms``,
+    ``max_queue`` and ``bucket_mode`` are dynamic batching's, as in the Pi-0
+    server.
     """
 
     def __init__(self, model_id: str = "random", quantization: Optional[str] = None,
@@ -65,11 +60,8 @@ class OpenVLAActionServer(ActionServer):
                  chunk_len: int = 8, use_proprio: bool = False, proprio_dim: int = 8,
                  checkpoint_path: Optional[str] = None, max_queue: int = 0,
                  decode: str = "ar", bucket_mode: str = "pow2", *, device="cuda"):
-        _refuse(max_batch=(max_batch > 1, "M10"), max_queue=(max_queue > 0, "M10"),
-                batch_window_ms=(batch_window_ms != 2.0, "M10"),
-                bucket_mode=(bucket_mode != "pow2", "M10"),
-                tp=(tp > 1, "M14"), dp=(dp > 1, "M14"),
-                checkpoint_path=(bool(checkpoint_path), "M13"))
+        refuse(tp=(tp > 1, "M14"), dp=(dp > 1, "M14"),
+               checkpoint_path=(bool(checkpoint_path), "M13"))
         if decode not in ("ar", "jacobi"):
             raise ValueError(f"decode {decode!r}: expected 'ar'/'jacobi'")
         self.device = torch.device(device)
@@ -93,7 +85,13 @@ class OpenVLAActionServer(ActionServer):
         self.processor = OpenVLAProcessor(built.tokenizer, image_size=self.spec.siglip.image_size,
                                           fused=self.spec.use_fused_vision)
         self._checkpoint_desc = str(model_id)
-        self._init_runtime()
+        self._init_runtime(max_batch, batch_window_ms, max_queue, bucket_mode)
+
+    def reload_checkpoint(self, path: str, drop_first: bool = False) -> dict:
+        """JAX's OpenVLA server reloads an orbax tree through
+        ``build_openvla(checkpoint_path=...)``, which the port does not read
+        yet: refused before the served model is touched."""
+        refuse(reload_checkpoint=(True, "M13"))
 
     def _prepare(self, image: np.ndarray, instruction: str, proprio=None):
         """(ids, attention mask, pixel values[, proprio]) on the device,
@@ -128,8 +126,9 @@ class OpenVLAActionServer(ActionServer):
         return out
 
     def _step(self, ids, am, px, proprio=None, *, request_idx: int = 0) -> np.ndarray:
-        """Action tokens [1, action_dim] (OFT: the chunk [1, chunk_len,
-        action_dim]) on the host."""
+        """Action tokens [B, action_dim] (OFT: the chunks [B, chunk_len,
+        action_dim]) on the host, for a request or a bucket of them; the
+        index is not read (greedy decoding draws no noise)."""
         m = self.model
         if self.oft:
             out = m.predict_action_continuous(ids, px, proprio, attn_valid=am).float()

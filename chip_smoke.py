@@ -26,8 +26,10 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              the dense weight timed at the vlm gate, the vlm down
              projection and the action gate.
              kernel-int8: the int8 matmul at the 13 (M, K, N) of the int8
-             step, fp32 x within 1e-5 of the largest output and bf16 x
-             within one bf16 rounding of each output, the same bits on a
+             step and at the action linears' M 8, 16 and 32 (the decode of
+             buckets of 2, 4 and 8), fp32 x within 1e-5 of the largest
+             output and bf16 x within one bf16 rounding of each output,
+             the same bits on a
              second call, its split of K (S) and grid logged; then it, its
              plain version, the library's int8 weight-only product
              (torch._weight_int8pack_mm, bf16 scales) and a bf16 matmul of
@@ -65,6 +67,30 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              parameters must equal the drawn ones and its 3 answers must be
              the same bits as the first server's. Logs the file's size and
              the write and load times.
+5c. serve-reload - while that .pt exists: a blurr server drawn from
+             another seed takes an atomic reload of it through
+             scripts/serve_ctl_torch.py, then a drop_first one, while a
+             client thread sends requests the whole time: no request fails,
+             the parameters are the written ones bit for bit after each;
+             the reload seconds, the longest request across each and the
+             peak memory of each mode logged. A bridge_tiny.yaml .pt is
+             refused (ValueError) with the weights still serving; a
+             drop_first reload of a missing path leaves "no weights
+             loaded"; an atomic reload recovers. K1 17 times a request.
+5d. serve-batched - bridge.yaml blurr with max_batch 8 ('pow2', a window
+             of BATCH_WINDOW_MS): the buckets 1, 2, 4 and 8 warmed (seconds
+             each); K1 at [2|8,8,277,256] against its plain version within
+             BF16_TOL, the same bits twice, its grid logged; 1, 2, 4 and 8
+             concurrent clients, BATCHED_REQUESTS each: chunks/s, client
+             p50 / p99, batches, occupancy and padding from stats(), every
+             answer a finite [4, 7] chunk in [-1, 1], K1 17 times a batch;
+             each row of a bucket of 5 against a batch-1 step on its inputs
+             and noise row within BATCHED_TOL; one step per bucket under
+             torch.profiler; then 'max' at 3 clients: padded slots = 8 x
+             batches - live.
+5e. serve-backpressure - max_batch 2, max_queue 2, 8 concurrent clients:
+             rejected_total > 0, each rejection an "Overloaded" error at its
+             client, every other answer a good chunk, K1 17 times a batch.
 6. small   - a small fp32 model (bridge_tiny widths, an 80-token prefix so
              the prefill takes the kernel) on the card against the same
              weights on the CPU, where the port runs its plain versions
@@ -90,6 +116,10 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              flash kernel 17 times per control step; the resident weights
              must stay under 3.0 GB; one step under torch.profiler gives
              the step's device time and the int4 and flash kernels' shares.
+7b. serve-batched-w4a8 - the same config with max_batch 4: the buckets 1,
+             2 and 4 warmed, 4 concurrent clients; K2 370 and K1 17 times a
+             batch; every K2 shape the buckets give that phase 3 did not
+             hold is held bit-equal against the plain route.
 8. small-w4a8 - the small fp32 model quantized w4a8 (SigLIP w8a8) on the
              card against the same quantized weights on the CPU.
 9. serve-int8 - bridge_pool64_steps2.yaml at full width with
@@ -251,6 +281,12 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              build_openvla from the directory: the same bits, and its
              answers under unnorm_key bridge_orig bit-equal to the model's
              built in memory.
+30b. serve-batched-openvla - OpenVLA-7B w4a8 AR with max_batch 4 and 4
+             instructions of 4 token counts: a bucket of the 4 gives each
+             its solo tokens, a Jacobi bucket AR's; the 4 served one after
+             another, then from 4 concurrent clients (chunks/s of each),
+             every answer its solo one; K2 1,575 times a batch; its K2
+             shapes held as served-int4-shapes holds them.
 31. jacobi-fp32 - OpenVLA-7B at full width and depth in fp32, unquantized:
              Jacobi's logits at the fixed point against the AR steps'
              within JACOBI_FP32_REL_TOL (bf16 at w4a8 cannot tell planted
@@ -258,10 +294,11 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              away (two sweeps or more); each planted fault of
              JACOBI_FAULTS (tail positions shifted, the tail's mask wrong)
              must read over that bound.
-Then one JSON line of the kernels (launches summed over the six served
-runs, the experiments run, the eval runs of phases 14-18 and 20, the text
-runs of phases 21-23 and the OpenVLA runs of phases 25-30, the counts set
-to 0 just before each; errors
+Then one JSON line of the kernels (launches summed over the served runs of
+phases 4-10 with the batched, backpressure and reload runs, the
+experiments run, the eval runs of phases 14-18 and 20, the text runs of
+phases 21-23 and the OpenVLA runs of phases 25-30b, the counts set to 0
+just before each; errors
 and times measured here: ms and plain_ms with CUDA events, graph_ms and
 plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
 function where there is one, at the first timed shape of each kernel;
@@ -282,6 +319,7 @@ import dataclasses
 import json
 import logging
 import os
+import subprocess
 import sys
 import tempfile
 import threading
@@ -338,6 +376,15 @@ BASELINE_TOL = 1e-3
 # times the scale in fp32, in group order, without FMA; any difference is a
 # finding (PERF.md), bounded by 1e-6 of the largest output
 INT4_REL_TOL = 1e-6
+# dynamic batching (serve-batched, serve-backpressure, serve-batched-w4a8,
+# serve-batched-openvla): the batcher waits this long after a bucket's first
+# request for more; each concurrency runs BATCHED_REQUESTS per client
+SERVE_MAX_BATCH = 8
+BATCH_WINDOW_MS = 10.0
+CONCURRENCY = (1, 2, 4, 8)
+BATCHED_REQUESTS = 8
+BACKPRESSURE_REQUESTS = 4
+BATCHED_K1_SHAPES = [(2, 8, 1, 277, 277, 256), (8, 8, 1, 277, 277, 256)]
 MAX_W4A8_WEIGHT_BYTES = 3.0e9
 N_REQUESTS = 3
 AGENT_TIMED_STEPS = 20  # control steps timed after each eval-agent run
@@ -374,6 +421,10 @@ INT8_SHAPES = [
     (1, 4096, 1024), (4, 4096, 1024),
     (4, 7, 1024), (4, 2048, 1024), (4, 1024, 1024),
 ]
+# the action mixture's int8 linears at the decode of buckets of 2, 4 and 8
+# (M = 4 x bucket): a batched int8 server's shapes
+INT8_BATCHED_SHAPES = [(m, k, n) for m in (8, 16, 32) for k, n in (
+    (1024, 2048), (1024, 256), (2048, 1024), (1024, 4096), (4096, 1024))]
 INT8_TIMED = [(4, 1024, 4096), (4, 4096, 1024)]  # action gate, action down
 # the int8 kernel's fp32 sum against the plain version's float64 one
 INT8_FP32_REL_TOL = 1e-5
@@ -524,6 +575,37 @@ def _fmt_times(t: dict, dense=None, dense_name: str = "") -> str:
     return line
 
 
+def _hold_flash(shape, dtype, tol, label, device) -> float:
+    """K1 at ``shape`` (b, nh, kvh, sq, skv, d) in ``dtype`` against its
+    plain version in fp32, within ``tol``, and the same bits on a second
+    call; its launch geometry logged. Returns the largest error."""
+    from blurr_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+        grid,
+    )
+
+    q, k, v, mask = _attention_inputs(shape, device)
+    qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
+    out = flash_attention(qc, kc, vc, mask)
+    again = torch.equal(out, flash_attention(qc, kc, vc, mask))
+    ref = flash_attention_reference(qc.float(), kc.float(), vc.float(), mask)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"kernel output not finite at {shape} {dtype}")
+    err = (out.float() - ref).abs().max().item()
+    blocks, part_keys = grid(*shape, dtype)
+    log(f"{label}: flash_attention {shape} {str(dtype)[6:]} "
+        f"max_abs_err={err:.3e} (tol {tol:g}), same bits on a second call {again}; "
+        f"grid {blocks}" + (f" (64-row tiles of the folded heads, {blocks[1]} key "
+                            f"parts of {part_keys} keys, batch x KV heads)"
+                            if part_keys else " (16-query tiles, heads, batch)"))
+    torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+    if not again:
+        raise RuntimeError(f"kernel gives other bits on a second call at {shape} {dtype}")
+    return err
+
+
 def kernel_vs_plain(device) -> dict:
     """Flash attention against its plain version at every kernel shape, fp32
     and bf16, each the same bits on a second call (its launch geometry
@@ -532,36 +614,14 @@ def kernel_vs_plain(device) -> dict:
     bound: bf16 and fp32 at the 277-row prefill, fp32 at the naive step's
     281 rows, bf16 at the pool64 prefill. Returns the kernels line's entry:
     bf16 at the Pi-0 prefill."""
-    from blurr_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_reference,
-        grid,
-    )
+    from blurr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = {}
     for shape in KERNEL_SHAPES:
-        q, k, v, mask = _attention_inputs(shape, device)
         for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-            qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
-            out = flash_attention(qc, kc, vc, mask)
-            again = torch.equal(out, flash_attention(qc, kc, vc, mask))
-            ref = flash_attention_reference(qc.float(), kc.float(), vc.float(), mask)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out).all():
-                raise RuntimeError(f"kernel output not finite at {shape} {dtype}")
-            err = (out.float() - ref).abs().max().item()
-            blocks, part_keys = grid(*shape, dtype)
-            log(f"kernel: flash_attention {shape} {str(dtype)[6:]} "
-                f"max_abs_err={err:.3e} (tol {tol:g}), same bits on a second call {again}; "
-                f"grid {blocks}" + (f" (64-row tiles of the folded heads, {blocks[1]} key "
-                                    f"parts of {part_keys} keys, batch x KV heads)"
-                                    if part_keys else " (16-query tiles, heads, batch)"))
-            torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
-            if not again:
-                raise RuntimeError(f"kernel gives other bits on a second call at {shape} {dtype}")
-            errs[(shape, dtype)] = err
+            errs[(shape, dtype)] = _hold_flash(shape, dtype, tol, "kernel", device)
     times, bounds = {}, {}
     for shape, dtypes in ((PI0_SHAPE, (torch.bfloat16, torch.float32)),
                           (NAIVE_SHAPE, (torch.float32,)),
@@ -753,7 +813,7 @@ def int8_vs_plain(device) -> dict:
 
     worst_fp32 = 0.0
     bounds = {}
-    for shape in INT8_SHAPES:
+    for shape in INT8_SHAPES + INT8_BATCHED_SHAPES:
         x, q, s = inputs(*shape)
         ref = int8_matmul_reference(x, q, s)  # fp32; rounds x to bf16 itself
         top = ref.abs().max().item()
@@ -1033,21 +1093,40 @@ def _counts() -> dict:
     return {name: fn.launches for name, fn in _kernel_wrappers().items()}
 
 
+def _start(server) -> threading.Thread:
+    ready = threading.Event()
+    thread = threading.Thread(target=server.serve_forever,
+                              kwargs={"port": 0, "ready_event": ready}, daemon=True)
+    thread.start()
+    if not ready.wait(60):
+        raise RuntimeError("server did not start listening")
+    return thread
+
+
+def _stop(server, thread) -> None:
+    server.stop()
+    thread.join(30)
+    if thread.is_alive():
+        raise RuntimeError("server thread did not stop")
+    if server._batcher is not None:
+        server._batcher.join(60)
+        if server._batcher.is_alive():
+            raise RuntimeError("batcher thread did not stop")
+
+
+def _check_chunk(label, a) -> None:
+    if a.shape != (4, 7) or not np.isfinite(a).all() or np.abs(a).max() > 1.0:
+        raise RuntimeError(f"{label}: bad action chunk {a.shape}: {a}")
+
+
 def _serve_requests(server, cfg, label):
     """N_REQUESTS through the port's ActionClient with the kernel counts set
     to 0 just before; returns the image, the proprio, the counts and the
     actions."""
     from blurr_tpu_torch.serving.client import ActionClient
 
-    ready = threading.Event()
-    thread = threading.Thread(
-        target=server.serve_forever, kwargs={"port": 0, "ready_event": ready},
-        daemon=True,
-    )
-    thread.start()
+    thread = _start(server)
     try:
-        if not ready.wait(60):
-            raise RuntimeError("server did not start listening")
         log(f"{label}: warmup {server.warmup():.2f} s")
         size = cfg["vision"]["config"]["image_size"]
         rng = np.random.RandomState(0)
@@ -1065,13 +1144,9 @@ def _serve_requests(server, cfg, label):
         launches = _counts()
         peak = torch.cuda.max_memory_allocated()
     finally:
-        server.stop()
-        thread.join(30)
-    if thread.is_alive():
-        raise RuntimeError("server thread did not stop")
+        _stop(server, thread)
     for a in actions:
-        if a.shape != (4, 7) or not np.isfinite(a).all() or np.abs(a).max() > 1.0:
-            raise RuntimeError(f"bad action chunk {a.shape}: {a}")
+        _check_chunk(label, a)
     if stats["requests_total"] != N_REQUESTS:
         raise RuntimeError(f"{stats['requests_total']} requests served")
     log(f"{label}: {stats['requests_total']} control steps, latency ms per "
@@ -1174,11 +1249,17 @@ def served_baseline_steps(device) -> dict:
     return launches
 
 
+def _same_params(a, b) -> bool:
+    pa, pb = list(a.parameters()), list(b.parameters())
+    return len(pa) == len(pb) and all(torch.equal(p, q) for p, q in zip(pa, pb))
+
+
 def served_checkpoint(device, server, cfg, want) -> dict:
     """The blurr server's bf16 weights written as a reference .pt (fp32) to
-    a temporary directory; a second server started from that path, the file
-    deleted; its parameters and its answers must be the first server's, bit
-    for bit (same seed and noise, same kernels)."""
+    a temporary directory; a second server started from that path; its
+    parameters and its answers must be the first server's, bit for bit
+    (same seed and noise, same kernels). Then, while the file exists,
+    serve-reload takes it; then the file is deleted."""
     import shutil
 
     from blurr_tpu_torch.models.pi0.checkpoint import save_torch_checkpoint
@@ -1199,26 +1280,486 @@ def served_checkpoint(device, server, cfg, want) -> dict:
         loaded = ActionServer(cfg, path, device=device, seed=0)
         torch.cuda.synchronize()
         t_load = time.monotonic() - t0
+        log(f"serve-checkpoint: wrote {size} B ({size / 1e9:.3f} GB) in {t_write:.2f} s; "
+            f"ActionServer(cfg, path) loaded it onto the card as {loaded.dtype} in "
+            f"{t_load:.2f} s")
+        if loaded.stats()["checkpoint"] != path:
+            raise RuntimeError(f"stats name {loaded.stats()['checkpoint']}, not {path}")
+        if not _same_params(model, loaded.model):
+            raise RuntimeError("the loaded parameters differ from the written ones")
+        _, _, launches, actions = _serve_requests(loaded, cfg, "serve-checkpoint")
+        n_layers = cfg["joint"]["config"]["num_hidden_layers"]
+        _check_launches("serve-checkpoint", launches,
+                        {"flash_attention": n_layers - 1, "int4_matmul": 0, "int8_matmul": 0})
+        same = [np.array_equal(a, b) for a, b in zip(actions, want)]
+        log(f"serve-checkpoint: parameters bit-equal to the drawn ones; answers the same bits "
+            f"as the drawing server's: {same}")
+        if not all(same):
+            raise RuntimeError("the checkpoint server answers other bits")
+        del loaded
+        _free()
+        reload_launches = served_reload(device, cfg, model, path, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"serve-checkpoint: wrote {size} B ({size / 1e9:.3f} GB) in {t_write:.2f} s; "
-        f"ActionServer(cfg, path) loaded it onto the card as {loaded.dtype} in "
-        f"{t_load:.2f} s; file deleted")
-    if loaded.stats()["checkpoint"] != path:
-        raise RuntimeError(f"stats name {loaded.stats()['checkpoint']}, not {path}")
-    pairs = list(zip(model.named_parameters(), loaded.model.parameters()))
-    if len(pairs) != len(list(model.parameters())) or not all(
-            torch.equal(p, q) for (_, p), q in pairs):
-        raise RuntimeError("the loaded parameters differ from the written ones")
-    _, _, launches, actions = _serve_requests(loaded, cfg, "serve-checkpoint")
+    log("serve-checkpoint: file deleted")
+    return {name: launches[name] + reload_launches[name] for name in KERNEL_NAMES}
+
+
+def _serve_ctl(*args) -> subprocess.CompletedProcess:
+    """scripts/serve_ctl_torch.py run as a user runs it."""
+    return subprocess.run([sys.executable, str(REPO_ROOT / "scripts" / "serve_ctl_torch.py"),
+                           *map(str, args)], capture_output=True, text=True, timeout=600,
+                          cwd=REPO_ROOT)
+
+
+def served_reload(device, cfg, drawn, path, tmp) -> dict:
+    """A blurr server drawn from another seed takes an atomic reload of the
+    written .pt through scripts/serve_ctl_torch.py while a client thread
+    sends requests the whole time, then a drop_first reload: no request may
+    fail, and the parameters must be the written ones bit for bit after
+    each. Then a bridge_tiny .pt must be refused (ValueError) with the
+    weights still serving, a drop_first reload of a missing path must leave
+    "no weights loaded", and an atomic reload must recover."""
+    from blurr_tpu_torch.models.pi0.checkpoint import save_torch_checkpoint
+    from blurr_tpu_torch.models.pi0.pizero import PiZero
+    from blurr_tpu_torch.presets import apply_preset, load_config
+    from blurr_tpu_torch.serving.client import ActionClient
+    from blurr_tpu_torch.serving.server import ActionServer
+
+    label = "serve-reload"
+    server = ActionServer(cfg, "random", device=device, seed=1)
+    if _same_params(drawn, server.model):
+        raise RuntimeError(f"{label}: seed 1 drew the weights of seed 0")
+    tiny_cfg = load_config("config/eval/bridge_tiny.yaml")
+    apply_preset(tiny_cfg, "blurr")
+    tiny = PiZero(tiny_cfg, device="cpu", dtype=torch.float32)
+    tiny.init_params(torch.Generator().manual_seed(0))
+    tiny_path = os.path.join(tmp, "bridge_tiny.pt")
+    save_torch_checkpoint(tiny, tiny_path)
+    log(f"{label}: warmup {server.warmup():.2f} s")
+    thread = _start(server)
+    port = server.port
+    size = cfg["vision"]["config"]["image_size"]
+    image = np.random.RandomState(0).randint(0, 256, (size, size, 3), np.uint8)
+    request = (image, "put the spoon on the towel", [0.1] * 7)
+    stop, times, errors = threading.Event(), [], []
+
+    def client_loop():
+        with ActionClient(port=port) as client:
+            while not stop.is_set():
+                t = time.monotonic()
+                try:
+                    _check_chunk(label, client.predict(*request))
+                except Exception as exc:  # every failure is a finding: raised below
+                    errors.append(repr(exc))
+                times.append((t, time.monotonic()))
+
+    loop = threading.Thread(target=client_loop, daemon=True)
+
+    def wait_for(n):
+        deadline = time.monotonic() + 120
+        while len(times) < n and time.monotonic() < deadline and loop.is_alive():
+            time.sleep(0.01)
+
+    def reload(*flags):
+        wait_for(len(times) + 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        done = _serve_ctl("reload", path, "--port", port, *flags)
+        t1 = time.monotonic()
+        peak = torch.cuda.max_memory_allocated()
+        wait_for(len(times) + 3)
+        across = [(b - a) * 1000.0 for a, b in list(times) if b > t0 and a < t1]
+        before = [(b - a) * 1000.0 for a, b in list(times) if b <= t0]
+        mode = "drop_first" if flags else "atomic"
+        log(f"{label}: {mode} reload through serve_ctl_torch.py: exit {done.returncode}, "
+            f"{t1 - t0:.2f} s (the script's process included), answer "
+            f"{' '.join(done.stdout.split())!r}; {len(across)} requests across it, the longest "
+            f"{max(across, default=0.0):.1f} ms (the median before it "
+            f"{float(np.median(before)) if before else 0.0:.1f} ms); memory allocated "
+            f"{base} B before, peak {peak} B ({(peak - base) / 1e9:.3f} GB over), on {card()}")
+        if done.returncode != 0 or json.loads(done.stdout) != {
+                "reloaded": path, "drop_first": bool(flags)}:
+            raise RuntimeError(f"{label}: {mode} reload failed: {done.stderr[-2000:]}")
+        if not _same_params(drawn, server.model):
+            raise RuntimeError(f"{label}: the reloaded parameters are not the written ones")
+
+    try:
+        _zero_counts()
+        loop.start()
+        try:
+            reload()
+            reload("--drop-first")
+        finally:
+            stop.set()
+            loop.join(120)
+        if loop.is_alive():
+            raise RuntimeError(f"{label}: the client thread did not stop")
+        stats = server.stats()
+        log(f"{label}: {len(times)} requests while reloading twice, errors_total "
+            f"{stats['errors_total']}, reloads_total {stats['reloads_total']}; parameters "
+            f"bit-equal to the written ones after each reload")
+        if errors or stats["errors_total"] or stats["reloads_total"] != 2:
+            raise RuntimeError(f"{label}: requests failed across a reload: {errors[:3]}")
+        with ActionClient(port=port) as client:
+            refused = _serve_ctl("reload", tiny_path, "--port", port)
+            _check_chunk(label, client.predict(*request))
+            log(f"{label}: a bridge_tiny.yaml .pt: exit {refused.returncode}, "
+                f"{refused.stderr.strip()[-300:]!r}; the weights still serve, unchanged "
+                f"{_same_params(drawn, server.model)}")
+            if (refused.returncode != 1 or "ValueError" not in refused.stderr
+                    or not _same_params(drawn, server.model)):
+                raise RuntimeError(f"{label}: the bridge_tiny .pt was not refused")
+            missing = _serve_ctl("reload", os.path.join(tmp, "missing.pt"), "--drop-first",
+                                 "--port", port)
+            lost = ""
+            try:
+                client.predict(*request)
+            except RuntimeError as exc:  # the server's answer: checked below
+                lost = str(exc)
+            desc = client.stats()["checkpoint"]
+            log(f"{label}: a drop_first reload of a missing path: exit {missing.returncode}; "
+                f"checkpoint {desc!r}; a request: {lost!r}")
+            if missing.returncode != 1 or "no weights loaded" not in lost or "FAILED" not in desc:
+                raise RuntimeError(f"{label}: a failed drop_first did not leave no weights")
+            recovered = _serve_ctl("reload", path, "--port", port)
+            _check_chunk(label, client.predict(*request))
+            stats = client.stats()
+        log(f"{label}: an atomic reload recovers: exit {recovered.returncode}, parameters "
+            f"bit-equal {_same_params(drawn, server.model)}, checkpoint {stats['checkpoint']!r}")
+        if (recovered.returncode != 0 or stats["checkpoint"] != path
+                or not _same_params(drawn, server.model)):
+            raise RuntimeError(f"{label}: the atomic reload did not recover the server")
+        launches = _counts()
+    finally:
+        _stop(server, thread)
+    served = stats["requests_total"]
     n_layers = cfg["joint"]["config"]["num_hidden_layers"]
-    _check_launches("serve-checkpoint", launches,
-                    {"flash_attention": n_layers - 1, "int4_matmul": 0, "int8_matmul": 0})
-    same = [np.array_equal(a, b) for a, b in zip(actions, want)]
-    log(f"serve-checkpoint: parameters bit-equal to the drawn ones; answers the same bits "
-        f"as the drawing server's: {same}")
-    if not all(same):
-        raise RuntimeError("the checkpoint server answers other bits")
+    log(f"{label}: flash_attention launches {launches['flash_attention']} (expected "
+        f"{(n_layers - 1) * served} = {n_layers - 1} per step x {served} requests served)")
+    if launches != {**{n: 0 for n in KERNEL_NAMES}, "flash_attention": (n_layers - 1) * served}:
+        raise RuntimeError(f"{label}: launched {launches}")
+    del server
+    _free()
+    return launches
+
+
+def _concurrent(port, clients: int, requests: int, request_of):
+    """``clients`` threads, each with its own ActionClient sending
+    ``requests`` requests back to back; returns the wall seconds and
+    (client, latency ms, answer or the RuntimeError) per request."""
+    from blurr_tpu_torch.serving.client import ActionClient
+
+    out, lock = [], threading.Lock()
+
+    def run(c):
+        with ActionClient(port=port) as client:
+            for i in range(requests):
+                t = time.monotonic()
+                try:
+                    answer = client.predict(*request_of(c, i))
+                except RuntimeError as exc:  # the server's {"error": ...}
+                    answer = exc
+                with lock:
+                    out.append((c, (time.monotonic() - t) * 1000.0, answer))
+
+    threads = [threading.Thread(target=run, args=(c,), daemon=True) for c in range(clients)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.monotonic() - t0
+    if any(t.is_alive() for t in threads) or len(out) != clients * requests:
+        raise RuntimeError(f"{len(out)} of {clients * requests} requests came back")
+    return wall, out
+
+
+def _pi0_requests(size, n: int = SERVE_MAX_BATCH):
+    """``n`` distinct requests: image, one of 3 instructions, proprio."""
+    rng = np.random.RandomState(5)
+    instructions = ("put the spoon on the towel", "pick up the carrot",
+                    "put the eggplant in the basket")
+    return [(rng.randint(0, 256, (size, size, 3), np.uint8), instructions[i % 3],
+             rng.uniform(-1, 1, 7).tolist()) for i in range(n)]
+
+
+def _batched_run(server, label, clients, requests, pool) -> dict:
+    """``clients`` concurrent clients, ``requests`` each, over the request
+    pool; every answer a finite chunk in [-1, 1]; logs chunks/s, the client p50 / p99 and
+    this run's batches, occupancy and padding from stats(). Returns this
+    run's counters and answers by pool index."""
+    before = server.stats()
+    wall, out = _concurrent(server.port, clients, requests,
+                            lambda c, i: pool[(c + i) % len(pool)])
+    after = server.stats()
+    for _, _, a in out:
+        if isinstance(a, Exception):
+            raise RuntimeError(f"{label}: a request failed: {a}")
+        _check_chunk(label, a)
+    lat = [ms for _, ms, _ in out]
+    run = {k: after.get(k, 0) - before.get(k, 0)
+           for k in ("batches_total", "live_slots_total", "padded_slots_total")}
+    slots = run["live_slots_total"] + run["padded_slots_total"]
+    p50, p99 = np.percentile(lat, [50, 99])
+    log(f"{label}: {clients} clients x {requests} requests: {len(out) / wall:.3f} chunks/s "
+        f"({len(out)} in {wall:.3f} s), client p50 {p50:.3f} ms p99 {p99:.3f} ms; "
+        f"{run['batches_total']} batches, occupancy "
+        f"{run['live_slots_total'] / max(1, run['batches_total']):.3f}, padding_frac "
+        f"{run['padded_slots_total'] / max(1, slots):.4f} (stats so far: batch_occupancy_mean "
+        f"{after.get('batch_occupancy_mean')}, padding_frac {after.get('padding_frac')}); "
+        f"host clock, on {card()}")
+    if run["live_slots_total"] != len(out):
+        raise RuntimeError(f"{label}: {run['live_slots_total']} live slots for {len(out)} requests")
+    run["chunks_per_s"] = len(out) / wall
+    return run
+
+
+def _check_batched_launches(label, launches, per_step: dict, batches: int) -> None:
+    """Each kernel of ``per_step`` launched that many times per batch;
+    every other kernel never."""
+    want = {name: per_step.get(name, 0) * batches for name in KERNEL_NAMES}
+    for name, n in per_step.items():
+        log(f"{label}: {name} launches {launches[name]} (expected {want[name]} = {n} per "
+            f"step x {batches} batches)")
+    if launches != want:
+        raise RuntimeError(f"{label}: launched {launches}, not {want}")
+
+
+def _warm_buckets(server, label) -> None:
+    for b in server._buckets():
+        log(f"{label}: warmup of bucket {b}: {server._warm(b):.3f} s")
+
+
+def served_batched(device) -> dict:
+    """bridge.yaml blurr with max_batch 8 under 'pow2': the buckets 1, 2, 4
+    and 8 warmed; K1 at the new batch shapes; 1, 2, 4 and 8 concurrent
+    clients; each row of one bucket against a batch-1 step on its inputs
+    and noise row; a step per bucket under torch.profiler; then 'max' at 3
+    clients."""
+    from blurr_tpu_torch.presets import apply_preset, load_config
+    from blurr_tpu_torch.serving.server import ActionServer, _PendingRequest
+
+    label = "serve-batched"
+    cfg = load_config("config/eval/bridge.yaml")
+    apply_preset(cfg, "blurr")
+    cfg["joint"]["config"]["use_flash_attn"] = True
+    n_layers = cfg["joint"]["config"]["num_hidden_layers"]
+    server = ActionServer(cfg, "random", device=device, seed=0, max_batch=SERVE_MAX_BATCH,
+                          batch_window_ms=BATCH_WINDOW_MS)
+    if server._buckets() != [1, 2, 4, 8]:
+        raise RuntimeError(f"{label}: buckets {server._buckets()}")
+    _warm_buckets(server, label)
+    for shape in BATCHED_K1_SHAPES:
+        _hold_flash(shape, torch.bfloat16, BF16_TOL, label, device)
+    pool = _pi0_requests(cfg["vision"]["config"]["image_size"])
+    thread = _start(server)
+    try:
+        _zero_counts()
+        batches = sum(_batched_run(server, label, c, BATCHED_REQUESTS, pool)["batches_total"]
+                      for c in CONCURRENCY)
+        launches = _counts()
+        stats = server.stats()
+    finally:
+        _stop(server, thread)
+    if stats["batches_total"] != batches or stats["errors_total"]:
+        raise RuntimeError(f"{label}: stats {stats}")
+    _check_batched_launches(label, launches, {"flash_attention": n_layers - 1}, batches)
+    # one live bucket of 5 (8 slots), each row against a batch-1 step
+    reqs = pool[:5]
+    pend = [_PendingRequest(server._prepare(*r)) for r in reqs]
+    idx = server._req_idx
+    server._run_batch(pend)
+    noise = server.noise(idx, SERVE_MAX_BATCH)
+    worst = 0.0
+    for i, (p, r) in enumerate(zip(pend, reqs)):
+        if p.error is not None:
+            raise p.error
+        alone = server.model.infer_action(*server._prepare(*r), noise[i:i + 1])
+        worst = max(worst, float(np.abs(p.result - alone[0].float().cpu().numpy()).max()))
+    log(f"{label}: each row of a bucket of 5 live requests (8 slots) against a batch-1 step "
+        f"on its inputs and noise row: max_abs_diff={worst:.3e} (tol {BATCHED_TOL:g})")
+    if worst > BATCHED_TOL:
+        raise RuntimeError(f"{label}: a row of the bucket disagrees with its batch-1 step")
+    image, _, proprio = pool[0]
+    for b in server._buckets():
+        _step_device_time(server, image, proprio, f"{label}, bucket {b}", "flash_attention",
+                          batch=b)
+    del server, pend
+    _free()
+    # 'max': every batch padded to max_batch
+    server = ActionServer(cfg, "random", device=device, seed=0, max_batch=SERVE_MAX_BATCH,
+                          batch_window_ms=BATCH_WINDOW_MS, bucket_mode="max")
+    log(f"{label} (max): buckets {server._buckets()}, warmup {server.warmup():.3f} s")
+    thread = _start(server)
+    try:
+        _zero_counts()
+        run = _batched_run(server, f"{label} (max)", 3, BATCHED_REQUESTS, pool)
+        max_launches = _counts()
+        stats = server.stats()
+    finally:
+        _stop(server, thread)
+    want = SERVE_MAX_BATCH * stats["batches_total"] - stats["live_slots_total"]
+    log(f"{label} (max): padded_slots_total {stats['padded_slots_total']} (expected {want} = "
+        f"{SERVE_MAX_BATCH} x {stats['batches_total']} batches - {stats['live_slots_total']} "
+        f"live)")
+    if stats["padded_slots_total"] != want or run["batches_total"] != stats["batches_total"]:
+        raise RuntimeError(f"{label} (max): stats {stats}")
+    _check_batched_launches(f"{label} (max)", max_launches, {"flash_attention": n_layers - 1},
+                            stats["batches_total"])
+    del server
+    _free()
+    return {name: launches[name] + max_launches[name] for name in KERNEL_NAMES}
+
+
+def served_backpressure(device) -> dict:
+    """bridge.yaml blurr with max_batch 2 and max_queue 2 under 8 concurrent
+    clients: requests are rejected, each rejection reaches its client as an
+    "Overloaded" error, and every other answer is a good chunk."""
+    from blurr_tpu_torch.presets import apply_preset, load_config
+    from blurr_tpu_torch.serving.server import ActionServer
+
+    label = "serve-backpressure"
+    cfg = load_config("config/eval/bridge.yaml")
+    apply_preset(cfg, "blurr")
+    cfg["joint"]["config"]["use_flash_attn"] = True
+    server = ActionServer(cfg, "random", device=device, seed=0, max_batch=2,
+                          batch_window_ms=BATCH_WINDOW_MS, max_queue=2)
+    log(f"{label}: max_batch 2, max_queue 2, warmup {server.warmup():.3f} s")
+    pool = _pi0_requests(cfg["vision"]["config"]["image_size"])
+    thread = _start(server)
+    try:
+        _zero_counts()
+        wall, out = _concurrent(server.port, 8, BACKPRESSURE_REQUESTS,
+                                lambda c, i: pool[(c + i) % len(pool)])
+        launches = _counts()
+        stats = server.stats()
+    finally:
+        _stop(server, thread)
+    rejected = [a for _, _, a in out if isinstance(a, Exception)]
+    answered = [a for _, _, a in out if not isinstance(a, Exception)]
+    for a in answered:
+        _check_chunk(label, a)
+    log(f"{label}: 8 clients x {BACKPRESSURE_REQUESTS} requests in {wall:.3f} s: "
+        f"{len(answered)} answered, {len(rejected)} rejected (first: "
+        f"{str(rejected[0]) if rejected else None!r}); stats rejected_total "
+        f"{stats['rejected_total']}, errors_total {stats['errors_total']}, "
+        f"batches_total {stats.get('batches_total')}")
+    if (not rejected or any("Overloaded" not in str(e) for e in rejected)
+            or stats["rejected_total"] != len(rejected)
+            or stats["errors_total"] != len(rejected) or not answered
+            or stats["requests_total"] != len(answered)):
+        raise RuntimeError(f"{label}: backpressure did not hold: {stats}")
+    n_layers = cfg["joint"]["config"]["num_hidden_layers"]
+    _check_batched_launches(label, launches, {"flash_attention": n_layers - 1},
+                            stats["batches_total"])
+    del server
+    _free()
+    return launches
+
+
+def served_batched_w4a8(device) -> dict:
+    """bridge_pool64_w4a8_steps1.yaml with max_batch 4: every bucket warmed,
+    4 concurrent clients; K2 370 and K1 17 times a batch; every K2 shape
+    the buckets give that kernel's phase did not hold is held here."""
+    from blurr_tpu_torch.ops.int4_matmul import pick_block_layout
+    from blurr_tpu_torch.ops.quant import W4A8Linear
+    from blurr_tpu_torch.presets import load_config
+    from blurr_tpu_torch.serving.server import ActionServer
+
+    label = "serve-batched-w4a8"
+    cfg = load_config("config/eval/bridge_pool64_w4a8_steps1.yaml")
+    cfg["joint"]["config"]["use_flash_attn"] = True
+    n_layers = cfg["joint"]["config"]["num_hidden_layers"]
+    server = ActionServer(cfg, "random", device=device, seed=0, max_batch=4,
+                          batch_window_ms=BATCH_WINDOW_MS)
+    per_step = launches_per_step(server.model, W4A8Linear)
+    if per_step != W4A8_STEP_LAUNCHES:
+        raise RuntimeError(f"{label}: {per_step} int4 linears, not {W4A8_STEP_LAUNCHES}")
+    pool = _pi0_requests(cfg["vision"]["config"]["image_size"])
+    with _RecordInt4Shapes() as served:
+        _warm_buckets(server, label)
+        thread = _start(server)
+        try:
+            _zero_counts()
+            run = _batched_run(server, label, 4, BATCHED_REQUESTS, pool)
+            launches = _counts()
+        finally:
+            _stop(server, thread)
+    _check_batched_launches(label, launches, {"flash_attention": n_layers - 1,
+                                              "int4_matmul": per_step}, run["batches_total"])
+    del server
+    _free()
+    held = set()
+    for m, k, n, groups in INT4_SHAPES:
+        bn, n_pad = pick_block_layout(n)
+        held.add((m, k, n_pad, groups, bn))
+    served_int4_vs_plain(device, served.seen, held, label, "the buckets 1, 2 and 4",
+                         "kernel (the batch-1 step)")
+    return launches
+
+
+def served_openvla_batched(device) -> dict:
+    """OpenVLA-7B w4a8 AR with max_batch 4: 4 instructions of different
+    token counts, each alone (timed serially), then from 4 concurrent
+    clients; each row's tokens must be its solo request's, and a Jacobi
+    bucket must give AR's tokens. K2 1,575 times a batch."""
+    from blurr_tpu_torch.serving.client import ActionClient
+
+    label = "serve-batched-openvla"
+    server = _openvla_server(label, "random-7b", device, quantization="w4a8", max_batch=4,
+                             batch_window_ms=BATCH_WINDOW_MS)
+    frames = _openvla_frames()[:4]
+    reqs = [(f, instr, [0.0] * 7) for f, instr in zip(frames, OPENVLA_BATCH_INSTRUCTIONS)]
+    prepared = [server._prepare(*r) for r in reqs]
+    lengths = [int(p[1].sum()) for p in prepared]
+    if len(set(lengths)) != len(reqs):
+        raise RuntimeError(f"{label}: prompt lengths {lengths} are not all different")
+    _warm_buckets(server, label)
+    solo = [server._step(*p) for p in prepared]  # tokens [1, 7] each
+    bucket = tuple(torch.cat(parts) for parts in zip(*prepared))
+    ar = server._step(*bucket)
+    server.decode = "jacobi"
+    jacobi = server._step(*bucket)
+    server.decode = "ar"
+    same = [np.array_equal(ar[i], s[0]) for i, s in enumerate(solo)]
+    log(f"{label}: prompt lengths {lengths}; a bucket of the 4 requests against each alone: "
+        f"tokens equal {same}; the Jacobi bucket's tokens AR's {np.array_equal(jacobi, ar)}; "
+        f"tokens {ar.tolist()}")
+    if not all(same) or not np.array_equal(jacobi, ar):
+        raise RuntimeError(f"{label}: a bucket's tokens differ from the solo requests'")
+    want = {i: server._post(s)[0] for i, s in enumerate(solo)}
+    thread = _start(server)
+    try:
+        t0 = time.monotonic()
+        with ActionClient(port=server.port) as client:
+            serial = [client.predict(*r) for r in reqs]
+        serial_s = time.monotonic() - t0
+        log(f"{label}: the 4 requests one after another from one client: "
+            f"{len(reqs) / serial_s:.3f} chunks/s ({serial_s:.3f} s; host clock, on {card()})")
+        if not all(np.array_equal(a, want[i]) for i, a in enumerate(serial)):
+            raise RuntimeError(f"{label}: a serial answer is not its solo step's")
+        before = server.stats()["batches_total"]
+        _zero_counts()
+        wall, out = _concurrent(server.port, 4, OPENVLA_BATCH_REQUESTS,
+                                lambda c, i: reqs[c])
+        launches = _counts()
+        batches = server.stats()["batches_total"] - before
+    finally:
+        _stop(server, thread)
+    for c, _, a in out:
+        if isinstance(a, Exception) or not np.array_equal(a, want[c]):
+            raise RuntimeError(f"{label}: client {c} got {a}, not its solo answer {want[c]}")
+    lat = [ms for _, ms, _ in out]
+    log(f"{label}: 4 clients x {OPENVLA_BATCH_REQUESTS} requests: {len(out) / wall:.3f} "
+        f"chunks/s ({len(out)} in {wall:.3f} s; serial above {len(reqs) / serial_s:.3f}), "
+        f"client p50 {np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} ms, "
+        f"{batches} batches, each answer its solo request's; host clock, on {card()}")
+    _check_batched_launches(label, launches, {"int4_matmul": OPENVLA_AR_LAUNCHES}, batches)
+    del server
+    _free()
     return launches
 
 
@@ -1270,14 +1811,17 @@ def _step_median(server, image, proprio, label) -> None:
         f"min {min(times):.3f} over {len(times)} (host clock, synchronized)")
 
 
-def _step_device_time(server, image, proprio, label, *names, top: int = 0) -> None:
+def _step_device_time(server, image, proprio, label, *names, top: int = 0,
+                      batch: int = 1) -> None:
     """One control step under torch.profiler (CUDA activity only): the
     device time of all its kernels and of those of each of ``names`` (the
     names of the port's kernels, e.g. "int4_matmul"); with ``top``, the
-    ``top`` kernels launched most often, each with its count and time."""
+    ``top`` kernels launched most often, each with its count and time; at
+    ``batch`` > 1, a bucket of that many copies of the request."""
     from torch.profiler import ProfilerActivity, profile
 
     inputs = server._prepare(image, "put the spoon on the towel", proprio)
+    inputs = tuple(torch.cat([a] * batch) for a in inputs)
     server._step(*inputs, request_idx=0)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         server._step(*inputs, request_idx=0)
@@ -2492,6 +3036,11 @@ OPENVLA_INT4_SHAPES = [
 ]
 OPENVLA_FRAMES = 5  # requests at 224x224; then one off-size 256x320 frame
 OPENVLA_INSTRUCTION = "put the spoon on the towel"
+# serve-batched-openvla: prompts of 4 token counts in one bucket
+OPENVLA_BATCH_INSTRUCTIONS = ("put the spoon on the towel", "pick up the carrot",
+                              "move the small red block to the left of the bowl",
+                              "open the drawer")
+OPENVLA_BATCH_REQUESTS = 2  # per client
 # K2 launches per request, counted from the code: 7 tokens x (32 layers x 7
 # products + the quantized head); OFT's one forward has no head; MiniVLA's
 # 24 layers and its tied head quantized
@@ -2613,16 +3162,16 @@ class _RecordInt4Shapes:
         quant.int4_matmul = self.inner
 
 
-def served_int4_vs_plain(device, seen: set, held: set) -> None:
-    """Every shape the served OpenVLA phases gave K2 held against its plain
-    version: those kernel-openvla did not hold are held here."""
+def served_int4_vs_plain(device, seen: set, held: set, label: str = "served-int4-shapes",
+                         what: str = "the OpenVLA phases", by: str = "kernel-openvla") -> None:
+    """Every shape served phases gave K2 held against its plain version:
+    those an earlier phase (``by``) did not hold are held here."""
     g = torch.Generator(device=device).manual_seed(3)
     missing = sorted(seen - held)
-    log(f"served-int4-shapes: the OpenVLA phases gave K2 {len(seen)} shapes "
-        f"(M, K, N_pad, G, BN) {sorted(seen)}; {len(missing)} not held by "
-        f"kernel-openvla{f': {missing}' if missing else ''}")
+    log(f"{label}: {what} gave K2 {len(seen)} shapes (M, K, N_pad, G, BN) {sorted(seen)}; "
+        f"{len(missing)} not held by {by}{f': {missing}' if missing else ''}")
     for *shape, bn in missing:
-        _hold_int4(g, tuple(shape), bn, "served-int4-shapes")
+        _hold_int4(g, tuple(shape), bn, label)
     torch.cuda.empty_cache()
 
 
@@ -2655,13 +3204,8 @@ def _serve_openvla(server, label, int4_per_request: int, proprio=None):
     from blurr_tpu_torch.serving.client import ActionClient
 
     frames = _openvla_frames()
-    ready = threading.Event()
-    thread = threading.Thread(target=server.serve_forever,
-                              kwargs={"port": 0, "ready_event": ready}, daemon=True)
-    thread.start()
+    thread = _start(server)
     try:
-        if not ready.wait(60):
-            raise RuntimeError("server did not start listening")
         log(f"{label}: warmup {server.warmup():.2f} s")
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
@@ -2676,10 +3220,7 @@ def _serve_openvla(server, label, int4_per_request: int, proprio=None):
         launches = _counts()
         peak = torch.cuda.max_memory_allocated()
     finally:
-        server.stop()
-        thread.join(30)
-    if thread.is_alive():
-        raise RuntimeError("server thread did not stop")
+        _stop(server, thread)
     want = (server.model.chunk_len, 7) if server.oft else (7,)
     for a in answers:
         if a.shape != want or not np.isfinite(a).all() or (
@@ -3034,13 +3575,16 @@ def main() -> int:
     model_kernel_vs_plain(server, image, proprio)
     checkpoint_launches = served_checkpoint(device, server, cfg, actions)
     del server
-    torch.cuda.empty_cache()
+    _free()
+    batched_launches = served_batched(device)
+    backpressure_launches = served_backpressure(device)
     small_model_vs_cpu(device)
     baseline_launches = served_baseline_steps(device)
     torch.cuda.empty_cache()
     small_model_vs_cpu(device, adaptive="adaLN-Zero")
     w4a8_launches = served_w4a8_steps(device)
     torch.cuda.empty_cache()
+    batched_w4a8_launches = served_batched_w4a8(device)
     small_model_vs_cpu(device, "w4a8")
     int8_launches = served_int8_steps(device, cache_fp=False)
     torch.cuda.empty_cache()
@@ -3057,7 +3601,7 @@ def main() -> int:
         async_launches = eval_agent_async(agent)
         del agent
         _free()
-        batched_launches = eval_agent_batched(device)
+        eval_batched_launches = eval_agent_batched(device)
         _free()
         eval_w4a8_launches = eval_agent_w4a8(device, tmp)
         _free()
@@ -3072,12 +3616,14 @@ def main() -> int:
     with _RecordInt4Shapes() as served:
         openvla_runs = (served_openvla_7b(device), served_openvla_7b_w4a8(device),
                         served_openvla_7b_w8a8(device), served_openvla_oft(device),
-                        served_minivla(device), openvla_snapshot(device))
+                        served_minivla(device), openvla_snapshot(device),
+                        served_openvla_batched(device))
     jacobi_fp32(device)
     served_int4_vs_plain(device, served.seen, held)
-    runs = (launches, checkpoint_launches, baseline_launches, w4a8_launches, int8_launches,
+    runs = (launches, checkpoint_launches, batched_launches, backpressure_launches,
+            baseline_launches, w4a8_launches, batched_w4a8_launches, int8_launches,
             cached_launches, experiment_launches, eval_launches, frame_launches,
-            async_launches, batched_launches, eval_w4a8_launches, small_agent_launches,
+            async_launches, eval_batched_launches, eval_w4a8_launches, small_agent_launches,
             text_pi0_launches, text_paligemma_launches, small_text_launches, *openvla_runs)
     total = {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
     measured = {"flash_attention": flash, "int4_matmul": int4, "int8_matmul": int8,

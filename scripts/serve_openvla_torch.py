@@ -14,9 +14,11 @@ product through the port's int4 kernel. Clients: the port's
 blurr_tpu_torch.serving.client.ActionClient (or the JAX package's, the same
 wire bytes): .predict(image_u8_hw3, instruction, proprio) -> [action_dim]
 actions (normalized [-1, 1] unless --unnorm-key; OFT: a [chunk-len,
-action_dim] chunk). The flags of what is not ported yet (--max-batch > 1,
---max-queue, --bucket-mode max, --tp / --dp > 1, --checkpoint) fail with
-the server's message naming the ROADMAP milestone.
+action_dim] chunk). --max-batch, --batch-window-ms, --bucket-mode and
+--max-queue are dynamic batching's, as in scripts/serve_pi0_torch.py
+(ragged prompts co-batch: each answer is its request's alone). The flags of
+what is not ported yet (--tp / --dp > 1, --checkpoint) fail with the
+server's message naming the ROADMAP milestone.
 """
 
 from __future__ import annotations
@@ -46,8 +48,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=42,
                    help="generator seed of a random model id's weights")
     p.add_argument("--max-batch", type=int, default=1)
-    p.add_argument("--batch-window-ms", type=float, default=2.0,
-                   help="dynamic batching's window; only the default is taken")
+    p.add_argument("--batch-window-ms", type=float, default=2.0)
     p.add_argument("--bucket-mode", type=str, default="pow2", choices=["pow2", "max"])
     p.add_argument("--max-queue", type=int, default=0)
     p.add_argument("--decode", type=str, default="ar", choices=["ar", "jacobi"],

@@ -4,8 +4,7 @@
     python scripts/serve_pi0_torch.py \\
         --config config/eval/bridge.yaml --preset blurr --port 8787
 
-The port's counterpart of scripts/serve_pi0.py, on the single-request path.
-It serves on the card (--device, default cuda); --device cpu runs the plain
+The port's counterpart of scripts/serve_pi0.py, with its flags. It serves on the card (--device, default cuda); --device cpu runs the plain
 versions of the kernels. With no card and no --device cpu it fails on its
 first CUDA call: nothing falls back to the CPU. Clients: the port's
 blurr_tpu_torch.serving.client.ActionClient, or the JAX package's
@@ -25,6 +24,14 @@ config, so its num_inference_steps wins; --preset baseline (or vanilla)
 serves the naive step (no prefix cache, fp32, 10 flow steps). Joint
 attention runs through the port's CUDA flash kernel only when the config
 sets joint.config.use_flash_attn.
+
+--max-batch N > 1 turns on dynamic batching: requests that arrive within
+--batch-window-ms of each other are padded to the next power-of-2 bucket
+(--bucket-mode max: always N) and served by one step; --max-queue M > 0
+rejects a request with an "Overloaded" error while M wait unclaimed. The
+startup warmup runs every bucket. --tp / --dp > 1 are refused (ROADMAP
+M14). scripts/serve_ctl_torch.py reads a running server's stats and
+hot-reloads its weights.
 """
 
 from __future__ import annotations
@@ -55,21 +62,37 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to serve on: cuda (default), cuda:1, "
                         "or cpu (the plain versions of the kernels)")
+    p.add_argument("--max-batch", type=int, default=1,
+                   help="dynamic batching: requests arriving within --batch-window-ms "
+                        "are padded to a bucket and served by one step")
+    p.add_argument("--batch-window-ms", type=float, default=2.0)
+    p.add_argument("--bucket-mode", type=str, default="pow2", choices=["pow2", "max"],
+                   help="pow2: the next power-of-2 bucket; max: every batch padded "
+                        "to --max-batch (one shape)")
+    p.add_argument("--max-queue", type=int, default=0,
+                   help="backpressure: reject a request while this many wait "
+                        "unclaimed (0 admits everything)")
+    p.add_argument("--tp", type=int, default=1, help="tensor parallelism (not ported: M14)")
+    p.add_argument("--dp", type=int, default=1, help="data parallelism (not ported: M14)")
     return p.parse_args(argv)
 
 
-def main(argv=None):
+def build_server(args):
     from blurr_tpu_torch.presets import apply_preset, load_config
-
-    args = parse_args(argv)
-
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(message)s")
     from blurr_tpu_torch.serving.server import ActionServer
 
     cfg = load_config(args.config)
     apply_preset(cfg, args.preset)
-    server = ActionServer(cfg, args.checkpoint, device=args.device,
-                          seed=args.seed)
+    return ActionServer(cfg, args.checkpoint, device=args.device, seed=args.seed,
+                        max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
+                        tp=args.tp, dp=args.dp, max_queue=args.max_queue,
+                        bucket_mode=args.bucket_mode)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(message)s")
+    server = build_server(args)
     logging.info("warmup took %.1f s", server.warmup())
     server.serve_forever(args.host, args.port)
 

@@ -3,9 +3,10 @@
 In a subprocess where both ``import jax`` and ``import blurr_tpu`` fail:
 import blurr_tpu_torch, load a bundled config, run a tiny random
 infer_action on the CPU (and its naive step with an adaLN-Zero expert),
-build the port's ActionServer (bf16, w4a8, int8 with the int8 KV cache, the
-baseline preset's naive step, and from a .pt checkpoint it wrote) and drive
-it through the port's own ActionClient, import the experiment modules,
+build the port's ActionServer (bf16, w4a8, int8 with the int8 KV cache and
+dynamic batching, the baseline preset's naive step, and from a .pt
+checkpoint it wrote) and drive it through the port's own ActionClient and
+``scripts/serve_ctl_torch.py``'s reload, import the experiment modules,
 resize an off-size frame on the native and the torch rungs, and run the eval
 agent (serial with the async pipeline, and batched) and the eval CLI on the
 fake env, run a tiny Pi-0 text generation and a tiny PaliGemma
@@ -14,7 +15,7 @@ with ``load_hf_model``, and run the text demo's random mode; then the
 OpenVLA family: servers (bf16 and w4a8, AR and Jacobi, OFT with proprio)
 driven through the port's client, an HF snapshot written and served, and
 ``scripts/serve_openvla_torch.py``'s server. Then a static check: no
-``.py`` file of the port, nor ``chip_smoke.py`` or the port's four CLIs,
+``.py`` file of the port, nor ``chip_smoke.py`` or the port's five CLIs,
 has an import whose top-level module is ``jax`` or ``blurr_tpu``.
 """
 
@@ -92,15 +93,21 @@ SCRIPT = textwrap.dedent(
                                   "cache_fp_weight": False}
     cfg["kv_quantization"] = {"mode": "int8", "activation_clip": 1.0,
                               "dtype": "bfloat16"}
-    srv = ActionServer(cfg, "random", device="cpu")  # ops.quant, int8_matmul
+    # ops.quant, int8_matmul; dynamic batching, a reload by serve_ctl_torch
+    srv = ActionServer(cfg, "random", device="cpu", max_batch=2)
     ready = threading.Event()
     t = threading.Thread(target=srv.serve_forever,
                          kwargs={"port": 0, "ready_event": ready}, daemon=True)
     t.start()
     assert ready.wait(60)
+    sys.path.insert(0, "scripts")
+    import serve_ctl_torch
+    assert serve_ctl_torch.main(["reload", "random", "--port", str(srv.port)]) == 0
     with ActionClient(port=srv.port) as client:
         act = client.predict(np.zeros((size, size, 3), np.uint8), "pick", [0.0] * 7)
-        assert client.stats()["requests_total"] == 1
+        stats = client.stats()
+        assert (stats["requests_total"], stats["batches_total"], stats["reloads_total"]) == (
+            1, 1, 1)
     srv.stop()
     t.join(30)
     assert act.shape == (4, 7) and np.isfinite(act).all()
@@ -231,7 +238,8 @@ PORT_FILES = sorted((REPO_ROOT / "blurr_tpu_torch").rglob("*.py")) + [
     REPO_ROOT / "chip_smoke.py", REPO_ROOT / "scripts" / "eval_pi0_simpler_torch.py",
     REPO_ROOT / "scripts" / "serve_pi0_torch.py",
     REPO_ROOT / "scripts" / "demo_paligemma_text_torch.py",
-    REPO_ROOT / "scripts" / "serve_openvla_torch.py"]
+    REPO_ROOT / "scripts" / "serve_openvla_torch.py",
+    REPO_ROOT / "scripts" / "serve_ctl_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))

@@ -2,8 +2,10 @@
 CLI (``scripts/serve_openvla_torch.py``) on the CPU: a TCP round trip
 through the port's ActionClient, answers equal to the model's own
 ``predict_action`` (AR, Jacobi, MiniVLA, w4a8), OFT with and without
-proprio, ``unnorm_key``, the bounded token cache, the flags it refuses, and
-JAX's server and the port's on one snapshot giving the same answers."""
+proprio, ``unnorm_key``, the bounded token cache, the batching flags it
+takes and the flags it refuses, and JAX's server and the port's on one
+snapshot giving the same answers. Buckets of ragged requests:
+``tests/test_torch_serving_batch.py``."""
 
 import sys
 import threading
@@ -127,14 +129,33 @@ def test_token_cache_is_bounded():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"max_batch": 2}, "max_batch.*M10"), ({"max_queue": 4}, "max_queue.*M10"),
-    ({"bucket_mode": "max"}, "bucket_mode.*M10"), ({"tp": 2}, "tp.*M14"),
-    ({"dp": 2}, "dp.*M14"), ({"checkpoint_path": "/x"}, "checkpoint_path.*M13"),
-    ({"batch_window_ms": 25.0}, "batch_window_ms.*M10"),
+    ({"tp": 2}, "tp.*M14"), ({"dp": 2}, "dp.*M14"),
+    ({"checkpoint_path": "/x"}, "checkpoint_path.*M13"),
 ])
 def test_refused_flags_name_their_milestone(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         _server(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"max_batch": 2}, {"max_batch": 2, "max_queue": 4},
+    {"max_batch": 3, "bucket_mode": "max"}, {"max_batch": 2, "batch_window_ms": 25.0},
+])
+def test_batching_flags_serve(kw):
+    """The flags of dynamic batching build a server that answers what the
+    single-request server answers, and report themselves in stats."""
+    srv, solo = _server(**kw), _server()
+    try:
+        img, instr, prop = _request(9)
+        np.testing.assert_array_equal(srv.predict(img, instr, prop),
+                                      solo.predict(img, instr, prop))
+        stats = srv.stats()
+        assert stats["max_batch"] == kw["max_batch"] and stats["batches_total"] == 1
+        assert stats["bucket_mode"] == kw.get("bucket_mode", "pow2")
+        assert srv.max_queue == kw.get("max_queue", 0)
+        assert srv.batch_window_s == kw.get("batch_window_ms", 2.0) / 1000.0
+    finally:
+        srv.stop()
 
 
 def test_seed_draws_the_random_weights():
@@ -159,9 +180,41 @@ def test_cli_builds_the_server_and_refuses_what_the_server_refuses():
     assert serve_openvla_torch.parse_args([]).device == "cuda"
     srv = serve_openvla_torch.build_server(args)
     assert srv.device == torch.device("cpu") and srv.dtype == torch.float32 and srv.oft
-    with pytest.raises(NotImplementedError, match="M10"):
+    batched = serve_openvla_torch.build_server(serve_openvla_torch.parse_args(
+        ["--device", "cpu", "--max-batch", "4", "--batch-window-ms", "5", "--bucket-mode",
+         "max", "--max-queue", "3"]))
+    try:
+        assert (batched.max_batch, batched.batch_window_s, batched.bucket_mode,
+                batched.max_queue) == (4, 0.005, "max", 3)
+    finally:
+        batched.stop()
+    for flag, match in (("--tp", "tp.*M14"), ("--dp", "dp.*M14")):
+        with pytest.raises(NotImplementedError, match=match):
+            serve_openvla_torch.build_server(serve_openvla_torch.parse_args(
+                ["--device", "cpu", flag, "2"]))
+    with pytest.raises(NotImplementedError, match="M13"):
         serve_openvla_torch.build_server(serve_openvla_torch.parse_args(
-            ["--device", "cpu", "--max-batch", "4"]))
+            ["--device", "cpu", "--checkpoint", "/x"]))
+    # scripts/serve_pi0_torch.py: the same batching flags, JAX's defaults
+    from tests.test_torch_serving import _serve_script
+
+    pi0 = _serve_script()
+    defaults = pi0.parse_args([])
+    assert (defaults.max_batch, defaults.batch_window_ms, defaults.bucket_mode,
+            defaults.max_queue, defaults.tp, defaults.dp) == (1, 2.0, "pow2", 0, 1, 1)
+    tiny = ["--config", "config/eval/bridge_tiny.yaml", "--device", "cpu"]
+    srv = pi0.build_server(pi0.parse_args(tiny + [
+        "--max-batch", "4", "--batch-window-ms", "5", "--bucket-mode", "max",
+        "--max-queue", "3"]))
+    try:
+        assert (srv.max_batch, srv.batch_window_s, srv.bucket_mode, srv.max_queue) == (
+            4, 0.005, "max", 3)
+        assert srv._buckets() == [4] and srv.device == torch.device("cpu")
+    finally:
+        srv.stop()
+    for flag in ("--tp", "--dp"):
+        with pytest.raises(NotImplementedError, match="M14"):
+            pi0.build_server(pi0.parse_args(tiny + [flag, "2"]))
 
 
 def test_jax_and_port_servers_answer_alike_on_one_snapshot(tmp_path):
