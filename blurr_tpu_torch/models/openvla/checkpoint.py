@@ -412,7 +412,7 @@ def save_oft_aux_params(path: str, action_head: Optional[OFTActionHead] = None,
 
 
 
-def load_openvla_hf_dir(model: OpenVLA, path: str) -> OpenVLA:
+def load_openvla_hf_dir(model: OpenVLA, path: str, lora: bool = True) -> OpenVLA:
     """A fused snapshot directory's weights into the model's LLM, towers and
     projector in place (an OFT model's head is left to
     ``load_oft_aux_params``), through the key map the writer uses
@@ -420,8 +420,11 @@ def load_openvla_hf_dir(model: OpenVLA, path: str) -> OpenVLA:
     parameter, cast to the parameter's device and dtype, with no stacked or
     transposed copy on the host. A position table of the other layout than
     a tower's replaces it; the blocks a tower never runs are not read.
-    Raises on a missing key or a shape mismatch."""
-    _refuse_lora(path)
+    Raises on a missing key or a shape mismatch. A ``lora_adapter/``
+    directory raises unless ``lora`` is False, which ignores it (JAX's
+    ``merge_lora=False``)."""
+    if lora:
+        _refuse_lora(path)
     state = load_safetensors_dir(path)
     for vit, prefix in ((model.dinov2, "vision_backbone.featurizer."),
                         (model.siglip, "vision_backbone.fused_featurizer.")):
@@ -480,13 +483,8 @@ def _vit_keys(vit: ViT, prefix: str):
             yield bp + "ls2.gamma", block.ls2
 
 
-def openvla_hf_state_dict(model: OpenVLA) -> Dict[str, torch.Tensor]:
-    """The HF key map of a fused model with fp weights, used both ways:
-    {HF key: the model's own tensor or a view of it (the patch linear as
-    the HF convolution, the position table with its batch axis)}.
-    ``save_openvla_snapshot`` writes it and ``load_openvla_hf_dir`` copies
-    the file's tensors into it; the blocks that never run are absent."""
-    llama, p = model.llama, "language_model."
+def _llama_keys(llama, p: str) -> Dict[str, torch.Tensor]:
+    """The HF keys of the LLM under the prefix ``p``."""
     out = {p + "model.embed_tokens.weight": llama.embed_tokens,
            p + "model.norm.weight": llama.final_norm}
     if llama.lm_head is not None:
@@ -500,6 +498,16 @@ def openvla_hf_state_dict(model: OpenVLA) -> Dict[str, torch.Tensor]:
         for q in ("q", "k", "v"):
             if hasattr(layer, f"{q}_b"):
                 out[f"{lp}self_attn.{q}_proj.bias"] = getattr(layer, f"{q}_b")
+    return out
+
+
+def openvla_hf_state_dict(model: OpenVLA) -> Dict[str, torch.Tensor]:
+    """The HF key map of a fused model with fp weights, used both ways:
+    {HF key: the model's own tensor or a view of it (the patch linear as
+    the HF convolution, the position table with its batch axis)}.
+    ``save_openvla_snapshot`` writes it and ``load_openvla_hf_dir`` copies
+    the file's tensors into it; the blocks that never run are absent."""
+    out = _llama_keys(model.llama, "language_model.")
     out.update(_vit_keys(model.dinov2, "vision_backbone.featurizer."))
     out.update(_vit_keys(model.siglip, "vision_backbone.fused_featurizer."))
     for name in ("fc1", "fc2", "fc3"):

@@ -24,8 +24,7 @@ built for Gemma's 8:1 heads of 256 with a clamp. The KV cache is a pair of
 decode step reads nothing back from the device. ``greedy_generate`` keeps
 the tokens on the device until the caller fetches them;
 ``greedy_generate_jacobi`` reads one flag back per sweep. Not ported:
-``relayout_qkv_for_jacobi`` (a TPU layout fix) and
-``quantize_llama_streaming`` (the HF-VLA eval's loader).
+``relayout_qkv_for_jacobi`` (a TPU layout fix).
 """
 
 from __future__ import annotations
@@ -43,8 +42,7 @@ from blurr_tpu_torch.ops.int4_matmul import pick_block_layout, pick_group_size
 from blurr_tpu_torch.ops.quant import (
     W4A8Linear,
     W8A8Linear,
-    quantize_mixture_w4a8,
-    quantize_mixture_w8a8,
+    _swap,
     quantize_weight_w4a8,
     quantize_weight_w8a8,
 )
@@ -53,6 +51,8 @@ from blurr_tpu_torch.ops.rotary import apply_rope, rope_cos_sin
 # (k, v), each [L, B, KVH, max_len, D]
 Cache = Tuple[torch.Tensor, torch.Tensor]
 QUANT_INITS = ("w8a8", "w4a8")
+# the linears of a layer, in JAX's order (q_w ... down_w)
+LAYER_LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 
 
 @dataclass(frozen=True)
@@ -159,8 +159,7 @@ class Llama(nn.Module):
         self.lm_head = None if s.tie_word_embeddings else nn.Linear(h, s.vocab_size, bias=False, **kw)
         if quant_init is not None:
             for layer in self.layers:
-                for name in ("q_proj", "k_proj", "v_proj", "o_proj",
-                             "gate_proj", "up_proj", "down_proj"):
+                for name in LAYER_LINEARS:
                     lin = getattr(layer, name)
                     setattr(layer, name, _empty_quantized(
                         quant_init, lin.in_features, lin.out_features, device))
@@ -247,26 +246,46 @@ def _materialize_tied_head(llama: Llama, quantize) -> None:
     llama.lm_head = quantize(llama.embed_tokens.detach().t())
 
 
+def _quantize_llama(llama: Llama, from_linear, quantize, quantize_lm_head: bool) -> Llama:
+    """Each linear kind over every layer in turn, the smallest kinds first
+    (q, k, v, o, then gate, up, down for LLaMA-2-7B: the order JAX's
+    memory-bounded quantizer sorts them in), then the head. Each fp weight
+    goes with the module it replaces, so by the larger kinds the smaller
+    ones' freed bytes cover their quantization transients (OpenVLA-7B w4a8
+    on an H100: 336 MB above the start, 805 MB layer by layer)."""
+    first = llama.layers[0]
+    size = lambda a: getattr(first, a).in_features * getattr(first, a).out_features
+    for attr in sorted(LAYER_LINEARS, key=size):
+        for layer in llama.layers:
+            _swap(layer, attr, from_linear)
+    if quantize_lm_head:
+        _quantize_head(llama, from_linear, quantize)
+    return llama
+
+
 @torch.no_grad()
 def quantize_llama_w8a8(llama: Llama, quantize_lm_head: bool = True) -> Llama:
     """Swap every layer linear (and the head) for a ``W8A8Linear``; the
     embedding stays fp."""
-    quantize_mixture_w8a8(llama.layers)
-    if quantize_lm_head:
-        _quantize_head(llama, W8A8Linear.from_linear,
-                       lambda w: W8A8Linear(**quantize_weight_w8a8(w)))
-    return llama
+    return _quantize_llama(llama, W8A8Linear.from_linear,
+                           lambda w: W8A8Linear(**quantize_weight_w8a8(w)), quantize_lm_head)
 
 
 @torch.no_grad()
 def quantize_llama_w4a8(llama: Llama, quantize_lm_head: bool = True) -> Llama:
     """Swap every layer linear (and the head) for a ``W4A8Linear`` with
     512-row groups where K allows (``pick_group_size``)."""
-    quantize_mixture_w4a8(llama.layers)
-    if quantize_lm_head:
-        _quantize_head(llama, W4A8Linear.from_linear,
-                       lambda w: W4A8Linear(**quantize_weight_w4a8(w)))
-    return llama
+    return _quantize_llama(llama, W4A8Linear.from_linear,
+                           lambda w: W4A8Linear(**quantize_weight_w4a8(w)), quantize_lm_head)
+
+
+def quantize_llama_streaming(llama: Llama, mode: str, quantize_lm_head: bool = True) -> Llama:
+    """JAX's name for the quantizers above, by ``mode``: its streaming
+    form exists because JAX's trees are immutable; the port's quantizers
+    already free each fp weight as they go."""
+    if mode not in QUANT_INITS:
+        raise ValueError(f"mode {mode!r}: expected one of {QUANT_INITS}")
+    return (quantize_llama_w8a8 if mode == "w8a8" else quantize_llama_w4a8)(llama, quantize_lm_head)
 
 
 # ---------------------------------------------------------------------------

@@ -331,6 +331,14 @@ def _patch_to_conv(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(d, p, p, 3).permute(0, 3, 1, 2)
 
 
+def reference_state_dict(model: PiZero) -> Dict[str, torch.Tensor]:
+    """{reference key: the model's tensor} (the patch linear as the
+    reference's convolution, a view; the proprio keys name the action
+    mixture's tensors). On a meta model it gives the reference's shapes."""
+    return {key: _patch_to_conv(t) if key == _PATCH_KEY else t
+            for key, t in _reference_keys(model)}
+
+
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """The state dict of a reference ``.pt``: ``torch.load`` with
     ``weights_only`` (memory-mapped, on the CPU), the ``"model"`` entry when
@@ -399,11 +407,10 @@ def torch_state_dict(model: PiZero) -> Dict[str, torch.Tensor]:
     tensors. The proprio keys hold the action mixture's tensors (one copy
     each, shared by the two keys, as a tied torch module's state dict)."""
     out, copies = {}, {}
-    for key, param in _reference_keys(model):
-        if id(param) not in copies:
-            t = param.detach().to("cpu", torch.float32, copy=True)
-            copies[id(param)] = _patch_to_conv(t).contiguous() if key == _PATCH_KEY else t
-        out[key] = copies[id(param)]
+    for key, t in reference_state_dict(model).items():
+        if id(t) not in copies:
+            copies[id(t)] = t.detach().to("cpu", torch.float32, copy=True).contiguous()
+        out[key] = copies[id(t)]
     return out
 
 

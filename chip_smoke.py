@@ -34,7 +34,8 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              plain version, the library's int8 weight-only product
              (torch._weight_int8pack_mm, bf16 scales) and a bf16 matmul of
              the dequantized weight timed at the action gate and down
-             projection shapes. Every kernel is
+             projection shapes; at every shape its bound and, in a CUDA
+             graph, the library call and the dense matmul. Every kernel is
              timed two ways: CUDA events around 50 eager launches (which
              for a short kernel time its wrapper's host work) and inside a
              CUDA graph (the device's time alone).
@@ -294,11 +295,46 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              away (two sweeps or more); each planted fault of
              JACOBI_FAULTS (tail positions shifted, the tail's mask wrong)
              must read over that bound.
+32. eval-hf-7b-w4a8 - scripts/eval_hf_vla_simpler_torch.py's main()
+             in-process: --model-id random-7b --quantization w4a8 --preset
+             blurr, 2 episodes of 4 steps on the fake env, whose make_env
+             records every action: K2 exactly 1,575 times a control step;
+             every env action bridge_action_to_simpler(predict_action)
+             recomputed on the same processed inputs; summary.json with the
+             JAX script's keys; the step's host-clock median and one step
+             under torch.profiler (device time, K2's share); then the same
+             command in a subprocess (exit 0, "Success rate:" in run.log).
+33. eval-hf-snapshot - a full-depth OpenVLA-7B bf16 snapshot written by
+             save_openvla_snapshot with a config.json norm_stats
+             (bridge_orig) and a dataset_statistics.json (bridge_dataset):
+             verify-checkpoint --kind openvla on it; the CLI on it with
+             --quantization w4a8: quantize_llama_streaming's peak above its
+             start within quantizing the head alone plus
+             STREAMING_PEAK_SLACK (both logged), its bytes those of the
+             drawn weights quantized layer by layer (that order's peak
+             logged beside it), then the head, unnorm key
+             bridge_orig, the actions as in phase 32; then an OFT head
+             (chunk 8) and an 8-input proprio projector written beside it:
+             OFT with proprio, K2 224 times a step, every action of each
+             [8, 7] chunk executed.
+34. eval-prismatic - scripts/eval_prismatic_vla_simpler_torch.py's main()
+             at MiniVLA's widths and depth, bf16: --checkpoint random, then
+             a prismatic .pt of weights drawn on the card in the
+             run_dir/checkpoints/ layout beside a dataset_statistics.json:
+             loaded bit-equal, no "PARTIAL LOAD", the dataset's unnorm key,
+             the actions as in phase 32, every gripper value in {-1, 1}; no
+             kernel launches (plain PyTorch in bf16).
+35. verify-checkpoint - scripts/verify_checkpoint_torch.py's main() inside
+             serve-checkpoint (the 12.95 GB .pt, --kind pi0), text-paligemma
+             (its 2 shards, --kind paligemma) and eval-hf-snapshot (--kind
+             openvla): each a clean match, exit 0.
+Phases 32-34 run inside the recording of phases 25-30b, so
+served-int4-shapes holds their K2 shapes too.
 Then one JSON line of the kernels (launches summed over the served runs of
 phases 4-10 with the batched, backpressure and reload runs, the
 experiments run, the eval runs of phases 14-18 and 20, the text runs of
-phases 21-23 and the OpenVLA runs of phases 25-30b, the counts set to 0
-just before each; errors
+phases 21-23, the OpenVLA runs of phases 25-30b and the eval CLIs' runs of
+phases 32-34, the counts set to 0 just before each; errors
 and times measured here: ms and plain_ms with CUDA events, graph_ms and
 plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
 function where there is one, at the first timed shape of each kernel;
@@ -840,8 +876,15 @@ def int8_vs_plain(device) -> dict:
         xb = x.bfloat16()
         ms = _time_ms(lambda: int8_matmul(xb, q, s), iters=20)
         graph_ms = _graph_ms(lambda: int8_matmul(xb, q, s))
+        least = _bound((xb, q, s), (xb.new_empty(m, n),), 2 * m * k * n, "bf16")
+        q_nk, s_bf16, wb = q.t().contiguous(), s.bfloat16(), (q.float() * s).bfloat16()
+        library = _graph_ms(lambda: torch._weight_int8pack_mm(xb, q_nk, s_bf16))
+        dense = _graph_ms(lambda: torch.matmul(xb, wb))
         log(f"kernel: int8_matmul (M, K, N)={shape} bf16 kernel {ms:.4f} ms "
-            f"(CUDA events, 20 launches), {graph_ms:.4f} ms in a CUDA graph")
+            f"(CUDA events, 20 launches), {graph_ms:.4f} ms in a CUDA graph; bound "
+            f"{least['bound_ms']:.5f} ms ({least['bound_by']}); in a CUDA graph "
+            f"torch._weight_int8pack_mm {library:.4f} ms, bf16 matmul of the dequantized "
+            f"weight {dense:.4f} ms")
     times = {}
     for shape in INT8_TIMED:
         x, q, s = inputs(*shape)
@@ -1298,6 +1341,8 @@ def served_checkpoint(device, server, cfg, want) -> dict:
             raise RuntimeError("the checkpoint server answers other bits")
         del loaded
         _free()
+        verify_checkpoint("serve-checkpoint", ["--checkpoint", path, "--kind", "pi0",
+                                               "--config", "config/eval/bridge.yaml"])
         reload_launches = served_reload(device, cfg, model, path, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2603,10 +2648,11 @@ def _pi0_forced_logits(model, ids, px, tokens, am=None) -> torch.Tensor:
     return torch.cat(outs, 1).float()
 
 
-def _profile_text(label, what: str, call) -> None:
+def _profile_text(label, what: str, call, *names) -> None:
     """One ``call()`` under torch.profiler (CUDA activity): its device time
     and kernel count beside its host time, which gives the device's busy
-    share of that call."""
+    share of that call; and the share of each of the port's kernels
+    ``names`` (e.g. "int4_matmul")."""
     from torch.profiler import ProfilerActivity, profile
 
     call()
@@ -2618,9 +2664,14 @@ def _profile_text(label, what: str, call) -> None:
         host_ms = (time.monotonic() - t0) * 1000.0
     kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1000.0
+    shares = ""
+    for name in names:
+        ours = [e for e in kernels if name in e.key]
+        shares += (f"; {name} {sum(e.self_device_time_total for e in ours) / 1000.0:.3f} ms "
+                   f"of it over {sum(e.count for e in ours)} kernels")
     log(f"{label}: {what} under torch.profiler: device time {device_ms:.3f} ms over "
         f"{sum(e.count for e in kernels)} kernels in {host_ms:.3f} ms of host time (the "
-        f"device busy {device_ms / host_ms:.1%} of it, profiler on)")
+        f"device busy {device_ms / host_ms:.1%} of it, profiler on){shares}")
 
 
 def _check_text_launches(label, prefill, run, n_layers) -> None:
@@ -2843,6 +2894,7 @@ def text_paligemma(device) -> dict:
         t_write = time.monotonic() - t0
         del state
         n_bytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        verify_checkpoint(label, ["--checkpoint", tmp, "--kind", "paligemma"])
         t0 = time.monotonic()
         model = load_hf_model(tmp, torch.bfloat16, device)
         torch.cuda.synchronize()
@@ -3558,6 +3610,426 @@ def openvla_snapshot(device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The OpenVLA-family eval CLIs and the checkpoint checker
+# ---------------------------------------------------------------------------
+
+# the HF eval CLI's run: 2 episodes of 4 control steps on the fake env
+HF_EVAL_ARGS = ["--task", EVAL_TASK, "--n-eval-episode", "2", "--max-steps", "4",
+                "--preset", "blurr"]
+HF_EVAL_CALLS = 8  # 2 x 4 AR control steps; OFT: 2 x one [8, 7] chunk at --max-steps 8
+# summary.json's keys, as the JAX script writes them
+HF_SUMMARY_KEYS = {
+    "model_id", "preset", "quantization", "dtype", "torch_compile", "attn_implementation",
+    "image_preproc", "center_crop", "center_crop_scale", "normalize_proprio",
+    "use_oft_action_head", "use_oft_proprio", "seed", "initial_states", "max_steps",
+    "num_steps_wait", "episodes_per_task", "per_task_success", "avg_success"}
+PRISMATIC_SUMMARY_KEYS = {
+    "checkpoint", "unnorm_key", "num_steps_wait", "dtype", "seed", "initial_states",
+    "max_steps", "episodes_per_task", "per_task_success", "avg_success"}
+# the streaming quantizer's peak above its start may exceed quantizing the
+# largest weight (the head) alone by no more than this
+STREAMING_PEAK_SLACK = 64 * 2**20
+# the eval snapshot's statistics: config.json's norm_stats (bridge_orig) and
+# dataset_statistics.json (bridge_dataset, with an 8D proprio block) so the
+# injection and the proprio normalization run
+EVAL_CONFIG_STATS = {"bridge_orig": {"action": {
+    "q01": [-0.03, -0.04, -0.03, -0.1, -0.1, -0.2, 0.0],
+    "q99": [0.03, 0.04, 0.03, 0.1, 0.1, 0.2, 1.0], "mask": [True] * 6 + [False]}}}
+EVAL_DATASET_STATS = {"bridge_dataset": {
+    "action": {"q01": [-1.0] * 7, "q99": [1.0] * 7, "mean": [0.0] * 7},
+    "proprio": {"q01": [0.0, 0.0, 0.0, -3.0, -3.0, -3.0, 0.0, 0.0],
+                "q99": [0.3, 0.3, 0.3, 3.0, 3.0, 3.0, 1.0, 1.0]}}}
+PRISMATIC_STATS = {"minivla_bridge": {"action": {
+    "q01": [-0.02] * 6 + [0.0], "q99": [0.02] * 6 + [1.0], "mask": [True] * 6 + [False]}}}
+
+
+def _cli(name: str):
+    """A CLI of scripts/ imported as a module (its main() runs in-process)."""
+    import importlib
+
+    scripts = str(REPO_ROOT / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
+
+
+class _EvalRun:
+    """An eval CLI's main() in-process with the counts set to 0 just before
+    and read just after (``launches``); the fake env records every action
+    it is given, and every predict_action call of the OpenVLA classes is
+    recorded: the model, its inputs, output, host ms (it returns host
+    numpy, so the time is synchronized) and its kernel launches."""
+
+    def __init__(self):
+        self.actions, self.calls = [], []
+
+    def __call__(self, cli, argv) -> dict:
+        from blurr_tpu_torch.agent import fake_env
+        from blurr_tpu_torch.models.openvla.model import OpenVLA, OpenVLAOFT
+
+        actions, calls = self.actions, self.calls
+
+        class Recording(fake_env.FakeSimplerEnv):
+            def step(self, action):
+                actions.append(np.array(action, np.float64, copy=True))
+                return super().step(action)
+
+        def recording(real):
+            def predict_action(model, input_ids, pixel_values, **kw):
+                before = _counts()
+                t0 = time.monotonic()
+                out = real(model, input_ids, pixel_values, **kw)
+                ms = (time.monotonic() - t0) * 1000.0
+                after = _counts()
+                calls.append({"model": model, "ids": input_ids, "px": pixel_values, "kw": kw,
+                              "out": out, "ms": ms,
+                              "launches": {n: after[n] - before[n] for n in after}})
+                return out
+            return predict_action
+
+        saved = (fake_env.make_env, OpenVLA.predict_action, OpenVLAOFT.predict_action)
+        fake_env.make_env = lambda task: Recording(task)
+        OpenVLA.predict_action = recording(saved[1])
+        OpenVLAOFT.predict_action = recording(saved[2])
+        try:
+            _zero_counts()
+            cli.main(argv)
+            return _counts()
+        finally:
+            fake_env.make_env, OpenVLA.predict_action, OpenVLAOFT.predict_action = saved
+
+
+def _check_eval_run(label, run: _EvalRun, launches, calls: int, per_call: dict,
+                    variant: str = "hf") -> None:
+    """``calls`` control steps, each launching ``per_call`` (and no other
+    kernel), the phase's counts their sum; every env action equal to
+    bridge_action_to_simpler of predict_action recomputed on the same
+    processed inputs (each row of a chunk, in order); the gripper in
+    {-1, 1}; the steps' host-clock median."""
+    from blurr_tpu_torch.agent.hf_vla_utils import bridge_action_to_simpler
+    from blurr_tpu_torch.models.openvla.model import OpenVLA, OpenVLAOFT
+
+    want = {name: per_call.get(name, 0) for name in KERNEL_NAMES}
+    if len(run.calls) != calls or any(c["launches"] != want for c in run.calls):
+        raise RuntimeError(f"{label}: {len(run.calls)} control steps launching "
+                           f"{[c['launches'] for c in run.calls][:2]}, not {calls} x {want}")
+    total = {name: calls * want[name] for name in KERNEL_NAMES}
+    if launches != total:
+        raise RuntimeError(f"{label}: the run launched {launches}, not {total}")
+    expected = []
+    for c in run.calls:
+        model, key = c["model"], c["kw"].get("unnorm_key")
+        real = OpenVLAOFT.predict_action if isinstance(model, OpenVLAOFT) else OpenVLA.predict_action
+        again = real(model, c["ids"], c["px"], **c["kw"])
+        if not np.array_equal(again, c["out"]):
+            raise RuntimeError(f"{label}: predict_action gave other bits on the same inputs")
+        stats = model.norm_stats.get(key) or model.norm_stats.get("bridge_orig") or {}
+        rows = np.asarray(again, np.float32).reshape(-1, 7)
+        expected += [bridge_action_to_simpler(r, action_stats=stats.get("action") if key else None,
+                                              variant=variant) for r in rows]
+    if len(expected) != len(run.actions) or not all(
+            np.array_equal(a, b.astype(np.float64)) for a, b in zip(run.actions, expected)):
+        raise RuntimeError(f"{label}: {len(run.actions)} env actions against {len(expected)} "
+                           f"recomputed; they differ")
+    if not all(a[6] in (-1.0, 1.0) for a in run.actions):
+        raise RuntimeError(f"{label}: a gripper value outside {{-1, 1}}")
+    ms = [c["ms"] for c in run.calls]
+    log(f"{label}: {calls} control steps, kernel launches {launches} ({want} each); every one "
+        f"of {len(run.actions)} env actions equal to bridge_action_to_simpler(predict_action) "
+        f"recomputed on the same processed inputs; predict_action ms per step {_median_ms(ms)}, "
+        f"first {ms[0]:.1f} (host clock, synchronized; on {card()})")
+
+
+def _check_summary_json(label, log_dir, keys) -> dict:
+    summary = json.loads((Path(log_dir) / "summary.json").read_text())
+    text = (Path(log_dir) / "run.log").read_text()
+    if set(summary) != keys or "Success rate:" not in text:
+        raise RuntimeError(f"{label}: summary.json keys {sorted(summary)} (want {sorted(keys)})"
+                           f" or no 'Success rate:' in run.log")
+    log(f"{label}: summary.json has the JAX script's {len(keys)} keys: "
+        f"{json.dumps({k: summary[k] for k in sorted(summary) if k != 'per_task_success'})}")
+    return summary
+
+
+def _cli_subprocess(label, script: str, argv) -> None:
+    """A CLI as a user runs it: exit 0 and 'Success rate:' in its run.log."""
+    with tempfile.TemporaryDirectory(prefix="blurr_cli_") as tmp:
+        cmd = [sys.executable, f"scripts/{script}", *argv, "--log-dir", tmp]
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True, text=True, timeout=600)
+        secs = time.monotonic() - t0
+        run_log = Path(tmp) / "run.log"
+        text = run_log.read_text() if run_log.is_file() else ""
+    log(f"{label}: {' '.join(cmd[1:-2])} as a subprocess -> exit {proc.returncode} in "
+        f"{secs:.1f} s")
+    if proc.returncode != 0 or "Success rate:" not in text:
+        raise RuntimeError(f"{label}: the CLI failed:\n{proc.stderr[-3000:]}")
+    for line in text.splitlines():
+        if "Success rate" in line or "Avg success" in line:
+            log(f"{label}: run.log: {line.split(' | ')[-1]}")
+
+
+def eval_hf_7b_w4a8(device) -> dict:
+    """scripts/eval_hf_vla_simpler_torch.py's main() in-process at
+    OpenVLA-7B's widths, w4a8 drawn quantized on the card, 2 episodes of 4
+    steps: K2 1,575 times a control step, each env action the direct
+    recomputation's, summary.json with JAX's keys; the step's median and one
+    step's device time with K2's share; then the same command as a
+    subprocess."""
+    label = "eval-hf-7b-w4a8"
+    argv = ["--model-id", "random-7b", "--quantization", "w4a8", *HF_EVAL_ARGS]
+    run = _EvalRun()
+    with tempfile.TemporaryDirectory(prefix="blurr_hf_eval_") as tmp:
+        t0 = time.monotonic()
+        launches = run(_cli("eval_hf_vla_simpler_torch"), [*argv, "--log-dir", tmp])
+        log(f"{label}: main({' '.join(argv)}) in {time.monotonic() - t0:.1f} s")
+        _check_summary_json(label, tmp, HF_SUMMARY_KEYS)
+    _check_eval_run(label, run, launches, HF_EVAL_CALLS, {"int4_matmul": OPENVLA_AR_LAUNCHES})
+    c = run.calls[0]
+    _profile_text(label, "one control step (predict_action)",
+                  lambda: c["model"].predict_action(c["ids"], c["px"], **c["kw"]), "int4_matmul")
+    del run, c
+    _free()
+    _cli_subprocess(label, "eval_hf_vla_simpler_torch.py", argv)
+    return launches
+
+
+class _StreamingPeak:
+    """While entered, each quantize_llama_streaming call's seconds and its
+    peak allocated bytes above the bytes allocated at its start."""
+
+    def __enter__(self):
+        from blurr_tpu_torch.models.openvla import llama as llama_mod
+
+        self.readings, self.real = [], llama_mod.quantize_llama_streaming
+
+        def measured(llama, mode, *a, **kw):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            out = self.real(llama, mode, *a, **kw)
+            torch.cuda.synchronize()
+            self.readings.append((time.monotonic() - t0,
+                                  torch.cuda.max_memory_allocated() - before, before))
+            return out
+
+        llama_mod.quantize_llama_streaming = measured
+        return self
+
+    def __exit__(self, *exc):
+        from blurr_tpu_torch.models.openvla import llama as llama_mod
+
+        llama_mod.quantize_llama_streaming = self.real
+
+
+def _peak_above(fn) -> int:
+    """Peak allocated bytes above the bytes allocated at the start of
+    fn(), its result kept until it returns."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - before
+
+
+def _quantize_alone_peak(lin) -> int:
+    """Peak allocated bytes above the start for quantizing one weight alone
+    (w4a8), its result kept as the quantizer keeps it."""
+    from blurr_tpu_torch.ops.quant import W4A8Linear
+
+    return _peak_above(lambda: W4A8Linear.from_linear(lin))
+
+
+def verify_checkpoint(label: str, argv) -> None:
+    """scripts/verify_checkpoint_torch.py's main() on a checkpoint this
+    script wrote: it must report a clean match (exit 0)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = _cli("verify_checkpoint_torch").main(list(argv))
+    text = out.getvalue()
+    lines = [line for line in text.splitlines() if line.strip()]
+    log(f"verify-checkpoint: {label}: {' '.join(argv)} -> exit {rc} in "
+        f"{time.monotonic() - t0:.2f} s: {' / '.join(lines[:1] + lines[-1:])}")
+    if rc != 0 or "OK: checkpoint matches" not in text:
+        raise RuntimeError(f"verify-checkpoint: {label}: not a clean match:\n{text[-3000:]}")
+
+
+def eval_hf_snapshot(device) -> dict:
+    """A full-depth OpenVLA-7B bf16 snapshot written by save_openvla_snapshot
+    with config.json norm_stats (bridge_orig) and dataset_statistics.json
+    (bridge_dataset): the checker reports a clean match; the eval CLI with
+    --quantization w4a8 loads it and quantizes it by the streaming
+    quantizer (its peak above its start within quantizing the head alone
+    plus STREAMING_PEAK_SLACK; its bytes those of the drawn weights
+    quantized layer by layer, that order's peak logged, then the head),
+    infers bridge_orig and runs every action as recomputed. Then
+    an OFT head (chunk 8) and an 8-wide proprio projector join the
+    directory: OFT with proprio, 224 K2 launches a step, every action of
+    each [8, 7] chunk executed."""
+    import shutil
+
+    from blurr_tpu_torch.models.openvla.checkpoint import (
+        save_oft_aux_params,
+        save_openvla_snapshot,
+    )
+    from blurr_tpu_torch.models.openvla.llama import quantize_llama_w4a8
+    from blurr_tpu_torch.models.openvla.model import (
+        RANDOM_SPECS,
+        OFTActionHead,
+        OFTProprioProjector,
+        OpenVLA,
+        init_dense,
+    )
+    from blurr_tpu_torch.ops.quant import quantize_mixture_w4a8
+
+    label = "eval-hf-snapshot"
+    spec = RANDOM_SPECS["random-7b"]()
+    g = torch.Generator(device=device).manual_seed(11)
+    drawn = OpenVLA(spec, device=device, dtype=torch.bfloat16).init_params(g)
+    cli = _cli("eval_hf_vla_simpler_torch")
+    tmp = tempfile.mkdtemp(prefix="blurr_hf_snapshot_")
+    total = {name: 0 for name in KERNEL_NAMES}
+    try:
+        need = 2 * sum(p.numel() for p in drawn.parameters())
+        log(f"{label}: {shutil.disk_usage(tmp).free} B free in {tmp} for {need} B of bf16 "
+            f"weights and a 3.8 GB OFT head")
+        t0 = time.monotonic()
+        save_openvla_snapshot(drawn, tmp, EVAL_DATASET_STATS)
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"norm_stats": EVAL_CONFIG_STATS}, f)
+        size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        log(f"{label}: OpenVLA-7B ({spec.llama.num_layers} LLaMA layers) bf16 written as an HF "
+            f"snapshot, {size} B in {time.monotonic() - t0:.1f} s")
+        verify_checkpoint(label, ["--checkpoint", tmp, "--kind", "openvla"])
+        alone = _quantize_alone_peak(drawn.llama.lm_head)
+        for oft in (False, True):
+            if oft:
+                h = spec.llama.hidden_size
+                head = OFTActionHead(8 * 7 * h, h, 8 * 7, 2, device=device, dtype=torch.bfloat16)
+                proj = OFTProprioProjector(8, h, h, device=device, dtype=torch.bfloat16)
+                init_dense(head, g)
+                init_dense(proj, g)
+                t0 = time.monotonic()
+                save_oft_aux_params(tmp, head, proj, step=1000)
+                log(f"{label}: OFT head (chunk 8) and proprio projector (8 inputs) written in "
+                    f"{time.monotonic() - t0:.1f} s")
+                del head, proj
+            sub = f"{label}{'-oft' if oft else ''}"
+            argv = ["--model-id", tmp, "--quantization", "w4a8", *HF_EVAL_ARGS]
+            if oft:
+                argv[argv.index("--max-steps") + 1] = "8"
+            run = _EvalRun()
+            with _StreamingPeak() as peak, tempfile.TemporaryDirectory() as logs:
+                t0 = time.monotonic()
+                launches = run(cli, [*argv, "--log-dir", logs])
+                log(f"{sub}: main(--model-id <snapshot> ...) in {time.monotonic() - t0:.1f} s")
+                _check_summary_json(sub, logs, HF_SUMMARY_KEYS)
+            secs, above, before = peak.readings[0]
+            log(f"{sub}: quantize_llama_streaming in {secs:.2f} s, peak {above} B above the "
+                f"{before} B allocated at its start; quantizing the head alone {alone} B above "
+                f"(bound {alone + STREAMING_PEAK_SLACK} B)")
+            if len(peak.readings) != 1 or above > alone + STREAMING_PEAK_SLACK:
+                raise RuntimeError(f"{sub}: the streaming peak {above} B is over the bound")
+            keys = {c["kw"].get("unnorm_key") for c in run.calls}
+            if keys != {"bridge_orig"}:
+                raise RuntimeError(f"{sub}: unnorm keys {keys}, not bridge_orig")
+            per = OPENVLA_OFT_LAUNCHES if oft else OPENVLA_AR_LAUNCHES
+            _check_eval_run(sub, run, launches, 2 if oft else HF_EVAL_CALLS,
+                            {"int4_matmul": per})
+            if oft:
+                c = run.calls[0]
+                if c["out"].shape != (8, 7) or c["kw"]["proprio"].shape != (1, 8):
+                    raise RuntimeError(f"{sub}: chunk {c['out'].shape}, proprio "
+                                       f"{c['kw']['proprio'].shape}")
+            else:
+                loaded = run.calls[0]["model"].llama
+                # the drawn weights layer by layer (each layer's q ... down),
+                # the order before the kinds were sorted, then the head
+                layer_order = _peak_above(lambda: quantize_mixture_w4a8(drawn.llama.layers))
+                quantize_llama_w4a8(drawn.llama)
+                log(f"{sub}: the layers quantized layer by layer instead: peak {layer_order} B "
+                    f"above their start, against {above} B smallest kinds first")
+                ours, theirs = dict(loaded.named_buffers()), dict(drawn.llama.named_buffers())
+                same = ours.keys() == theirs.keys() and all(
+                    torch.equal(ours[k], theirs[k]) for k in ours)
+                fp_same = all(torch.equal(a, b) for a, b in zip(loaded.parameters(),
+                                                               drawn.llama.parameters()))
+                log(f"{sub}: the streamed model's {len(ours)} quantized buffers bit-equal to "
+                    f"the drawn weights quantized layer by layer: {same}; fp tensors {fp_same}")
+                if not (same and fp_same):
+                    raise RuntimeError(f"{sub}: the streamed bytes differ")
+                del drawn, loaded, ours, theirs
+            total = {name: total[name] + launches[name] for name in KERNEL_NAMES}
+            del run
+            _free()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"{label}: files deleted")
+    return total
+
+
+def eval_prismatic(device) -> dict:
+    """scripts/eval_prismatic_vla_simpler_torch.py's main() in-process at
+    MiniVLA's widths and depth, bf16: --checkpoint random (2 episodes),
+    then a prismatic .pt of weights drawn on the card (the CLI's
+    prismatic_state_dict, bf16) in the run_dir/checkpoints/ layout beside a
+    dataset_statistics.json: loaded bit-equal to the drawn weights with no
+    "PARTIAL LOAD", the dataset's unnorm key, every env action the direct
+    recomputation's, every gripper value in {-1, 1}. No kernel of the port
+    runs (MiniVLA bf16 attends and multiplies in plain PyTorch)."""
+    import shutil
+
+    from blurr_tpu_torch.models.openvla.model import RANDOM_SPECS, OpenVLA
+
+    label = "eval-prismatic"
+    cli = _cli("eval_prismatic_vla_simpler_torch")
+    argv = ["--task", EVAL_TASK, "--n-eval-episode", "2", "--max-steps", "4"]
+    total = {name: 0 for name in KERNEL_NAMES}
+    with tempfile.TemporaryDirectory(prefix="blurr_prismatic_") as tmp:
+        run = _EvalRun()
+        launches = run(cli, ["--checkpoint", "random", *argv, "--log-dir", tmp + "/random"])
+        _check_summary_json(f"{label}-random", tmp + "/random", PRISMATIC_SUMMARY_KEYS)
+        _check_eval_run(f"{label}-random", run, launches, HF_EVAL_CALLS, {}, "prismatic")
+        total = {name: total[name] + launches[name] for name in KERNEL_NAMES}
+        del run
+        _free()
+        spec = RANDOM_SPECS["random-minivla"]()
+        drawn = OpenVLA(spec, device=device, dtype=torch.bfloat16)
+        drawn.init_params(torch.Generator(device=device).manual_seed(12))
+        ckpt = Path(tmp) / "run_dir" / "checkpoints" / "step-001000.pt"
+        ckpt.parent.mkdir(parents=True)
+        (ckpt.parents[1] / "dataset_statistics.json").write_text(json.dumps(PRISMATIC_STATS))
+        t0 = time.monotonic()
+        torch.save({"model": {k: v.detach().cpu().contiguous()
+                              for k, v in cli.prismatic_state_dict(drawn).items()}}, ckpt)
+        log(f"{label}: MiniVLA bf16 written as a prismatic .pt, {ckpt.stat().st_size} B in "
+            f"{time.monotonic() - t0:.1f} s")
+        run = _EvalRun()
+        launches = run(cli, ["--checkpoint", str(ckpt), *argv, "--log-dir", tmp + "/pt"])
+        summary = _check_summary_json(label, tmp + "/pt", PRISMATIC_SUMMARY_KEYS)
+        text = (Path(tmp) / "pt" / "run.log").read_text()
+        _check_eval_run(label, run, launches, HF_EVAL_CALLS, {}, "prismatic")
+        loaded = dict(run.calls[0]["model"].named_parameters())
+        want = dict(drawn.named_parameters())
+        same = loaded.keys() == want.keys() and all(torch.equal(loaded[k], want[k]) for k in want)
+        log(f"{label}: {len(want)} tensors loaded bit-equal to the drawn ones: {same}; unnorm key "
+            f"{summary['unnorm_key']}; 'PARTIAL LOAD' in run.log: {'PARTIAL LOAD' in text}")
+        if not same or "PARTIAL LOAD" in text or summary["unnorm_key"] != "minivla_bridge":
+            raise RuntimeError(f"{label}: the .pt did not load as written")
+        total = {name: total[name] + launches[name] for name in KERNEL_NAMES}
+        del run, drawn, loaded, want
+        _free()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -3617,7 +4089,8 @@ def main() -> int:
         openvla_runs = (served_openvla_7b(device), served_openvla_7b_w4a8(device),
                         served_openvla_7b_w8a8(device), served_openvla_oft(device),
                         served_minivla(device), openvla_snapshot(device),
-                        served_openvla_batched(device))
+                        served_openvla_batched(device), eval_hf_7b_w4a8(device),
+                        eval_hf_snapshot(device), eval_prismatic(device))
     jacobi_fp32(device)
     served_int4_vs_plain(device, served.seen, held)
     runs = (launches, checkpoint_launches, batched_launches, backpressure_launches,

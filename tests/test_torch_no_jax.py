@@ -14,9 +14,12 @@ fake env, run a tiny Pi-0 text generation and a tiny PaliGemma
 with ``load_hf_model``, and run the text demo's random mode; then the
 OpenVLA family: servers (bf16 and w4a8, AR and Jacobi, OFT with proprio)
 driven through the port's client, an HF snapshot written and served, and
-``scripts/serve_openvla_torch.py``'s server. Then a static check: no
-``.py`` file of the port, nor ``chip_smoke.py`` or the port's five CLIs,
-has an import whose top-level module is ``jax`` or ``blurr_tpu``.
+``scripts/serve_openvla_torch.py``'s server; the OpenVLA-family eval CLIs
+on tiny random models, the streaming quantizer, the checkpoint checker on a
+``.pt`` it writes, ``ModuleSpec`` and the action-accuracy metric. Then a
+static check: no ``.py`` file of the port, nor ``chip_smoke.py`` or the
+port's eight CLIs, has an import whose top-level module is ``jax`` or
+``blurr_tpu``.
 """
 
 import ast
@@ -203,6 +206,39 @@ SCRIPT = textwrap.dedent(
     srv = serve_openvla_torch.build_server(serve_openvla_torch.parse_args(
         ["--device", "cpu", "--decode", "jacobi"]))
     assert srv.predict(frame, "pick", [0.0] * 7).shape == (7,)
+    # the OpenVLA-family eval CLIs (tiny random models), the streaming
+    # quantizer, the checkpoint checker on a .pt it writes, ModuleSpec and
+    # the action-accuracy metric
+    import eval_hf_vla_simpler_torch
+    import eval_prismatic_vla_simpler_torch
+    import verify_checkpoint_torch
+    from blurr_tpu_torch.agent import hf_vla_utils
+    from blurr_tpu_torch.models.openvla.llama import quantize_llama_streaming
+    from blurr_tpu_torch.models.openvla.model import OpenVLASpec
+    from blurr_tpu_torch.utils.metric import get_action_accuracy
+    from blurr_tpu_torch.utils.spec import ModuleSpec
+    eval_prismatic_vla_simpler_torch.minivla_spec = (
+        lambda vocab_size=32064: OpenVLASpec.tiny_minivla())
+    with tempfile.TemporaryDirectory() as tmp:
+        run = ["--task", "fake_widowx_carrot_on_plate", "--n-eval-episode", "1",
+               "--max-steps", "2", "--device", "cpu"]
+        eval_hf_vla_simpler_torch.main(["--model-id", "random", "--quantization", "w4a8",
+                                        *run, "--log-dir", tmp + "/hf"])
+        eval_prismatic_vla_simpler_torch.main(["--checkpoint", "random", *run,
+                                               "--log-dir", tmp + "/prismatic"])
+        for name in ("hf", "prismatic"):
+            assert "Success rate:" in open(f"{tmp}/{name}/run.log").read()
+        model = PiZero(load_config("config/eval/bridge_tiny.yaml"), device="cpu",
+                       dtype=torch.float32)
+        save_torch_checkpoint(model, tmp + "/pi0.pt")
+        assert verify_checkpoint_torch.main(["--checkpoint", tmp + "/pi0.pt", "--config",
+                                             "config/eval/bridge_tiny.yaml"]) == 0
+    vla = build_openvla("random", device="cpu", dtype=torch.float32).model
+    quantize_llama_streaming(vla.llama, "w8a8")
+    assert vla.predict_action_tokens(ids[:, :4], px).shape == (1, 7)
+    assert hf_vla_utils.bridge_action_to_simpler(np.zeros(7)).shape == (7,)
+    fn = ModuleSpec.instantiate(ModuleSpec.create(get_action_accuracy))
+    assert fn(torch.zeros(1, 2, 7), torch.zeros(1, 2, 7)).tolist() == [1.0, 1.0]
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "blurr_tpu"))
     assert all(sys.modules[m] is None for m in loaded), loaded
@@ -239,7 +275,10 @@ PORT_FILES = sorted((REPO_ROOT / "blurr_tpu_torch").rglob("*.py")) + [
     REPO_ROOT / "scripts" / "serve_pi0_torch.py",
     REPO_ROOT / "scripts" / "demo_paligemma_text_torch.py",
     REPO_ROOT / "scripts" / "serve_openvla_torch.py",
-    REPO_ROOT / "scripts" / "serve_ctl_torch.py"]
+    REPO_ROOT / "scripts" / "serve_ctl_torch.py",
+    REPO_ROOT / "scripts" / "eval_hf_vla_simpler_torch.py",
+    REPO_ROOT / "scripts" / "eval_prismatic_vla_simpler_torch.py",
+    REPO_ROOT / "scripts" / "verify_checkpoint_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))
