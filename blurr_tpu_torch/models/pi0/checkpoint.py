@@ -37,15 +37,29 @@ permuted into the port's [D, p*p*C] linear. Loading casts each fp32 tensor
 to the model's device and dtype, as JAX casts the tree; writing gives fp32
 CPU tensors. The port ties the proprio mixture to the action mixture, so a
 checkpoint whose proprio tensors differ from its action tensors is refused
-(JAX would serve it untied). An orbax directory (JAX ``save_params``) is
-not read: it comes with the training port.
+(JAX would serve it untied).
+
+**Training checkpoints.** Counterpart of JAX ``save_params`` /
+``restore_params``, ``save_train_state`` / ``restore_train_state``,
+``TrainCheckpointManager`` and ``is_manager_root``, with orbax replaced by
+a directory of the port's own safetensors files and JSON (the card's
+machine has no orbax): ``params.safetensors`` (every parameter and buffer
+of the model under its ``named_parameters`` / ``named_buffers`` name, the
+tied proprio mixture once, under the action mixture's names) and
+``tree.json`` (the kind of every linear that is not an ``nn.Linear``:
+``w4a8``, ``w8a8``, ``int8``, ``cached_fp``, or ``lora/<base kind>``), so
+a fresh model is rebuilt in that structure before the copy; a training
+state adds ``opt.safetensors`` (the AdamW moments, the accumulator and the
+EMA of each trainable parameter, by name) and ``state.json`` (the step,
+the counters and the ``torch.Generator`` state), written last. JAX reads
+none of these directories, nor the port JAX's orbax ones (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Iterable, Iterator, Tuple
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +67,7 @@ from torch import nn
 
 from blurr_tpu_torch.models.pi0.joint import AdaptiveLayerscale, AdaptiveRMSNorm
 from blurr_tpu_torch.models.pi0.pizero import PiZero
+from blurr_tpu_torch.ops.lora import LoRALinear, is_lora_dict
 from blurr_tpu_torch.ops.quant import CachedFpLinear, Int8Linear, W4A8Linear, W8A8Linear
 
 log = logging.getLogger(__name__)
@@ -77,6 +92,17 @@ def _weight(mod, leaf, i=None):
     matrix into an ``nn.Linear``, a quantized dict into the module of its
     kind. ``i`` picks one layer of a stacked leaf."""
     pick = (lambda a: a) if i is None else (lambda a: a[i])
+    if isinstance(mod, LoRALinear) or is_lora_dict(leaf):
+        if not (isinstance(mod, LoRALinear) and is_lora_dict(leaf)):
+            raise ValueError(
+                f"the tree holds {'a LoRA dict' if is_lora_dict(leaf) else 'no LoRA dict'} "
+                f"where the model has a {type(mod).__name__}: inject the adapters "
+                "into the model as into the tree"
+            )
+        yield from _weight(mod.base, leaf["w"], i)
+        for key in ("lora_a", "lora_b", "lora_s"):
+            yield getattr(mod, key), pick(leaf[key])
+        return
     if not isinstance(leaf, dict):
         if type(mod) is not nn.Linear:
             raise ValueError(
@@ -176,8 +202,11 @@ def _leaves(tree, prefix=""):
 
 
 def check_tied(tree: Dict) -> None:
-    """Raise unless the tree's proprio mixture equals its action mixture."""
+    """Raise unless the tree's proprio mixture equals its action mixture (or
+    is None: JAX's training-canonical tied tree)."""
     joint = tree["joint"]
+    if joint.get("proprio") is None:
+        return
     action = dict(_leaves(joint["action"]))
     proprio = dict(_leaves(joint["proprio"]))
     if action.keys() != proprio.keys() or any(
@@ -389,14 +418,13 @@ def load_torch_checkpoint(model: PiZero, path: str) -> PiZero:
 
 def load_checkpoint(model: PiZero, path: str) -> PiZero:
     """Counterpart of JAX ``load_pizero_params_auto``: a ``.pt`` file loads
-    through ``load_torch_checkpoint``; a directory is an orbax tree, which
-    the port does not read yet."""
+    through ``load_torch_checkpoint``; a directory is a parameter tree that
+    ``save_params`` wrote (``scripts/train_pi0_flow_torch.py --save-dir``:
+    a LoRA-merged plain model, or a QLoRA tree with its adapters), read by
+    ``restore_params``. Floats are cast to the model's dtype except the
+    quant scales and ``lora_s``, which stay fp32."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory: an orbax parameter tree (JAX save_params) "
-            "is read by the training port (ROADMAP M13), not yet; serve a "
-            "reference .pt checkpoint"
-        )
+        return restore_params(model, path)
     return load_torch_checkpoint(model, path)
 
 
@@ -424,8 +452,10 @@ def save_torch_checkpoint(model: PiZero, path: str) -> None:
 # PaliGemma's pretrained weights: HF safetensors
 # ---------------------------------------------------------------------------
 
-# the dtypes the reader and writer take: those of PaliGemma snapshots
-_SAFETENSORS_DTYPES = {"F32": torch.float32, "BF16": torch.bfloat16, "F16": torch.float16}
+# the dtypes the reader and writer take: those of PaliGemma snapshots, and
+# int8 for the quantized payloads of training checkpoints
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "BF16": torch.bfloat16, "F16": torch.float16,
+                       "I8": torch.int8}
 _HEADER_ALIGN = 8  # the header is padded with spaces to this many bytes
 
 
@@ -551,3 +581,312 @@ def paligemma_state_dict(embed_tokens, vision_tower, projector, vlm) -> Dict[str
     linear as the HF convolution."""
     return {key: _patch_to_conv(t).contiguous() if key == _PATCH_KEY else t
             for key, t in _paligemma_keys(embed_tokens, vision_tower, projector, vlm)}
+
+
+# ---------------------------------------------------------------------------
+# Training checkpoints: parameter trees and training states (orbax's place)
+# ---------------------------------------------------------------------------
+
+_PARAMS_FILE = "params.safetensors"
+_TREE_FILE = "tree.json"
+_OPT_FILE = "opt.safetensors"
+_STATE_FILE = "state.json"
+_FORMAT = "blurr_tpu_torch.params"
+_KIND_OF = {W4A8Linear: "w4a8", W8A8Linear: "w8a8", Int8Linear: "int8",
+            CachedFpLinear: "cached_fp"}
+
+
+def _kind(mod) -> str:
+    if isinstance(mod, LoRALinear):
+        return "lora/" + _kind(mod.base)
+    if type(mod) is nn.Linear:
+        return "fp"
+    return _KIND_OF[type(mod)]
+
+
+def linear_kinds(model: nn.Module) -> Dict[str, str]:
+    """{module name: kind} of every linear of ``model`` that is not an
+    ``nn.Linear``: a quantized one or an adapter (``lora/<base kind>``)."""
+    out = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, LoRALinear) or type(mod) in _KIND_OF:
+            if not any(name.startswith(k + ".") for k in out):  # not a LoRA base
+                out[name] = _kind(mod)
+    return out
+
+
+def _state_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Every parameter and buffer by name, each once (the tie included)."""
+    return {**dict(model.named_parameters()), **dict(model.named_buffers())}
+
+
+def _placeholder(kind: str, name: str, shapes: Dict, current, device, dtype) -> nn.Module:
+    """An empty module of ``kind`` at ``name`` with the file's shapes; an
+    ``nn.Linear`` (``current`` or under it) for the fp kind."""
+    def empty(key, dt=None):
+        info = shapes[f"{name}.{key}"]
+        return torch.empty(info[0], dtype=dt or info[1], device=device)
+
+    if kind.startswith("lora/"):
+        base = current.base if isinstance(current, LoRALinear) else current
+        base = _placeholder(kind[5:], name + ".base", shapes, base, device, dtype)
+        return LoRALinear(base, empty("lora_a", dtype), empty("lora_b", dtype),
+                          empty("lora_s"))
+    bias = getattr(current, "bias", None)
+    if kind == "fp":
+        if type(current) is not nn.Linear:
+            raise ValueError(f"{name}: the tree holds an fp linear where the model "
+                             f"has a {type(current).__name__}")
+        return current
+    if type(current) is not nn.Linear:
+        raise ValueError(f"{name}: the tree holds a {kind} linear where the model has "
+                         f"a {type(current).__name__}")
+    if kind == "w4a8":
+        return W4A8Linear(empty("q4"), empty("s"))
+    if kind == "w8a8":
+        return W8A8Linear(empty("q8a"), empty("s"), bias=bias)
+    if kind == "int8":
+        return Int8Linear(empty("q"), empty("s"), bias=bias)
+    if kind == "cached_fp":
+        return CachedFpLinear(empty("fp"), bias=bias)
+    raise ValueError(f"{name}: unknown linear kind {kind!r}")
+
+
+@torch.no_grad()
+def _load_tree(model: nn.Module, kinds: Dict[str, str], tensors: Dict[str, torch.Tensor]
+               ) -> nn.Module:
+    """Rebuild ``model``'s linears in the kinds of the file (where they
+    differ), then copy every tensor by name: floats cast to the parameter's
+    dtype (the scales, lora_s and the int payloads built as the file holds
+    them). Raises on a missing or extra tensor and on a shape mismatch."""
+    device = next(model.parameters()).device
+    dtype = next(p.dtype for p in model.parameters() if p.is_floating_point())
+    shapes = {k: (tuple(v.shape), v.dtype) for k, v in tensors.items()}
+    have = linear_kinds(model)
+    for name in sorted(set(kinds) | set(have)):
+        want = kinds.get(name, "fp")
+        if have.get(name, "fp") == want:
+            continue
+        parent, _, attr = name.rpartition(".")
+        holder = model.get_submodule(parent)
+        setattr(holder, attr, _placeholder(want, name, shapes, getattr(holder, attr),
+                                           device, dtype))
+    mine = _state_tensors(model)
+    missing, extra = mine.keys() - tensors.keys(), tensors.keys() - mine.keys()
+    if missing or extra:
+        raise ValueError(f"the tree does not fit the model: missing {sorted(missing)[:8]}, "
+                         f"extra {sorted(extra)[:8]}")
+    for name, t in mine.items():
+        src = tensors[name]
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: file shape {tuple(src.shape)}, model shape "
+                             f"{tuple(t.shape)}")
+        if src.is_floating_point() != t.is_floating_point():
+            raise ValueError(f"{name}: dtype mismatch {src.dtype} vs {t.dtype}")
+        t.copy_(src)
+    return model
+
+
+def _cpu_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def _params_snapshot(model: nn.Module) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    tree = {"format": _FORMAT, "version": 1, "modules": linear_kinds(model)}
+    return {k: _cpu_copy(v) for k, v in _state_tensors(model).items()}, tree
+
+
+def _write_json(path: str, obj) -> None:
+    import json
+
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f, indent=1)
+    os.replace(tmp, path)
+
+
+def _read_json(path: str):
+    import json
+
+    with open(path) as f:
+        return json.load(f)
+
+
+def _write_params(path: str, tensors: Dict[str, torch.Tensor], tree: Dict) -> None:
+    os.makedirs(path, exist_ok=True)
+    save_safetensors(tensors, os.path.join(path, _PARAMS_FILE))
+    _write_json(os.path.join(path, _TREE_FILE), tree)
+
+
+def save_params(model: nn.Module, path: str) -> None:
+    """Write the model's parameter tree to the directory ``path``
+    (``params.safetensors`` + ``tree.json``; the module docstring)."""
+    _write_params(path, *_params_snapshot(model))
+
+
+def restore_params(model: nn.Module, path: str) -> nn.Module:
+    """Load a ``save_params`` directory into ``model`` in place, rebuilding
+    its linears in the file's kinds first (a fresh ``PiZero`` takes a QLoRA
+    tree). Floats cast to the model's dtype, quant scales and ``lora_s``
+    kept fp32."""
+    tree_path = os.path.join(path, _TREE_FILE)
+    tree = _read_json(tree_path) if os.path.isfile(tree_path) else {}
+    if tree.get("format") != _FORMAT:
+        raise ValueError(f"{path} is not a parameter tree of the port (no {_TREE_FILE} of "
+                         "save_params); the JAX package's orbax trees are not read "
+                         "(ROADMAP Queue 3)")
+    return _load_tree(model, tree["modules"], read_safetensors(os.path.join(path, _PARAMS_FILE)))
+
+
+def _train_snapshot(model, optimizer, step: int, rng_state: torch.Tensor,
+                    accumulator=None, ema=None):
+    """CPU copies of everything ``save_train_state`` writes."""
+    params, tree = _params_snapshot(model)
+    names = {id(p): n for n, p in model.named_parameters()}
+    trainable = [names[id(p)] for p in optimizer.params]
+    opt = {}
+    for key, tensors in (("mu", optimizer.mu), ("nu", optimizer.nu),
+                         ("acc", accumulator.acc if accumulator is not None else ()),
+                         ("ema", ema.ema if ema is not None else ())):
+        for name, t in zip(trainable, tensors):
+            opt[f"{key}/{name}"] = _cpu_copy(t)
+    state = {
+        "step": int(step), "trainable": trainable, "adam_count": optimizer.count,
+        "accum_mini_step": accumulator.mini_step if accumulator is not None else None,
+        "ema_count": ema.count if ema is not None else None,
+        "rng": [int(b) for b in rng_state.cpu().tolist()],
+    }
+    return params, tree, opt, state
+
+
+def _write_train(path: str, snapshot) -> None:
+    params, tree, opt, state = snapshot
+    _write_params(path, params, tree)
+    save_safetensors(opt, os.path.join(path, _OPT_FILE))
+    _write_json(os.path.join(path, _STATE_FILE), state)  # last: the write is whole
+
+
+def save_train_state(path: str, model, optimizer, step: int, rng_state: torch.Tensor,
+                     accumulator=None, ema=None) -> None:
+    """Write the COMPLETE training state for an exact resume: the parameter
+    tree, the AdamW moments and count, the accumulator and the EMA when
+    there are, the step and the generator state (``rng_state``, what
+    ``torch.Generator.get_state`` gives). The caller resynchronizes its data
+    stream to ``step``."""
+    _write_train(path, _train_snapshot(model, optimizer, step, rng_state, accumulator, ema))
+
+
+@torch.no_grad()
+def restore_train_state(path: str, model, optimizer, accumulator=None, ema=None):
+    """Load a ``save_train_state`` directory into the model, the optimizer,
+    the accumulator and the EMA (built from the same configuration) in
+    place. Returns (step, generator state)."""
+    state = _read_json(os.path.join(path, _STATE_FILE))
+    restore_params(model, path)
+    names = {id(p): n for n, p in model.named_parameters()}
+    trainable = [names[id(p)] for p in optimizer.params]
+    if trainable != state["trainable"]:
+        raise ValueError(f"{path}: the trainable parameters differ from the saved run's")
+    opt = read_safetensors(os.path.join(path, _OPT_FILE))
+    optimizer.load_state_dict({"count": state["adam_count"],
+                               "mu": [opt[f"mu/{n}"] for n in trainable],
+                               "nu": [opt[f"nu/{n}"] for n in trainable]})
+    for part, key, count in ((accumulator, "acc", "accum_mini_step"),
+                             (ema, "ema", "ema_count")):
+        if (part is None) != (state[count] is None):
+            raise ValueError(f"{path}: the saved run's {key} state does not match this run's")
+        if part is not None:
+            part.load_state_dict({key: [opt[f"{key}/{n}"] for n in trainable],
+                                  "mini_step" if key == "acc" else "count": state[count]})
+    return state["step"], torch.tensor(state["rng"], dtype=torch.uint8)
+
+
+class TrainCheckpointManager:
+    """Periodic training-state checkpoints with retention, written in the
+    background (JAX's orbax ``CheckpointManager`` wrapper).
+
+    Step-numbered subdirectories of ``root``; ``keep`` newest kept.
+    ``save()`` blocks only for the copy of the state to the host, then a
+    writer thread writes it into a temporary directory and renames it to
+    its step; ``state.json`` is its last file, so a step without it (an
+    interrupted write) is skipped by ``latest_step()`` and a restart resumes
+    from the newest complete step. ``close()`` drains the writes and raises
+    a writer's error."""
+
+    def __init__(self, root: str, keep: int = 3):
+        import queue
+        import threading
+
+        self.root = os.path.abspath(root)
+        self.keep = max(1, int(keep))
+        os.makedirs(self.root, exist_ok=True)
+        self._queue: "queue.Queue" = queue.Queue()
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, name="blurr-ckpt-writer",
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        import shutil
+
+        while True:
+            item = self._queue.get()
+            try:
+                if item is None:
+                    return
+                step, snapshot = item
+                tmp = os.path.join(self.root, f".tmp-{step}")
+                shutil.rmtree(tmp, ignore_errors=True)
+                _write_train(tmp, snapshot)
+                final = os.path.join(self.root, str(step))
+                shutil.rmtree(final, ignore_errors=True)
+                os.replace(tmp, final)
+                for old in self.steps()[:-self.keep]:
+                    shutil.rmtree(os.path.join(self.root, str(old)), ignore_errors=True)
+            except BaseException as exc:  # surfaced by close()
+                self._error = exc
+            finally:
+                self._queue.task_done()
+
+    def save(self, step: int, model, optimizer, rng_state: torch.Tensor,
+             accumulator=None, ema=None) -> None:
+        if self._error is not None:
+            raise RuntimeError("an earlier checkpoint write failed") from self._error
+        self._queue.put((int(step), _train_snapshot(model, optimizer, step, rng_state,
+                                                    accumulator, ema)))
+
+    def steps(self):
+        """The complete steps, oldest first."""
+        return sorted(
+            int(e) for e in os.listdir(self.root)
+            if e.isdigit() and os.path.isfile(os.path.join(self.root, e, _STATE_FILE))
+        )
+
+    def latest_step(self) -> Optional[int]:
+        self._queue.join()
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore(self, model, optimizer, accumulator=None, ema=None, step=None):
+        """``restore_train_state`` of ``step`` (default: the newest complete
+        one). Returns (step, generator state)."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError("no complete checkpoint step in the manager root")
+        return restore_train_state(os.path.join(self.root, str(step)), model, optimizer,
+                                   accumulator, ema)
+
+    def close(self) -> None:
+        """Drain the queued writes and stop the writer."""
+        self._queue.put(None)
+        self._thread.join()
+        if self._error is not None:
+            raise RuntimeError("a checkpoint write failed") from self._error
+
+
+def is_manager_root(path: str) -> bool:
+    """True when ``path`` is a ``TrainCheckpointManager`` root (step-numbered
+    subdirectories) rather than one ``save_train_state`` directory."""
+    if not os.path.isdir(path):
+        return False
+    return any(e.isdigit() and os.path.isdir(os.path.join(path, e)) for e in os.listdir(path))

@@ -36,6 +36,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from blurr_tpu_torch.ops.activations import geglu
 from blurr_tpu_torch.ops.attention import (
@@ -245,6 +246,12 @@ def _attention(spec: JointSpec, q, k, v, mask):
     tensors: the joint paths' concatenations are, a single mixture's
     head-split projections are not (a copy of q, at most one of K/V)."""
     if spec.use_flash_attn and q.shape[2] >= FLASH_MIN_QUERIES:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            raise RuntimeError(
+                "joint.config.use_flash_attn is set and gradients are on: the flash "
+                "attention kernel has no backward (nor has JAX's Pallas kernel); "
+                "train with use_flash_attn false"
+            )
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         return flash_attention(q, k, v, mask, softclamp=spec.softclamp)
     return grouped_attention(q, k, v, mask, spec.softclamp)
@@ -351,11 +358,15 @@ def naive_forward(
     full_mask: torch.Tensor,  # bool [B, T, T], T = Sv + Sp + A
     time_cond: Optional[torch.Tensor] = None,
     prefix_time_cond: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
     """One flow step with no cache: every mixture goes through every layer,
     and each layer's attention runs once over all T rows with the full block
     mask (the reference's no_append path). Returns the action mixture's
-    final-normed hidden states [B, A, Ha].
+    final-normed hidden states [B, A, Ha]. ``remat`` wraps each layer in
+    ``torch.utils.checkpoint`` (non-reentrant), JAX's ``jax.checkpoint`` of
+    the scanned layer: the backward recomputes the layer's activations
+    instead of keeping them.
 
     An adaptive action mixture is conditioned on ``time_cond``; the other
     adaptive mixtures on ``prefix_time_cond`` when given (the reference
@@ -376,7 +387,9 @@ def naive_forward(
         for n in names
     }
     last = spec.num_hidden_layers - 1
-    for i in range(spec.num_hidden_layers):
+
+    def layer(i, *h):
+        hs = dict(zip(names, h))
         layers = {n: mixtures[n].layers[i] for n in names}
         parts = [
             layers[n].qkv(hs[n], *ropes[n], spec, _clip_for(spec, n), tcs[n])
@@ -391,6 +404,12 @@ def naive_forward(
                     hs[n], attn[:, offset : offset + s], eps, _clip_for(spec, n), tcs[n]
                 )
             offset += s
+        return tuple(hs[n] for n in names)
+
+    h = tuple(hs[n] for n in names)
+    for i in range(spec.num_hidden_layers):
+        h = checkpoint(layer, i, *h, use_reentrant=False) if remat else layer(i, *h)
+    hs = dict(zip(names, h))
     return apply_norm(mixtures["action"].final_norm, hs["action"], tcs["action"], eps)
 
 

@@ -6,8 +6,9 @@ Counterpart of ``blurr_tpu/models/pi0/pizero.py`` (``PiZeroSpec``,
 ``_encode_proprio``, ``_encode_action``, ``_time_embedding``,
 ``_decode_action``, ``infer_action``, ``infer_action_naive``,
 ``infer_action_from_frame``, which resizes raw camera frames on the device
-first, ``infer_text_prefill``, ``infer_text_decode_step`` and
-``load_pretrained_weights``). One cached control step:
+first, ``infer_text_prefill``, ``infer_text_decode_step``,
+``load_pretrained_weights`` and the training loss ``psi_t`` /
+``flow_loss``). One cached control step:
 
     embed merge (SigLIP + projector) -> proprio encoder
     -> joint prefill over the image/text + proprio prefix (KV cache)
@@ -223,6 +224,7 @@ class PiZeroSpec:
     time_max_period: float
     adaptive_mode: Optional[str]
     time_hidden_size: int
+    flow_sig_min: float = 0.001
 
 
 def spec_from_config(cfg: dict) -> PiZeroSpec:
@@ -244,6 +246,7 @@ def spec_from_config(cfg: dict) -> PiZeroSpec:
         time_max_period=float(cfg.get("time_max_period", 10000.0)),
         adaptive_mode=cfg.get("action_expert_adaptive_mode") or None,
         time_hidden_size=int(cfg.get("time_hidden_size", 256) or 256),
+        flow_sig_min=float(cfg.get("flow_sig_min", 0.001)),
     )
 
 
@@ -396,11 +399,12 @@ class PiZero(nn.Module):
     # Encoders
     # ------------------------------------------------------------------
 
-    def _embed_merge(self, input_ids, pixel_values) -> torch.Tensor:
+    def _embed_merge(self, input_ids, pixel_values, remat: bool = False) -> torch.Tensor:
         """Text embedding with the scaled image features written at the
-        image-token slots (always the first positions of the prompt)."""
+        image-token slots (always the first positions of the prompt).
+        ``remat`` checkpoints each SigLIP layer (training)."""
         s = self.spec
-        feats = self.multi_modal_projector(self.vision_tower(pixel_values))
+        feats = self.multi_modal_projector(self.vision_tower(pixel_values, remat=remat))
         return merge_embeds(self.embed_tokens, feats, input_ids, s.image_token_index,
                             s.pad_token_id, self.vlm_hidden)
 
@@ -570,6 +574,66 @@ class PiZero(nn.Module):
     def _clip_actions(self, action: torch.Tensor) -> torch.Tensor:
         c = self.spec.final_action_clip_value
         return action if c is None else torch.clamp(action, -c, c)
+
+    # ------------------------------------------------------------------
+    # Flow-matching training loss
+    # ------------------------------------------------------------------
+
+    def forward(self, *args, **kwargs) -> torch.Tensor:
+        """The training forward is the loss, ``flow_loss`` (as the
+        reference's ``PiZero.forward``)."""
+        return self.flow_loss(*args, **kwargs)
+
+    def psi_t(self, x: torch.Tensor, x1: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The flow's point at time ``t`` [B] between noise ``x`` and the
+        actions ``x1``: (1 - (1 - sig_min) t) x + t x1."""
+        t = t[:, None, None]
+        return (1 - (1 - self.spec.flow_sig_min) * t) * x + t * x1
+
+    def flow_loss(
+        self,
+        input_ids: torch.Tensor,  # [B, S] int
+        attention_mask: torch.Tensor,  # [B, S] int
+        pixel_values: torch.Tensor,  # [B, C, H, W]
+        proprios: torch.Tensor,  # [B, cond_steps, proprio_dim]
+        actions: torch.Tensor,  # [B, horizon, action_dim]
+        t: torch.Tensor,  # [B] flow time
+        x0: torch.Tensor,  # noise, the shape of actions
+        remat: bool = False,
+    ) -> torch.Tensor:
+        """The flow-matching loss (JAX ``PiZero.flow_loss``): the joint
+        model's naive forward over image/text + proprio + the flow's point
+        ``psi_t(x0, actions, t)`` (cast back to the actions' dtype), its
+        velocity against ``actions - (1 - sig_min) x0``, the mean of the
+        squares taken in fp32. ``t`` and ``x0`` are passed explicitly.
+        ``remat`` recomputes each SigLIP and joint layer in the backward
+        (``torch.utils.checkpoint``). The proprio mixture is the action
+        module, so its gradient sums both mixtures' contributions, as JAX's
+        canonical tied tree gives."""
+        s = self.spec
+        bsz = input_ids.shape[0]
+        psi = self.psi_t(x0, actions, t).to(actions.dtype)
+        full_mask = mask_lib.pi0_full_mask(
+            attention_mask, s.max_image_text_tokens, s.num_proprio_tokens,
+            s.num_action_tokens,
+        )
+        vlm_pos, proprio_pos, action_pos = mask_lib.pi0_position_ids(
+            bsz, s.max_image_text_tokens, s.num_proprio_tokens,
+            s.num_action_tokens, device=input_ids.device,
+        )
+        inputs_embeds = self._embed_merge(input_ids, pixel_values, remat=remat)
+        proprio_embeds = self._encode_proprio(proprios)
+        time_emb = self._time_embedding(t).to(actions.dtype)
+        hidden = joint_lib.naive_forward(
+            self.joint, self.joint_spec,
+            {"vlm": inputs_embeds, "proprio": proprio_embeds,
+             "action": self._encode_action(psi, time_emb)},
+            {"vlm": vlm_pos, "proprio": proprio_pos, "action": action_pos},
+            full_mask, time_emb if s.adaptive_mode else None, remat=remat,
+        )
+        v_psi = self._decode_action(hidden)
+        d_psi = actions - (1 - s.flow_sig_min) * x0
+        return torch.mean((v_psi.float() - d_psi.float()) ** 2)
 
     # ------------------------------------------------------------------
     # Text generation (the vlm mixture alone, append-mode cache)

@@ -9,7 +9,8 @@ gelu-tanh MLP, then a final LayerNorm. Linear weights are stored as
 JAX [in, out] arrays. Under ``vlm_quantization.include_vision`` the six
 linears of each encoder layer become ``ops.quant.W8A8Linear``s (the JAX
 ``quantize_vit_w8a8``), called the same way; the patch embedding and the
-norms stay fp.
+norms stay fp. A layer linear may also be an ``ops/lora.py:LoRALinear``
+(LoRA fine-tuning under the ``vlm`` and ``all`` scopes).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from blurr_tpu_torch.ops.activations import gelu_tanh
 from blurr_tpu_torch.ops.attention import mha_flat
@@ -84,11 +86,13 @@ class SiglipVisionModel(nn.Module):
         )
         self.post_layernorm = nn.LayerNorm(d, eps=self.eps, **kw)
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixel_values: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """``remat`` recomputes each encoder layer in the backward
+        (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` per layer)."""
         h = self.patch_embedding(patchify(pixel_values, self.patch_size))
         h = h + self.position_embedding[None]
         for layer in self.layers:
-            h = layer(h)
+            h = checkpoint(layer, h, use_reentrant=False) if remat else layer(h)
         return layer_norm(
             h, self.post_layernorm.weight, self.post_layernorm.bias, self.eps
         )

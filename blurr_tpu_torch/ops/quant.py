@@ -17,8 +17,17 @@ In torch idiom a quantized weight is a module: ``Int8Linear``,
 buffers (the scale apart from the int8 bytes), and ``from_linear``
 quantizes an ``nn.Linear``. The quantizers swap a model's linears for them
 in place, one layer at a time, so the fp weight of a layer is released as
-soon as its quantized module replaces it. Inference only: the
-straight-through gradients are not ported yet, and LoRA weights raise.
+soon as its quantized module replaces it; they skip any module that is not
+an ``nn.Linear`` (a quantized one, or an ``ops/lora.py:LoRALinear``, as
+JAX's skip dicts).
+
+The w8a8 and w4a8 products differentiate as JAX's ``_int8_dot_ste`` and
+``_int4_dot_ste`` do (QLoRA training through a frozen quantized base): two
+``torch.autograd.Function``s whose forward is the inference product and
+whose backward is straight through, ``grad_x = g @ deq(W)^T`` in fp32, the
+dequantized weight made only in the backward, and no gradient for the int
+payload or the scales. The activation clip stays outside them, so autograd
+zeroes the gradient past it as ``jnp.clip`` does.
 
 The int8 weight-only product is the int8 kernel ``int8_matmul``, as the JAX
 package's ``int8_mm_nd`` (its ``mm`` dequantizes in XLA instead: the
@@ -181,14 +190,52 @@ def int8_dot(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq, q)
 
 
+class _Int8DotSTE(torch.autograd.Function):
+    """JAX ``_int8_dot_ste``: fp32 x [..., K] -> fp32 (x_q @ q) * x_scale * s
+    through ``torch._int_mm``; backward g @ (q * s)^T in fp32."""
+
+    @staticmethod
+    def forward(ctx, xf, q, s):
+        ctx.save_for_backward(q, s)
+        xq, xs = _quantize_activations(xf, None)
+        acc = int8_dot(xq, q).reshape(*xf.shape[:-1], q.shape[1])
+        return acc.float() * xs * s
+
+    @staticmethod
+    def backward(ctx, g):
+        q, s = ctx.saved_tensors
+        return g @ (q.float() * s).T, None, None
+
+
+class _Int4DotSTE(torch.autograd.Function):
+    """JAX ``_int4_dot_ste``: fp32 x [..., K] -> fp32 sum_g (x_q_g @
+    unpack(q4)_g) * s_g * x_scale through ``int4_matmul`` (its kernel on
+    CUDA, its plain version on the CPU); backward g @ _w4a8_deq(q4, s)^T in
+    fp32, a plain matmul as JAX computes it in XLA."""
+
+    @staticmethod
+    def forward(ctx, xf, q4, s):
+        ctx.save_for_backward(q4, s)
+        xq, xs = _quantize_activations(xf, None)
+        n = s.shape[1]
+        n_pad = q4.shape[0] * q4.shape[2]
+        s_pad = s if n_pad == n else F.pad(s, (0, n_pad - n))
+        y = int4_matmul(xq, q4, s_pad)[:, :n] * xs.reshape(-1, 1)
+        return y.reshape(*xf.shape[:-1], n)
+
+    @staticmethod
+    def backward(ctx, g):
+        q4, s = ctx.saved_tensors
+        return g @ _w4a8_deq(q4, s, 2 * q4.shape[1]).T, None, None
+
+
 def w8a8_mm(x: torch.Tensor, w: dict,
             activation_clip: Optional[float] = None) -> torch.Tensor:
     """y = (x_q @ w_q) * x_scale * w_scale, with x quantized per token.
-    x [..., K]; w["q8a"] int8 [K, N], w["s"] fp32 [N]; y in x.dtype."""
-    xq, xs = _quantize_activations(x, activation_clip)
-    q = w["q8a"]
-    acc = int8_dot(xq, q).reshape(*x.shape[:-1], q.shape[1])
-    return (acc.float() * xs * w["s"]).to(x.dtype)
+    x [..., K]; w["q8a"] int8 [K, N], w["s"] fp32 [N]; y in x.dtype.
+    Differentiable in x through the straight-through ``_Int8DotSTE``."""
+    xf = _clip(x.float(), activation_clip)
+    return _Int8DotSTE.apply(xf, w["q8a"], w["s"]).to(x.dtype)
 
 
 def w4a8_mm(x: torch.Tensor, w: dict,
@@ -196,14 +243,10 @@ def w4a8_mm(x: torch.Tensor, w: dict,
     """y = sum_g (x_q_g @ unpack(w_q4)_g) * s_g * x_scale through
     ``int4_matmul``. x [..., K]; w["q4"] [NB, K//2, BN]; w["s"] [G, N]
     (exact width: the scale is padded to NB*BN here and the output sliced
-    back); y in x.dtype."""
-    xq, xs = _quantize_activations(x, activation_clip)
-    q4, s = w["q4"], w["s"]
-    n = s.shape[1]
-    n_pad = q4.shape[0] * q4.shape[2]
-    s_pad = s if n_pad == n else F.pad(s, (0, n_pad - n))
-    y = int4_matmul(xq, q4, s_pad)[:, :n] * xs.reshape(-1, 1)
-    return y.reshape(*x.shape[:-1], n).to(x.dtype)
+    back); y in x.dtype. Differentiable in x through the straight-through
+    ``_Int4DotSTE``."""
+    xf = _clip(x.float(), activation_clip)
+    return _Int4DotSTE.apply(xf, w["q4"], w["s"]).to(x.dtype)
 
 
 def int8_mm(x: torch.Tensor, w: dict,
@@ -220,13 +263,24 @@ def cached_fp_mm(x: torch.Tensor, w: dict,
     return _clip(x, activation_clip) @ w["fp"].to(x.dtype)
 
 
+def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               s: torch.Tensor) -> torch.Tensor:
+    """The adapter branch s * (x @ A) @ B in x.dtype, never clipped: the one
+    LoRA product, of ``mm``'s dict form and of ``ops/lora.py:LoRALinear``."""
+    d = (x @ a.to(x.dtype)) @ b.to(x.dtype)
+    return d * s.to(d.dtype)
+
+
 def mm(x: torch.Tensor, w, activation_clip: Optional[float] = None) -> torch.Tensor:
     """Matmul dispatching on the weight: a plain [in, out] tensor, int8
-    {"q","s"}, cached-fp {"fp"}, w8a8 {"q8a","s"} or w4a8 {"q4","s"}. The
-    clip applies to quantized weights only, as in the JAX ``mm``."""
+    {"q","s"}, cached-fp {"fp"}, w8a8 {"q8a","s"}, w4a8 {"q4","s"}, or a
+    LoRA dict {"w","lora_a","lora_b","lora_s"} over any of them (y = mm(x,
+    w) + s * (x @ A) @ B). The clip applies to quantized weights only, never
+    to the LoRA branch, as in the JAX ``mm``."""
     if isinstance(w, dict):
         if "lora_a" in w:
-            raise NotImplementedError("LoRA weight dicts are not ported yet")
+            return mm(x, w["w"], activation_clip) + lora_delta(
+                x, w["lora_a"], w["lora_b"], w["lora_s"])
         if "q8a" in w:
             return w8a8_mm(x, w, activation_clip)
         if "q4" in w:
@@ -360,12 +414,12 @@ QUANTIZED_LINEARS = (Int8Linear, CachedFpLinear, W8A8Linear, W4A8Linear)
 
 def linear(mod: nn.Module, x: torch.Tensor,
            activation_clip: Optional[float] = None) -> torch.Tensor:
-    """Apply a linear module with its mixture's clip: the quantized modules
-    take the clip, an ``nn.Linear`` ignores it (as ``mm`` does for plain
-    weights)."""
-    if isinstance(mod, QUANTIZED_LINEARS):
-        return mod(x, activation_clip)
-    return mod(x)
+    """Apply a linear module with its mixture's clip: an ``nn.Linear``
+    ignores it (as ``mm`` does for plain weights); the quantized modules and
+    ``ops/lora.py:LoRALinear`` (which hands it to its base) take it."""
+    if type(mod) is nn.Linear:
+        return mod(x)
+    return mod(x, activation_clip)
 
 
 # ---------------------------------------------------------------------------

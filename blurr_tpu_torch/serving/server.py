@@ -100,11 +100,16 @@ class ActionServer:
     random-weight servers hold different weights; the noise of each step
     is JAX's). A path loads a reference ``.pt`` checkpoint
     (``checkpoint.load_checkpoint``) onto the device, cast to the model
-    dtype, which follows the config's ``use_bf16``; an orbax directory
-    raises ``NotImplementedError``. Then the quantization tiers of the
-    config (action int8 / cached-fp / w8a8 / w4a8, vlm w8a8 / w4a8)
-    quantize the weights in place on the device, in the order of the JAX
-    ``_build_params``; the int8 KV cache is quantized in every control step.
+    dtype, which follows the config's ``use_bf16``; a directory is a
+    parameter tree of ``scripts/train_pi0_flow_torch.py --save-dir``
+    (``checkpoint.restore_params``), its quantized linears and LoRA
+    adapters rebuilt as saved (a QLoRA tree serves unmerged, its int4
+    products through the int4 kernel), the scales kept fp32. Then the
+    quantization tiers of the config (action int8 / cached-fp / w8a8 /
+    w4a8, vlm w8a8 / w4a8) quantize the remaining ``nn.Linear``s in place on
+    the device (an adapter or an already quantized linear is skipped, as
+    JAX skips dicts), in the order of the JAX ``_build_params``; the int8
+    KV cache is quantized in every control step.
     ``max_batch``, ``batch_window_ms``, ``max_queue`` and ``bucket_mode``
     are dynamic batching's, as in JAX (the module docstring).
     """

@@ -330,11 +330,47 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              openvla): each a clean match, exit 0.
 Phases 32-34 run inside the recording of phases 25-30b, so
 served-int4-shapes holds their K2 shapes too.
+36. small-train - one QLoRA w4a8 training step (bridge_tiny, fp32, scope
+             all, rank 4, the adapters' B drawn non-zero) on the card
+             against the same step on the CPU: the same weights, batch,
+             noise and t; the loss and every adapter gradient within
+             SMALL_TRAIN_TOL of its largest |grad|; K2 launched on the card.
+37. train-qlora-w4a8 - scripts/train_pi0_flow_torch.py's main() in-process
+             at bridge.yaml's full width, random weights drawn on the card:
+             --lora-rank 16 --lora-quantize-base w4a8 --dtype bf16
+             --train-scope all, batch 2, 6 steps, from a sharded dataset of
+             raw 480x640 frames the phase writes (the transform resizes
+             them). K2 exactly 370 times a step (740 for one forward and
+             backward with remat); the first step's loss and adapter
+             gradients through K2 against the same step with every w4a8
+             product on int4_matmul_reference, within INT4_REL_TOL; every
+             K2 shape of the run held against the plain version
+             (train-int4-shapes, with its bound and a bf16 matmul of the
+             dense weight); the int4 payloads and scales bit-unchanged,
+             every lora_b with a gradient path non-zero, every loss finite;
+             the step median, the peak memory, one step's device time and
+             K2's share.
+38. train-resume - the same run with --save-every 2 --stop-after 3 into a
+             manager root, then --resume-state from it to step 6: the
+             parameters and buffers equal to phase 37's within
+             TRAIN_RESUME_TOL (0: bit-equal).
+39. train-serve - phase 37's --save-dir (the QLoRA tree, adapters unmerged)
+             served by ActionServer (bridge.yaml, blurr preset): 3 requests,
+             K2 370 times each, answers finite and in range, and the served
+             model's chunk equal to the trained model's in memory on the
+             same inputs and noise.
+40. train-full - --train-scope action_expert --dtype fp32 at full width, 3
+             steps (no kernel of the port runs), its peak memory; then a
+             bf16 LoRA run whose --save-dir is merged, exported by
+             scripts/export_torch_checkpoint_torch.py to a reference .pt and
+             loaded by load_checkpoint bit-equal to the directory, which
+             equals the trained model merged in memory.
 Then one JSON line of the kernels (launches summed over the served runs of
 phases 4-10 with the batched, backpressure and reload runs, the
 experiments run, the eval runs of phases 14-18 and 20, the text runs of
-phases 21-23, the OpenVLA runs of phases 25-30b and the eval CLIs' runs of
-phases 32-34, the counts set to 0 just before each; errors
+phases 21-23, the OpenVLA runs of phases 25-30b, the eval CLIs' runs of
+phases 32-34 and the training steps and served requests of phases 37-40,
+the counts set to 0 just before each; errors
 and times measured here: ms and plain_ms with CUDA events, graph_ms and
 plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
 function where there is one, at the first timed shape of each kernel;
@@ -4030,6 +4066,445 @@ def eval_prismatic(device) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Training (phases 36-40): scripts/train_pi0_flow_torch.py's main() in-process
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6
+TRAIN_BATCH = 2
+TRAIN_EXAMPLES = 16  # raw examples of the phase's sharded dataset (480x640 frames)
+# K2 per training step of QLoRA w4a8, scope all: the vlm mixture's 7 linears
+# in 17 layers and q, k, v in the last (122), the proprio mixture (the tied
+# action module) the same (122), the action mixture's 7 in all 18 (126); the
+# straight-through backward launches none. --remat runs the forward twice.
+TRAIN_K2_PER_STEP = 370
+TRAIN_ARGS = ["--config", "config/eval/bridge.yaml", "--lora-rank", "16",
+              "--lora-quantize-base", "w4a8", "--dtype", "bf16", "--train-scope", "all",
+              "--batch-size", str(TRAIN_BATCH), "--seed", "0", "--log-every", "1"]
+# small-train: the bridge_tiny QLoRA w4a8 step, card against CPU (fp32, TF32
+# off), the loss and each adapter gradient as a share of its largest |grad|:
+# the two sides sum in other orders, and an fp32 activation within rounding
+# of a half step of its per-token int8 quantization may round the other way
+# on one side, moving that activation by 1/127 of its row's largest (as
+# SMALL_W4A8_TOL; an H100 reads 2.0e-6 of the largest |grad|)
+SMALL_TRAIN_TOL = 1e-3
+# train-resume: the parameters of a run stopped at step 3 and resumed to 6
+# against the uninterrupted run: bit-equal. No operation of the step sums
+# with atomics (the frozen token embedding takes no gradient; cuBLAS and K2
+# give the same bits on a second call), so none is needed
+TRAIN_RESUME_TOL = 0.0
+
+
+def _raw_shards(path: str, cfg, n: int = TRAIN_EXAMPLES, seed: int = 0) -> None:
+    """A sharded dataset of raw robot examples: 480x640 uint8 frames (the
+    transform resizes them with the Lanczos ladder), raw proprio and action
+    chunks (normalized by config/bridge_statistics.json), pre-tokenized
+    prompts of 8-12 text tokens after the image tokens."""
+    from blurr_tpu_torch.data import write_dataset
+
+    rng = np.random.RandomState(seed)
+    n_img = cfg["vision"]["config"]["num_image_tokens"]
+    seq = cfg["max_image_text_tokens"]
+    ids = np.zeros((n, seq), np.int32)
+    am = np.zeros((n, seq), np.int32)
+    ids[:, :n_img] = cfg["image_token_index"]
+    for i in range(n):
+        k = 8 + i % 5
+        ids[i, n_img:n_img + k] = rng.randint(3, 1000, k)
+        am[i, :n_img + k] = 1
+    write_dataset(path, {
+        "image": rng.randint(0, 256, (n, 480, 640, 3), np.uint8),
+        "proprio": rng.uniform(-0.2, 0.2, (n, cfg["proprio_dim"])).astype(np.float32),
+        "action": rng.uniform(-0.02, 0.02, (n, cfg["horizon_steps"], cfg["action_dim"])
+                              ).astype(np.float32),
+        "input_ids": ids, "attention_mask": am,
+    }, shard_size=8)
+
+
+def _grads_of(model, trainable, kw, batch, noise, t):
+    """The loss and the gradients of ``trainable`` of one training step's
+    inputs, as the step computes them (the batch cast to its dtype)."""
+    from blurr_tpu_torch.parallel.train import _BATCH_KEYS, cast_batch, param_dtype
+
+    b = cast_batch(batch, kw.get("compute_dtype") or param_dtype(model))
+    loss = model.flow_loss(*[b[k] for k in _BATCH_KEYS], t, noise, remat=kw.get("remat", False))
+    return [loss.detach()] + list(torch.autograd.grad(loss, trainable, allow_unused=True))
+
+
+def _rel_reading(got, want) -> float:
+    """max over the tensors of max|got - want| / max|want| (None: zeros)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a is None and b is None:
+            continue
+        a = torch.zeros_like(b) if a is None else a
+        b = torch.zeros_like(a) if b is None else b
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float().to(a.device)).abs().max().item()
+        worst = max(worst, err / scale if scale > 0 else err)
+    return worst
+
+
+class _TrainRun:
+    """train_pi0_flow_torch.main(argv) in-process with every optimizer step
+    recorded: its kernel launches (the counts read just before and after the
+    step alone), its host ms (synchronized) and its loss. ``first(model,
+    trainable, kw, batch, noise, t)`` runs before the first step, outside
+    the counts; the step numbered ``profile_at`` runs under torch.profiler,
+    and its ms stays out of the step median."""
+
+    def __init__(self, device, first=None, profile_at=None):
+        self.device, self.steps, self.first, self.profile_at = device, [], first, profile_at
+        self.prof = None
+
+    def __call__(self, argv):
+        from torch.profiler import ProfilerActivity, profile
+
+        from blurr_tpu_torch.parallel import train as train_lib
+
+        real = train_lib.make_train_step
+        run = self
+
+        def make(model, optimizer, **kw):
+            step = real(model, optimizer, **kw)
+
+            def recorded(batch, noise, t):
+                if not run.steps and run.first is not None:
+                    run.first(model, optimizer.params, kw, batch, noise, t)
+                torch.cuda.synchronize()
+                before, t0 = _counts(), time.monotonic()
+                profiled = len(run.steps) == run.profile_at
+                if profiled:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        loss = step(batch, noise, t)
+                        torch.cuda.synchronize()
+                    run.prof = prof
+                else:
+                    loss = step(batch, noise, t)
+                torch.cuda.synchronize()
+                ms = (time.monotonic() - t0) * 1000.0
+                after = _counts()
+                run.steps.append({"ms": ms, "loss": float(loss), "profiled": profiled,
+                                  "launches": {n: after[n] - before[n] for n in after}})
+                return loss
+
+            recorded.accumulator = step.accumulator
+            return recorded
+
+        train_lib.make_train_step = make
+        try:
+            return _cli("train_pi0_flow_torch").main([*argv, "--device", str(self.device)])
+        finally:
+            train_lib.make_train_step = real
+
+    def launches(self) -> dict:
+        return {n: sum(s["launches"][n] for s in self.steps) for n in KERNEL_NAMES}
+
+    def check(self, label, steps: int, per_step: dict) -> None:
+        want = {n: per_step.get(n, 0) for n in KERNEL_NAMES}
+        losses = [s["loss"] for s in self.steps]
+        bad = [s["launches"] for s in self.steps if s["launches"] != want]
+        if len(self.steps) != steps or bad or not np.isfinite(losses).all():
+            raise RuntimeError(f"{label}: {len(self.steps)} steps (want {steps}), launches "
+                               f"{bad[:1]} (want {want} each), losses {losses}")
+        ms = [s["ms"] for s in self.steps]
+        timed = [s["ms"] for s in self.steps[1:] if not s["profiled"]] or ms
+        log(f"{label}: {steps} optimizer steps, each launching {want}; losses "
+            f"{[round(x, 5) for x in losses]}; step ms {[round(x, 1) for x in ms]}; the steps "
+            f"after the first, less the one under the profiler: {_median_ms(timed)} (host "
+            f"clock, synchronized; on {card()})")
+
+
+def _train_profile(label, prof) -> None:
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    total_ms = sum(e.self_device_time_total for e in kernels) / 1000.0
+    k2 = [e for e in kernels if "int4_matmul" in e.key]
+    k2_ms = sum(e.self_device_time_total for e in k2) / 1000.0
+    most = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"{label}: one optimizer step under torch.profiler: device time {total_ms:.3f} ms over "
+        f"{sum(e.count for e in kernels)} kernels; K2 {k2_ms:.3f} ms over "
+        f"{sum(e.count for e in k2)} launches ({100 * k2_ms / max(total_ms, 1e-9):.1f}%); the "
+        f"longest: " + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                                 for e in most))
+    if not total_ms > 0:
+        raise RuntimeError(f"{label}: the profiler saw no device time")
+
+
+def small_train_vs_cpu(device) -> None:
+    """bridge_tiny, fp32, QLoRA w4a8 (scope all, rank 4, adapters' B drawn
+    non-zero): one training step's loss and adapter gradients on the card
+    (K2 in the forward) against the same step on the CPU (its plain
+    version), the same weights, batch, noise and t."""
+    from blurr_tpu_torch.models.pi0.pizero import PiZero
+    from blurr_tpu_torch.models.pi0.trainable import apply_mask
+    from blurr_tpu_torch.ops.lora import LoRALinear, inject_lora_tree, lora_trainable_mask
+    from blurr_tpu_torch.ops.quant import quantize_mixture_w4a8
+    from blurr_tpu_torch.presets import load_config
+
+    label = "small-train"
+    cfg = load_config("config/eval/bridge_tiny.yaml")
+    g = torch.Generator().manual_seed(0)
+    cpu = PiZero(cfg, device="cpu", dtype=torch.float32).init_params(g)
+    for m in ("vlm", "action"):
+        quantize_mixture_w4a8(cpu.joint[m].layers)
+    for mod in (cpu.vision_tower, cpu.joint["vlm"], cpu.joint["action"]):
+        inject_lora_tree(mod, g, 4, ("q_w", "v_w"))
+    with torch.no_grad():
+        for mod in cpu.modules():
+            if isinstance(mod, LoRALinear):
+                mod.lora_b.normal_(0.0, 0.1, generator=g)
+    gpu = copy.deepcopy(cpu).to(device)
+    batch = _cli("train_pi0_flow_torch").synthetic_batch(cfg, 2, np.random.RandomState(0))
+    rng = np.random.RandomState(1)
+    noise = rng.randn(2, cfg["horizon_steps"], cfg["action_dim"]).astype(np.float32)
+    t = (rng.rand(2) ** (2 / 3)).astype(np.float32)
+    out = {}
+    for name, model in (("cpu", cpu), ("card", gpu)):
+        dev = next(model.parameters()).device
+        trainable = apply_mask(model, lora_trainable_mask(model))
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        _zero_counts()
+        out[name] = _grads_of(model, trainable, {}, tb, torch.from_numpy(noise).to(dev),
+                              torch.from_numpy(t).to(dev))
+        out[name + "_k2"] = _counts()["int4_matmul"]
+    loss_err = abs(out["card"][0].item() - out["cpu"][0].item()) / abs(out["cpu"][0].item())
+    grad = _rel_reading([x.cpu() for x in out["card"][1:]], out["cpu"][1:])
+    log(f"{label}: bridge_tiny QLoRA w4a8 step, card against CPU: loss {out['card'][0].item():.6f}"
+        f" vs {out['cpu'][0].item():.6f} (rel {loss_err:.2e}), {len(out['cpu']) - 1} adapter "
+        f"gradients within {grad:.3e} of each one's largest |grad| (tol {SMALL_TRAIN_TOL:g}); "
+        f"K2 launched {out['card_k2']} times on the card")
+    if not (loss_err <= SMALL_TRAIN_TOL and grad <= SMALL_TRAIN_TOL and out["card_k2"] > 0):
+        raise RuntimeError(f"{label}: the card's training step disagrees with the CPU's")
+    del cpu, gpu
+    _free()
+
+
+def train_qlora_w4a8(device, tmp: str, held: set):
+    """train_pi0_flow_torch.py's main() at bridge.yaml's full width, random
+    weights drawn on the card: QLoRA w4a8 rank 16, bf16, scope all, batch 2,
+    TRAIN_STEPS steps from a sharded dataset of raw frames it writes. K2
+    TRAIN_K2_PER_STEP times a step (and twice that with remat); the first
+    step's loss and adapter gradients through K2 against every w4a8 product
+    on int4_matmul_reference; the K2 shapes of the run held against the
+    plain version; the int4 payloads and scales unchanged, lora_b non-zero,
+    every loss finite; the step median, the peak memory, one step's device
+    time and K2's share. Returns (launches, the run's result, the
+    save-dir)."""
+    from blurr_tpu_torch.ops import quant
+    from blurr_tpu_torch.ops.int4_matmul import int4_matmul_reference
+    from blurr_tpu_torch.ops.lora import LoRALinear
+    from blurr_tpu_torch.presets import load_config
+
+    label = "train-qlora-w4a8"
+    cfg = load_config("config/eval/bridge.yaml")
+    data = os.path.join(tmp, "shards")
+    t0 = time.monotonic()
+    _raw_shards(data, cfg)
+    log(f"{label}: wrote a sharded dataset of {TRAIN_EXAMPLES} raw examples (480x640 uint8 "
+        f"frames) in {time.monotonic() - t0:.2f} s")
+    save_dir = os.path.join(tmp, "qlora")
+    seen = {}
+
+    def first(model, trainable, kw, batch, noise, t):
+        seen["frozen"] = {n: b.clone() for n, b in model.named_buffers()
+                          if n.endswith((".q4", ".s"))}
+        seen["inputs"] = (batch, noise, t)
+        kernel = _grads_of(model, trainable, kw, batch, noise, t)
+        real = quant.int4_matmul
+        quant.int4_matmul = int4_matmul_reference
+        try:
+            plain = _grads_of(model, trainable, kw, batch, noise, t)
+        finally:
+            quant.int4_matmul = real
+        err = _rel_reading(kernel, plain)
+        log(f"{label}: the first step through K2 against every w4a8 product on "
+            f"int4_matmul_reference: loss {kernel[0].item():.6f} vs {plain[0].item():.6f}, "
+            f"{len(trainable)} adapter gradients, largest error {err:.3e} of the largest |grad| "
+            f"(tol {INT4_REL_TOL:g})")
+        if err > INT4_REL_TOL:
+            raise RuntimeError(f"{label}: K2's step disagrees with the plain route's")
+        seen["trainable"] = trainable
+
+    run = _TrainRun(device, first, profile_at=TRAIN_STEPS - 2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with _RecordInt4Shapes() as rec:
+        _zero_counts()
+        result = run([*TRAIN_ARGS, "--data", data, "--steps", str(TRAIN_STEPS),
+                      "--save-dir", save_dir])
+    secs = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    run.check(label, TRAIN_STEPS, {"int4_matmul": TRAIN_K2_PER_STEP})
+    model = result.model
+    log(f"{label}: main() in {secs:.1f} s; peak memory {peak} B ({peak / 2**30:.2f} GiB); "
+        f"resident parameters and buffers {resident_bytes(model) / 1e9:.3f} GB; on {card()}")
+    _train_profile(label, run.prof)
+    now = dict(model.named_buffers())
+    changed = [n for n, b in seen["frozen"].items() if not torch.equal(b, now[n])]
+    # the vlm mixture's last-layer queries feed only vlm outputs that nothing
+    # reads: that adapter's gradient is zero (in JAX too), so its B stays 0
+    dead = f"joint.vlm.layers.{len(model.joint['vlm'].layers) - 1}.q_proj"
+    lora_b = {n: m.lora_b for n, m in model.named_modules()
+              if isinstance(m, LoRALinear) and n != dead}
+    moved = sum(int(b.abs().max().item() > 0) for b in lora_b.values())
+    log(f"{label}: {len(seen['frozen'])} int4 payloads and scales bit-unchanged: "
+        f"{not changed}; {moved} of the {len(lora_b)} lora_b with a gradient path non-zero")
+    if changed or moved != len(lora_b):
+        raise RuntimeError(f"{label}: frozen buffers changed {changed[:3]} or lora_b zero")
+    _zero_counts()
+    batch, noise, t = seen["inputs"]
+    _grads_of(model, seen["trainable"], {"remat": True}, batch, noise, t)
+    remat = _counts()["int4_matmul"]
+    log(f"{label}: one forward and backward with remat launched K2 {remat} times (want "
+        f"{2 * TRAIN_K2_PER_STEP})")
+    if remat != 2 * TRAIN_K2_PER_STEP:
+        raise RuntimeError(f"{label}: remat launched K2 {remat} times")
+    served_int4_vs_plain(device, rec.seen, held, label="train-int4-shapes",
+                         what="the training run", by="the earlier kernel phases")
+    return run.launches(), result, save_dir
+
+
+def train_resume(device, tmp: str, uninterrupted) -> dict:
+    """The same run with --save-every 2 --stop-after 3 into a manager root,
+    then --resume-state from it to step TRAIN_STEPS: the parameters and
+    buffers must equal the uninterrupted run's (phase train-qlora-w4a8)
+    within TRAIN_RESUME_TOL. Returns the launches of both runs."""
+    label = "train-resume"
+    data, root = os.path.join(tmp, "shards"), os.path.join(tmp, "state")
+    a, b = _TrainRun(device), _TrainRun(device)
+    t0 = time.monotonic()
+    a([*TRAIN_ARGS, "--data", data, "--steps", str(TRAIN_STEPS), "--save-state", root,
+       "--save-every", "2", "--stop-after", "3"])
+    a.check(label + " (stopped)", 3, {"int4_matmul": TRAIN_K2_PER_STEP})
+    launches = a.launches()
+    steps = sorted(e for e in os.listdir(root) if e.isdigit())
+    size = sum(f.stat().st_size for f in Path(root, steps[-1]).iterdir())
+    log(f"{label}: stopped after 3 steps in {time.monotonic() - t0:.1f} s; the manager root "
+        f"holds steps {steps}, {size / 1e9:.3f} GB each")
+    del a
+    _free()
+    t0 = time.monotonic()
+    result = b([*TRAIN_ARGS, "--data", data, "--steps", str(TRAIN_STEPS), "--resume-state", root])
+    b.check(label + " (resumed)", TRAIN_STEPS - 3, {"int4_matmul": TRAIN_K2_PER_STEP})
+    mine = dict(result.model.state_dict())
+    theirs = dict(uninterrupted.state_dict())
+    errs = {k: (mine[k].float() - theirs[k].float()).abs().max().item() for k in theirs
+            if mine[k].is_floating_point()}
+    same = all(torch.equal(mine[k], theirs[k]) for k in theirs)
+    worst = max(errs.values())
+    log(f"{label}: resumed to step {TRAIN_STEPS} in {time.monotonic() - t0:.1f} s; its "
+        f"{len(theirs)} parameters and buffers bit-equal to the uninterrupted run's: {same} "
+        f"(largest difference {worst:.3e}, tol {TRAIN_RESUME_TOL:g})")
+    if mine.keys() != theirs.keys() or worst > TRAIN_RESUME_TOL:
+        raise RuntimeError(f"{label}: the resumed run ends elsewhere")
+    del result, mine
+    _free()
+    return {n: launches[n] + b.launches()[n] for n in KERNEL_NAMES}
+
+
+def train_serve(device, save_dir: str, model) -> dict:
+    """The QLoRA --save-dir of train-qlora-w4a8 served by ActionServer
+    (bridge.yaml, blurr preset): the adapters unmerged over the int4 bases,
+    K2 TRAIN_K2_PER_STEP times a request (the bf16 step's int4 linears),
+    answers finite and in range, and the served model's action chunk equal
+    to the trained model's in memory on the same inputs and noise."""
+    from blurr_tpu_torch.ops.lora import LoRALinear
+    from blurr_tpu_torch.ops.quant import W4A8Linear
+    from blurr_tpu_torch.presets import apply_preset, load_config
+    from blurr_tpu_torch.serving.server import ActionServer
+
+    label = "train-serve"
+    cfg = load_config("config/eval/bridge.yaml")
+    apply_preset(cfg, "blurr")
+    t0 = time.monotonic()
+    server = ActionServer(cfg, save_dir, device=device, seed=0)
+    torch.cuda.synchronize()
+    q = server.model.joint["vlm"].layers[0].q_proj
+    log(f"{label}: ActionServer(bridge.yaml blurr, {os.path.basename(save_dir)}/) loaded in "
+        f"{time.monotonic() - t0:.2f} s as {server.dtype}; vlm q_proj {type(q).__name__} over "
+        f"{type(getattr(q, 'base', q)).__name__}")
+    if not (isinstance(q, LoRALinear) and isinstance(q.base, W4A8Linear)):
+        raise RuntimeError(f"{label}: the adapter tree was not rebuilt")
+    per_step = launches_per_step(server.model, (W4A8Linear, LoRALinear))
+    image, proprio, launches, actions = _serve_requests(server, cfg, label)
+    _check_launches(label, launches, {"int4_matmul": TRAIN_K2_PER_STEP, "flash_attention": 0,
+                                      "int8_matmul": 0})
+    inputs = server._prepare(image, "put the spoon on the towel", proprio)
+    noise = server.noise(0)
+    steps = server.model.spec.num_inference_steps  # the preset's, not the training config's
+    with torch.no_grad():
+        served = server.model.infer_action(*inputs, noise, steps)
+        memory = model.infer_action(*inputs, noise, steps)
+    same = torch.equal(served, memory)
+    log(f"{label}: {per_step} int4 linears a step; the served chunk equal to the trained model's "
+        f"in memory on the same inputs and noise: {same}")
+    if not same:
+        raise RuntimeError(f"{label}: the served model answers other bits")
+    del server
+    _free()
+    return launches
+
+
+def train_full(device, tmp: str) -> dict:
+    """Full fine-tuning at full width: --train-scope action_expert --dtype
+    fp32, 3 steps (no kernel of the port runs), its peak memory; then a bf16
+    LoRA run (no quantization) whose --save-dir is merged, exported by
+    export_torch_checkpoint_torch.py to a reference .pt, and loaded by
+    load_checkpoint: the same bits as the directory, whose weights are the
+    trained model's merged in memory."""
+    from blurr_tpu_torch.models.pi0.checkpoint import load_checkpoint, restore_params
+    from blurr_tpu_torch.models.pi0.pizero import PiZero
+    from blurr_tpu_torch.ops.lora import merge_lora_tree
+    from blurr_tpu_torch.presets import load_config
+
+    label = "train-full"
+    common = ["--config", "config/eval/bridge.yaml", "--batch-size", str(TRAIN_BATCH),
+              "--seed", "0", "--log-every", "1"]
+    run = _TrainRun(device)
+    torch.cuda.reset_peak_memory_stats()
+    result = run([*common, "--train-scope", "action_expert", "--dtype", "fp32", "--steps", "3"])
+    run.check(label + " (action_expert fp32)", 3, {})
+    n = sum(p.numel() for p in result.model.parameters() if p.requires_grad)
+    log(f"{label}: action_expert fp32, {n} trainable parameters; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card()}")
+    launches = run.launches()
+    del result, run
+    _free()
+    save_dir, pt = os.path.join(tmp, "lora"), os.path.join(tmp, "lora.pt")
+    run = _TrainRun(device)
+    torch.cuda.reset_peak_memory_stats()
+    result = run([*common, "--lora-rank", "16", "--dtype", "bf16", "--steps", "2",
+                  "--save-dir", save_dir])
+    run.check(label + " (LoRA bf16)", 2, {})
+    log(f"{label}: LoRA bf16 peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = {n: launches[n] + run.launches()[n] for n in KERNEL_NAMES}
+    cfg = load_config("config/eval/bridge.yaml")
+    saved = restore_params(PiZero(cfg, device=device, dtype=torch.bfloat16), save_dir)
+    in_memory = copy.deepcopy(result.model)
+    merged = merge_lora_tree(in_memory)
+    same_dir = all(torch.equal(a, b) for a, b in zip(saved.state_dict().values(),
+                                                     in_memory.state_dict().values()))
+    del result, run, in_memory
+    _free()
+    t0 = time.monotonic()
+    _cli("export_torch_checkpoint_torch").main(["--config", "config/eval/bridge.yaml",
+                                                "--params", save_dir, "--out", pt,
+                                                "--device", str(device)])
+    t_export = time.monotonic() - t0
+    loaded = load_checkpoint(PiZero(cfg, device=device, dtype=torch.float32), pt)
+    same_pt = all(torch.equal(a, b.float()) for a, b in zip(loaded.state_dict().values(),
+                                                            saved.state_dict().values()))
+    log(f"{label}: {merged} adapters merged; the save-dir equal to the in-memory merge: "
+        f"{same_dir}; exported to a {os.path.getsize(pt) / 1e9:.2f} GB .pt in {t_export:.1f} s, "
+        f"loaded by load_checkpoint bit-equal to the directory (fp32 of its bf16): {same_pt}")
+    if not (same_dir and same_pt):
+        raise RuntimeError(f"{label}: the merged directory or its .pt differs")
+    os.remove(pt)
+    del loaded, saved
+    _free()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -4093,11 +4568,20 @@ def main() -> int:
                         eval_hf_snapshot(device), eval_prismatic(device))
     jacobi_fp32(device)
     served_int4_vs_plain(device, served.seen, held)
+    small_train_vs_cpu(device)
+    with tempfile.TemporaryDirectory(prefix="blurr_train_") as tmp:
+        train_launches, trained, save_dir = train_qlora_w4a8(device, tmp, set())
+        resume_launches = train_resume(device, tmp, trained.model)
+        train_serve_launches = train_serve(device, save_dir, trained.model)
+        del trained
+        _free()
+        full_launches = train_full(device, tmp)
     runs = (launches, checkpoint_launches, batched_launches, backpressure_launches,
             baseline_launches, w4a8_launches, batched_w4a8_launches, int8_launches,
             cached_launches, experiment_launches, eval_launches, frame_launches,
             async_launches, eval_batched_launches, eval_w4a8_launches, small_agent_launches,
-            text_pi0_launches, text_paligemma_launches, small_text_launches, *openvla_runs)
+            text_pi0_launches, text_paligemma_launches, small_text_launches, *openvla_runs,
+            train_launches, resume_launches, train_serve_launches, full_launches)
     total = {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
     measured = {"flash_attention": flash, "int4_matmul": int4, "int8_matmul": int8,
                 **experiments}

@@ -173,7 +173,8 @@ def test_adaptive_reference_checkpoint_matches_jax(tmp_path, mode):
 
 def test_refuses_what_it_cannot_serve(saved, tmp_path):
     """An untied checkpoint (synth_torch_state draws proprio apart), a
-    missing key, a quantized model, and an orbax directory."""
+    missing key, a quantized model, and a directory that is not the port's
+    parameter tree (an orbax tree of the JAX package, or nothing)."""
     cfg, _, _, path = saved
     torch.save({"model": synth_torch_state(cfg)}, tmp_path / "untied.pt")
     with pytest.raises(ValueError, match="not tied"):
@@ -188,7 +189,7 @@ def test_refuses_what_it_cannot_serve(saved, tmp_path):
     tm = PiZero(qcfg, device="cpu", dtype=torch.float32).enable_action_quantization()
     with pytest.raises(ValueError, match="before quantizing"):
         t_ckpt.torch_state_dict(tm)
-    with pytest.raises(NotImplementedError, match="M13"):
+    with pytest.raises(ValueError, match="not a parameter tree of the port"):
         _port(cfg, tmp_path)
 
 

@@ -18,8 +18,9 @@ driven through the port's client, an HF snapshot written and served, and
 on tiny random models, the streaming quantizer, the checkpoint checker on a
 ``.pt`` it writes, ``ModuleSpec`` and the action-accuracy metric. Then a
 static check: no ``.py`` file of the port, nor ``chip_smoke.py`` or the
-port's eight CLIs, has an import whose top-level module is ``jax`` or
-``blurr_tpu``.
+port's eleven scripts, has an import whose top-level module is ``jax`` or
+``blurr_tpu``. A second subprocess runs a QLoRA training step and a LoRA
+run's export the same way.
 """
 
 import ast
@@ -260,6 +261,48 @@ def test_port_runs_without_jax_or_blurr_tpu():
     assert "NO_JAX_OK" in proc.stdout
 
 
+TRAIN_SCRIPT = textwrap.dedent(
+    """
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["blurr_tpu"] = None
+    sys.path.insert(0, "scripts")
+    import tempfile
+    import export_torch_checkpoint_torch
+    import train_pi0_flow_torch
+    with tempfile.TemporaryDirectory() as tmp:
+        run = train_pi0_flow_torch.main([
+            "--device", "cpu", "--config", "config/eval/bridge_tiny.yaml", "--steps", "1",
+            "--lora-rank", "4", "--lora-quantize-base", "w4a8", "--dtype", "bf16",
+            "--save-dir", tmp + "/q", "--save-state", tmp + "/s"])
+        assert len(run.losses) == 1
+        train_pi0_flow_torch.main([
+            "--device", "cpu", "--config", "config/eval/bridge_tiny.yaml", "--steps", "1",
+            "--lora-rank", "4", "--save-dir", tmp + "/l"])
+        export_torch_checkpoint_torch.main([
+            "--device", "cpu", "--config", "config/eval/bridge_tiny.yaml",
+            "--params", tmp + "/l", "--out", tmp + "/l.pt"])
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "blurr_tpu"))
+    assert all(sys.modules[m] is None for m in loaded), loaded
+    print("NO_JAX_TRAIN_OK")
+    """
+)
+
+
+def test_training_runs_without_jax_or_blurr_tpu():
+    """One bridge_tiny QLoRA w4a8 training step (its --save-dir and
+    --save-state), a LoRA run exported to a .pt, with ``jax`` and
+    ``blurr_tpu`` unimportable."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BLURR_PLATFORM", "BLURR_COMPILE_CACHE")}
+    proc = subprocess.run(
+        [sys.executable, "-c", TRAIN_SCRIPT], cwd=REPO_ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "NO_JAX_TRAIN_OK" in proc.stdout
+
+
 def _imported_top_levels(path: Path):
     """(line, top-level module) of every import statement in ``path``."""
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -278,7 +321,10 @@ PORT_FILES = sorted((REPO_ROOT / "blurr_tpu_torch").rglob("*.py")) + [
     REPO_ROOT / "scripts" / "serve_ctl_torch.py",
     REPO_ROOT / "scripts" / "eval_hf_vla_simpler_torch.py",
     REPO_ROOT / "scripts" / "eval_prismatic_vla_simpler_torch.py",
-    REPO_ROOT / "scripts" / "verify_checkpoint_torch.py"]
+    REPO_ROOT / "scripts" / "verify_checkpoint_torch.py",
+    REPO_ROOT / "scripts" / "train_pi0_flow_torch.py",
+    REPO_ROOT / "scripts" / "export_torch_checkpoint_torch.py",
+    REPO_ROOT / "scripts" / "time_quant_linear_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))

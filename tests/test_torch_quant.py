@@ -133,8 +133,10 @@ def test_mm_plain_and_unported_weights():
     x = torch.randn(3, 8)
     w = torch.randn(8, 4)
     torch.testing.assert_close(tq.mm(x, w, activation_clip=0.1), x @ w)  # no clamp
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tq.mm(x, {"w": w, "lora_a": w, "lora_b": w, "lora_s": 1.0})
+    a, b = torch.randn(8, 2), torch.randn(2, 4)
+    lora = {"w": w, "lora_a": a, "lora_b": b, "lora_s": torch.tensor(0.5)}
+    torch.testing.assert_close(tq.mm(x, lora, activation_clip=0.1),
+                               x @ w + ((x @ a) @ b) * 0.5)  # LoRA dicts dispatch
     with pytest.raises(ValueError, match=r"keys \['q', 'scale'\]"):
         tq.mm(x, {"q": w.to(torch.int8), "scale": w[0]})
 

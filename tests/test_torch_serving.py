@@ -258,11 +258,12 @@ def test_w4a8_server_answers_through_the_client():
 
 
 def test_server_refuses_an_orbax_directory(tmp_path):
-    """A directory is an orbax tree (JAX save_params), which the training
-    port (ROADMAP M13) will read; a .pt file is what the port serves."""
+    """A directory the server loads is the port's own parameter tree
+    (``scripts/train_pi0_flow_torch.py --save-dir``); one without it, such
+    as an orbax tree of the JAX package, is refused."""
     cfg = load_config("config/eval/bridge_tiny.yaml")
     apply_preset(cfg, "blurr")
-    with pytest.raises(NotImplementedError, match="M13"):
+    with pytest.raises(ValueError, match="not a parameter tree of the port"):
         ActionServer(cfg, str(tmp_path), device="cpu")
 
 
