@@ -73,14 +73,6 @@
 //   softmax weights before P V and as JAX's XLA route does; l sums the
 //   fp32 p. (The fp32 kernel and the TPU kernel keep P in fp32.)
 //
-// fp32: the CUDA-core kernel of the first port, kept as it was: a tensor
-// core fp32 path would be TF32 (about three digits), and fp32 callers
-// (the small fp32 model held to 1e-4 against the CPU) need full fp32. One
-// block of 128 threads owns one (batch, query head, 16-query tile), walks
-// the keys in tiles of 32 staged in shared memory as fp32; lane j scores
-// key j of the tile for the warp's 4 rows with fp32 FMAs, and for P V lane
-// j owns columns j, j + 32, ... with the probabilities passed by shuffle.
-//
 // What bounds it on the H100: one Pi-0 prefill layer reads ~0.3 MB of K/V
 // and 1.1 MB of Q and writes 1.1 MB (0.78 us at 3.35 TB/s) for ~0.63 GFLOP
 // (0.64 us at 989 TFLOP/s bf16), so the bound is bytes, barely. At batch 1
@@ -91,6 +83,62 @@
 // far fewer bytes a cycle than an SM's own. wgmma (64-row tiles from
 // shared memory), TMA and its multicast of K/V to a cluster, warp
 // specialisation and a persistent kernel are later work.
+//
+// fp32 (the baseline preset's naive step, 180 launches a control step at
+// [1,8,281,256]; the fp32 prefix-cache prefill; a batched baseline server
+// at [b,8,281,256]; every fp32 check against the CPU): the bf16 kernel's
+// fold into 64-row tiles of 8 warps, cp.async ring and cluster merge, with
+// both products in 3xTF32 on the tensor cores and P kept in fp32, as the
+// TPU kernel keeps it. (It replaced the first port's CUDA-core kernel, one
+// block per query head and 16 queries, 0.1402 ms at [1,8,281,256].)
+// - Products: mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32. Each fp32
+//   fragment is split in registers as it is loaded from shared memory:
+//   hi = tf32(x), lo = tf32(x - hi), tf32 rounding as cvt.rna does (ties
+//   away) by two integer operations on the bit pattern (with cvt.rna the
+//   kernel takes 11-12% longer). The sum takes lo hi, hi lo and hi hi and
+//   drops lo lo (below 2^-22 of a product); for S the hi hi sums apart
+//   from the small ones. That holds the output within 1e-5 of the plain
+//   fp32 version (2.9e-6 with logits of std 1, 4.8e-6 with the small
+//   products in the hi hi accumulator); one TF32 product reads 8e-5 at the
+//   test scale and 6e-4 with logits of std 1 on the card
+//   (tests/test_torch_flash_attention.py mirrors both). Nothing is stored
+//   split.
+// - S: the two warps of a row group split the head dim, not the keys: warp
+//   w sums columns h D / 2 .. + D / 2 - 1 (h = w / 4) for all 32 keys of the
+//   tile (4 n8 tiles), so each split of a Q fragment feeds 4 n8 tiles. The
+//   two swap the sums of each other's 16 keys through shared memory, and
+//   each adds, scales, clamps and masks its own keys and swaps those
+//   logits, so the clamp runs once a logit. P V as in bf16: warp w takes
+//   the same D / 2 columns of O (D / 4 registers a thread) over all keys.
+//   P's A fragment is S's C fragment: its columns tig and tig + 4 stand for
+//   keys 2 tig and 2 tig + 1 of the k8 step, and V's B fragment is read at
+//   those keys.
+// - Loads: 16-byte cp.async of Q and of 32-key K and V tiles into a ring
+//   of two stages (199,680 bytes with Q at head_dim 256; the merge reuses
+//   them). Rows are padded by 4 floats, so the 32 lanes of each fragment
+//   load hit 32 distinct banks. The mask comes a tile ahead as one
+//   coalesced 32-byte load a row, made into a word of bits by a ballot.
+// - Numerics: m, l and the merge weights in the natural base (expf), the
+//   clamp tanh(z / softclamp) softclamp with a branch-free tanh (an odd
+//   polynomial below 0.55, 1 - 2 / (e^2y + 1) above). The clamp costs
+//   2-4% of the kernel's time; with tanhf and a division the kernel takes
+//   5-6% longer.
+// - The key split: the bf16 kernel's parts and merge, the number of parts
+//   chosen to minimize waves of one block an SM times a block's tiles (at
+//   [1,8,281,256] 36 tiles x 3 parts of 94 keys; at [4,8,281,256] 3 parts
+//   too, 432 blocks, where one part ran 144 blocks in two waves of 9 tiles).
+// - What bounds it on the H100: at [1,8,281,256], 4 x 8 x 281^2 x 256 =
+//   0.647 GFLOP at 165 TFLOP/s (the 495 TFLOP/s of TF32 over the three
+//   products) is 0.0039 ms; its 5.3 MB at 3.35 TB/s 0.0016 ms, so
+//   operations bound it. Measured in a CUDA graph (chip_smoke.py, NVIDIA
+//   H100 80GB HBM3, 700.00 W): 0.029 ms at [1,8,281,256] (13% of the
+//   bound; plain version 0.053, SDPA fp32 0.065), 0.111 ms at
+//   [4,8,281,256] (plain 0.133). Half of the time is the three products
+//   (without any mma it takes 0.015 / 0.056 ms; one product 0.021 /
+//   0.077); the rest is latency that 8 warps an SM do not hide (loading Q
+//   and a block's K/V, about 250 KB a block from L2, the swaps and the
+//   merge). The variants are timed by scripts/ablate_flash_fp32_torch.py.
+//   wgmma and K/V shared in a cluster by TMA multicast are later work.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -104,176 +152,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-namespace fp32 {
-
-constexpr int kBlockQ = 16;   // query rows per block
-constexpr int kBlockK = 32;   // keys per shared-memory tile (one per lane)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = kBlockQ / kWarps;  // 4
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // Q [16][D], K [32][D + 1] (padded: conflict-free column reads), V [32][D]
-  return sizeof(float) * (kBlockQ * D + kBlockK * (D + 1) + kBlockK * D);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                       T* __restrict__ out, int NH, int KVH, int Sq, int Skv,
-                       float scale, float softclamp) {
-  constexpr int kCols = D / 32;  // output columns per lane
-  extern __shared__ float smem[];
-  float* q_s = smem;                          // [kBlockQ][D]
-  float* k_s = q_s + kBlockQ * D;             // [kBlockK][D + 1]
-  float* v_s = k_s + kBlockK * (D + 1);       // [kBlockK][D]
-
-  const int q_tile = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (NH / KVH);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = q_tile * kBlockQ;
-
-  const T* q_bh = q + ((int64_t)b * NH + h) * Sq * D;
-  const T* k_bh = k + ((int64_t)b * KVH + kvh) * Skv * D;
-  const T* v_bh = v + ((int64_t)b * KVH + kvh) * Skv * D;
-  const uint8_t* mask_b = mask ? mask + (int64_t)b * Sq * Skv : nullptr;
-
-  for (int e = tid; e < kBlockQ * D; e += kThreads) {
-    const int r = e / D;
-    const int qi = q0 + r;
-    q_s[e] = qi < Sq ? to_float(q_bh[(int64_t)qi * D + (e - r * D)]) : 0.f;
-  }
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -FLT_MAX;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Skv; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is no longer read (and Q is stored)
-    for (int e = tid; e < kBlockK * D; e += kThreads) {
-      const int j = e / D;
-      const int d = e - j * D;
-      const int kj = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (kj < Skv) {
-        kx = to_float(k_bh[(int64_t)kj * D + d]);
-        vx = to_float(v_bh[(int64_t)kj * D + d]);
-      }
-      k_s[j * (D + 1) + d] = kx;
-      v_s[e] = vx;
-    }
-    __syncthreads();
-
-    const int kj = k0 + lane;
-    const bool in_range = kj < Skv;
-    float p[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = warp * kRowsPerWarp + r;
-      const float* qr = q_s + row * D;
-      const float* kr = k_s + lane * (D + 1);
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      s *= scale;
-      if (softclamp > 0.f) s = tanhf(s / softclamp) * softclamp;
-      const int qi = q0 + row;
-      if (mask_b && in_range && qi < Sq && !mask_b[(int64_t)qi * Skv + kj]) s = -FLT_MAX;
-      // out-of-range keys take no part in the max (they get p = 0 below)
-      const float m_new = fmaxf(m[r], warp_max(in_range ? s : -FLT_MAX));
-      p[r] = in_range ? expf(s - m_new) : 0.f;
-      const float alpha = expf(m[r] - m_new);
-      l[r] = alpha * l[r] + warp_sum(p[r]);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
-    }
-
-    const int n_keys = min(kBlockK, Skv - k0);
-    for (int j = 0; j < n_keys; ++j) {
-      const float* vr = v_s + j * D;
-      float vj[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) vj[c] = vr[lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, p[r], j);
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(pj, vj[c], acc[r][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qi = q0 + warp * kRowsPerWarp + r;
-    if (qi >= Sq) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    T* o_row = out + (((int64_t)b * NH + h) * Sq + qi) * D;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) o_row[lane + 32 * c] = from_float<T>(acc[r][c] * inv);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask,
-                   void* out, int B, int NH, int KVH, int Sq, int Skv, float scale,
-                   float softclamp, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, D>;
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kBlockQ - 1) / kBlockQ, NH, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), NH, KVH, Sq, Skv, scale,
-      softclamp);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_head_dim(int D, const void* q, const void* k, const void* v,
-                              const void* mask, void* out, int B, int NH, int KVH, int Sq,
-                              int Skv, float scale, float softclamp, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, mask, out, B, NH, KVH, Sq, Skv, scale, softclamp, stream);
-    case 64: return launch<T, 64>(q, k, v, mask, out, B, NH, KVH, Sq, Skv, scale, softclamp, stream);
-    case 128: return launch<T, 128>(q, k, v, mask, out, B, NH, KVH, Sq, Skv, scale, softclamp, stream);
-    case 256: return launch<T, 256>(q, k, v, mask, out, B, NH, KVH, Sq, Skv, scale, softclamp, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-}  // namespace fp32
 
 namespace tc {
 
@@ -795,6 +673,511 @@ cudaError_t dispatch_head_dim(int D, const void* q, const void* k, const void* v
 
 }  // namespace tc
 
+// fp32: the bf16 kernel's fold and cluster merge, with both products in
+// 3xTF32 on the tensor cores (the header gives the design).
+namespace fp32 {
+
+using tc::ceil_div;
+using tc::kMaxParts;
+using tc::kRecvRows;
+using tc::kRowWarps;
+using tc::kRows;
+using tc::kThreads;
+using tc::kWarps;
+
+constexpr int kKeys = 32;  // keys per staged K/V tile: 4 n8 tiles of S, 4 k8 steps of P V
+constexpr int kPad = 4;    // floats of padding per staged row
+
+// The key split: P parts of part_keys keys (the last may hold fewer), at
+// most kMaxParts and at most one part per kKeys keys, P the one that
+// minimizes the waves of one block per SM times a block's work in tiles
+// (its 32-key tiles, and about one more for its loads of Q and its merge);
+// the fewest parts on a tie.
+tc::Geometry geometry(int B, int NH, int KVH, int Sq, int Skv, int sms) {
+  tc::Geometry geo;
+  geo.row_tiles = ceil_div(NH / KVH * Sq, kRows);
+  const long tiles = (long)geo.row_tiles * B * KVH;
+  const int most = std::max(1, std::min(kMaxParts, ceil_div(Skv, kKeys)));
+  int parts = 1;
+  long least = -1;
+  for (int p = 1; p <= most; ++p) {
+    const long waves = (tiles * p + sms - 1) / sms;
+    const long cost = waves * (1 + ceil_div(ceil_div(Skv, p), kKeys));
+    if (least < 0 || cost < least) {
+      least = cost;
+      parts = p;
+    }
+  }
+  geo.part_keys = ceil_div(Skv, parts);
+  geo.parts = ceil_div(Skv, geo.part_keys);  // no part is empty
+  return geo;
+}
+
+// Floats of the region that holds Q and the two K/V stages during the key
+// loop, and after it the part's O [kRows][D + kPad], then the O rows this
+// block receives from every part [kRecvRows][D].
+template <int D>
+__host__ __device__ constexpr size_t region_floats() {
+  const size_t loop = (size_t)(kRows + 4 * kKeys) * (D + kPad);
+  const size_t merge = (size_t)kRows * (D + kPad) + (size_t)kRecvRows * D;
+  return loop > merge ? loop : merge;
+}
+
+template <int D>
+__host__ __device__ constexpr size_t smem_bytes() {
+  // the region; the two exchanges of logits between the warps of a row
+  // group [2][kWarps][2 n8 tiles][32 lanes][4]; the mask bits of two tiles
+  // [2][kRows]; m, l and 1 / l [kRows]; the received m, l and merge
+  // weights [kRecvRows]
+  return sizeof(float) * (region_floats<D>() + (size_t)(2 * kWarps * 2 * 32 * 4 + 2 * kRows +
+                                                         3 * kRows + 3 * kRecvRows));
+}
+
+// x rounded to TF32 (10 mantissa bits, ties away from zero, as
+// cvt.rna.tf32.f32 rounds it) with two integer operations: half of the 13
+// dropped bits added to the bit pattern, then those bits cleared.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to within 2^-22 of x: hi = tf32(x), lo = tf32(x - hi) (the
+// difference is exact in fp32).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b to about fp32 from the split operands (P V): lo hi and hi lo
+// first, then hi hi, into one fp32 accumulator; lo lo (below 2^-22 of the
+// product) is dropped.
+__device__ __forceinline__ void mma_3xtf32(float d[4], const uint32_t ah[4],
+                                           const uint32_t al[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// tanh(y) within a few ulp and without a branch, so the compiler
+// interleaves a lane's logits: below |y| = 0.55 the odd polynomial
+// |y| + |y|^3 P(y^2) (a least-squares fit, 0.7 ulp in fp32), above it
+// 1 - 2 / (e^(2|y|) + 1) (the ulp of expf and __fdividef); the sign of y.
+__device__ __forceinline__ float tanh_fp32(float y) {
+  const float a = fabsf(y), t = a * a;
+  float p = -6.264567840844393e-3f;
+  p = fmaf(p, t, 2.106429450213909e-2f);
+  p = fmaf(p, t, -5.385034158825874e-2f);
+  p = fmaf(p, t, 1.3332565128803253e-1f);
+  p = fmaf(p, t, -3.3333316445350647e-1f);
+  const float small = fmaf(p * t, a, a);
+  const float big = 1.f - __fdividef(2.f, expf(2.f * a) + 1.f);
+  return copysignf(a < 0.55f ? small : big, y);
+}
+
+// One block: folded rows r0 .. r0 + 63 of group blockIdx.z (= b KVH + kvh),
+// keys of part blockIdx.y (its rank in the cluster of the row tile's parts).
+// Warp w owns rows 16 (w % 4) .. + 15 and half hk = w / 4. For S it sums
+// the head columns hk D / 2 .. + D / 2 - 1 of all 32 keys of the tile; the
+// two warps of a row group swap the sums of each other's keys (half hk owns
+// keys 16 hk .. + 15), add them, scale, clamp and mask their own keys and
+// swap those logits, so both hold the tile's logits, m and l. For P V it
+// takes the same columns of O over all keys.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                       float* __restrict__ out, int NH, int KVH, int Sq, int Skv,
+                       int part_keys, float scale, float softclamp) {
+  constexpr int S = D + kPad;            // floats per staged row
+  constexpr int kChunks = D / 4;         // 16-byte chunks of a row
+  constexpr int kRowStep = kThreads / kChunks;
+  constexpr int kStage = 2 * kKeys * S;  // floats of one stage: K rows, then V rows
+  constexpr int kSteps = D / 16;         // a half's k8 steps of S and n8 tiles of O
+  extern __shared__ __align__(16) float f32_smem[];
+  float* q_s = f32_smem;                 // [kRows][S]
+  float* kv_s = q_s + kRows * S;         // [2][kStage]
+  float* o_s = f32_smem;                 // [kRows][S], after the key loop
+  float* recv_s = o_s + kRows * S;       // [kRecvRows][D]
+  float* z_s = f32_smem + region_floats<D>();             // [2][kWarps][2][32][4]
+  uint32_t* bits_s = reinterpret_cast<uint32_t*>(z_s + 2 * kWarps * 2 * 32 * 4);  // [2][kRows]
+  float* m_s = reinterpret_cast<float*>(bits_s + 2 * kRows);  // [kRows]
+  float* l_s = m_s + kRows;                // [kRows]
+  float* inv_s = l_s + kRows;              // [kRows]
+  float* m_recv = inv_s + kRows;           // [kRecvRows]
+  float* l_recv = m_recv + kRecvRows;      // [kRecvRows]
+  float* w_s = l_recv + kRecvRows;         // [kRecvRows]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int hk = warp / kRowWarps, row_warp = warp % kRowWarps;  // half, row warp
+  const int g = NH / KVH;
+  const int rows = g * Sq;  // folded rows of the group
+  const int r0 = blockIdx.x * kRows;
+  const int part = blockIdx.y, parts = gridDim.y;
+  const int group = blockIdx.z, b = group / KVH;
+  // the group's query heads are contiguous: folded row r is row r of q_g
+  const int64_t head0 = (int64_t)b * NH + (int64_t)(group % KVH) * g;
+  const float* q_g = q + head0 * Sq * D;
+  float* out_g = out + head0 * Sq * D;
+  const float* k_g = k + (int64_t)group * Skv * D;
+  const float* v_g = v + (int64_t)group * Skv * D;
+  const int kb = part * part_keys;
+  const int ke = min(Skv, kb + part_keys);  // keys kb .. ke - 1 are this block's
+  const int n_tiles = (ke - kb + kKeys - 1) / kKeys;
+
+  // copies: thread tid moves chunk `ch` of rows crow, crow + kRowStep, ...
+  const int ch = tid % kChunks, crow = tid / kChunks;
+  auto load_tile = [&](int t, int stage) {
+    float* ks = kv_s + stage * kStage;
+    float* vs = ks + kKeys * S;
+    const int k0 = kb + t * kKeys;
+    for (int r = crow; r < kKeys; r += kRowStep) {
+      const bool in = k0 + r < ke;  // keys past the part are zero
+      const int64_t off = (int64_t)(k0 + r) * D + ch * 4;
+      tc::cp_async16(ks + r * S + ch * 4, in ? k_g + off : k_g, in ? 16 : 0);
+      tc::cp_async16(vs + r * S + ch * 4, in ? v_g + off : v_g, in ? 16 : 0);
+    }
+  };
+
+  // The mask as bits: warp w reads the mask rows of tile rows 8 w .. + 7,
+  // lane i the byte of key k0 + i (one coalesced load a row), a tile ahead
+  // of its use; a ballot makes each row's word (bit i: key k0 + i, 0 past
+  // the part), stored in bits_s[stage][row] before the barrier that ends
+  // the tile (tile 0's after tile 1's copies are issued, its loads ahead
+  // of Q's).
+  uint32_t mbytes[8];
+  const uint8_t* mrows[8];  // the mask rows of tile rows 8 w .. + 7
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    mrows[i] = mask ? mask + ((int64_t)b * Sq + (r0 + 8 * warp + i) % Sq) * Skv : nullptr;
+  auto load_mask = [&](int t) {
+    const int key = kb + t * kKeys + lane;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mbytes[i] = key < ke ? mrows[i][key] : 0u;
+  };
+  auto store_bits = [&](int stage) {
+    uint32_t mine = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t word = __ballot_sync(0xffffffffu, mbytes[i] != 0u);
+      if (lane == i) mine = word;
+    }
+    if (lane < 8) bits_s[stage * kRows + 8 * warp + lane] = mine;
+  };
+  if (mask) load_mask(0);
+  for (int r = crow; r < kRows; r += kRowStep) {
+    const bool in = r0 + r < rows;  // rows past the group are zero
+    tc::cp_async16(q_s + r * S + ch * 4, in ? q_g + (int64_t)(r0 + r) * D + ch * 4 : q_g,
+                   in ? 16 : 0);
+  }
+  load_tile(0, 0);
+  tc::cp_async_commit();
+
+  // the thread's rows: ra = 16 row_warp + gid and rb = ra + 8 of the tile
+  const int ra = row_warp * 16 + gid, rb = ra + 8;
+
+  // Fragments (m16n8k8, gid = lane / 4, tig = lane % 4). S: A (Q) of the
+  // k8 step at column c = hk D / 2 + 8 kk holds rows ra, rb at columns
+  // c + tig and c + tig + 4; B (K^T) of n8 tile j holds key 8 j + gid at the
+  // same columns. P V: A is P of k8 step u as S's C fragment of n8 tile u
+  // gives it, so A's columns tig and tig + 4 stand for keys 8 u + 2 tig and
+  // 8 u + 2 tig + 1; B (V) of n8 tile c holds those two keys at column
+  // hk D / 2 + 8 c + gid. With rows of D + 4 floats the 32 lanes of every
+  // such load hit 32 banks.
+  const float* qa = q_s + ra * S + hk * (D / 2) + tig;
+  const float* qb = qa + 8 * S;
+  const int k_off = gid * S + hk * (D / 2) + tig;
+  const int v_off = kKeys * S + 2 * tig * S + hk * (D / 2) + gid;
+  // the two swaps: [2 n8 tiles][lane] of this warp's and of its partner's
+  float4* sums_mine = reinterpret_cast<float4*>(z_s) + warp * 2 * 32 + lane;
+  const float4* sums_theirs =
+      reinterpret_cast<const float4*>(z_s) + (warp ^ kRowWarps) * 2 * 32 + lane;
+  float4* logits_mine = sums_mine + kWarps * 2 * 32;
+  const float4* logits_theirs = sums_theirs + kWarps * 2 * 32;
+  const bool clamp = softclamp > 0.f;
+  const float inv_clamp = clamp ? 1.f / softclamp : 0.f;
+
+  float o[kSteps][4];
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m_a = -FLT_MAX, m_b = -FLT_MAX, l_a = 0.f, l_b = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    const bool next = t + 1 < n_tiles;
+    if (next) {
+      load_tile(t + 1, stage ^ 1);
+      tc::cp_async_commit();
+    }
+    if (mask) {
+      if (t == 0) store_bits(0);
+      if (next) load_mask(t + 1);
+    }
+    if (next)
+      tc::cp_async_wait<1>();  // tile t (and Q) has landed
+    else
+      tc::cp_async_wait<0>();
+    __syncthreads();
+    const int k0 = kb + t * kKeys;
+    const uint32_t bits_a = mask ? bits_s[stage * kRows + ra] : 0xffffffffu;
+    const uint32_t bits_b = mask ? bits_s[stage * kRows + rb] : 0xffffffffu;
+
+    // this half's sum of S = Q K^T over the tile's 32 keys (4 n8 tiles);
+    // the lane holds rows ra (s[j][0..1]) and rb (s[j][2..3]) at keys
+    // 8 j + 2 tig and + 1. hi hi sums apart from lo hi + hi lo (s_lo), added
+    // at the end: shorter chains of dependent mma, and less of the small
+    // terms lost to the accumulator's rounding (H100, q and k x1.0: 2.9e-6
+    // from the plain version against 4.8e-6 in one accumulator)
+    const float* ks = kv_s + stage * kStage + k_off;
+    float s[4][4], s_lo[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s_lo[j][0] = s_lo[j][1] = s_lo[j][2] = s_lo[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      uint32_t ah[4], al[4];
+      split(qa[8 * kk], ah[0], al[0]);
+      split(qb[8 * kk], ah[1], al[1]);
+      split(qa[8 * kk + 4], ah[2], al[2]);
+      split(qb[8 * kk + 4], ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(ks[8 * j * S + 8 * kk], bh0, bl0);
+        split(ks[8 * j * S + 8 * kk + 4], bh1, bl1);
+        mma_tf32(s_lo[j], al, bh0, bh1);
+        mma_tf32(s_lo[j], ah, bl0, bl1);
+        mma_tf32(s[j], ah, bh0, bh1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += s_lo[j][e];
+    // Swap the sums: this warp gives its partner the sums of the partner's
+    // keys (n8 tiles 2 (1 - hk) + jj) and takes those of its own (2 hk + jj),
+    // adds them, scales, clamps and masks them (keys past the part -inf: no
+    // part in the max, p 0) and gives them to its partner for the tile's
+    // softmax. Each logit is made by one warp; hk picks tiles by selects,
+    // so s stays in registers.
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+      sums_mine[jj * 32] = hk ? make_float4(s[jj][0], s[jj][1], s[jj][2], s[jj][3])
+                              : make_float4(s[2 + jj][0], s[2 + jj][1], s[2 + jj][2], s[2 + jj][3]);
+    tc::named_barrier(1 + row_warp, 64);  // the two warps of these rows
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const float4 x4 = sums_theirs[jj * 32];
+      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+      float own[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int bit = 8 * (2 * hk + jj) + 2 * tig + (e & 1);
+        float z = ((hk ? s[2 + jj][e] : s[jj][e]) + x[e]) * scale;
+        if (clamp) z = tanh_fp32(z * inv_clamp) * softclamp;
+        if (k0 + bit >= ke)
+          z = -INFINITY;
+        else if (!((e < 2 ? bits_a : bits_b) >> bit & 1u))
+          z = -FLT_MAX;
+        own[e] = z;
+        s[jj][e] = hk ? s[jj][e] : z;
+        s[2 + jj][e] = hk ? z : s[2 + jj][e];
+      }
+      logits_mine[jj * 32] = make_float4(own[0], own[1], own[2], own[3]);
+    }
+    tc::named_barrier(1 + row_warp, 64);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const float4 x4 = logits_theirs[jj * 32];
+      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[jj][e] = hk ? x[e] : s[jj][e];
+        s[2 + jj][e] = hk ? s[2 + jj][e] : x[e];
+      }
+    }
+
+    float mx_a = -FLT_MAX, mx_b = -FLT_MAX;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+    }
+    const float mn_a = fmaxf(m_a, tc::quad_max(mx_a)), mn_b = fmaxf(m_b, tc::quad_max(mx_b));
+    const float alpha_a = expf(m_a - mn_a), alpha_b = expf(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    // p in fp32, in place of the logits (l sums the lane's part of each row)
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[j][0] = expf(s[j][0] - mn_a);
+      s[j][1] = expf(s[j][1] - mn_a);
+      s[j][2] = expf(s[j][2] - mn_b);
+      s[j][3] = expf(s[j][3] - mn_b);
+      sum_a += s[j][0] + s[j][1];
+      sum_b += s[j][2] + s[j][3];
+    }
+    l_a = alpha_a * l_a + sum_a;
+    l_b = alpha_b * l_b + sum_b;
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      o[j][0] *= alpha_a;
+      o[j][1] *= alpha_a;
+      o[j][2] *= alpha_b;
+      o[j][3] *= alpha_b;
+    }
+
+    // O += P V over the tile's 4 k8 steps, the warp's D / 16 n8 tiles of columns
+    const float* vs = kv_s + stage * kStage + v_off;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      uint32_t ph[4], pl[4];
+      split(s[u][0], ph[0], pl[0]);  // row ra, key 8 u + 2 tig
+      split(s[u][2], ph[1], pl[1]);  // row rb, key 8 u + 2 tig
+      split(s[u][1], ph[2], pl[2]);  // row ra, key 8 u + 2 tig + 1
+      split(s[u][3], ph[3], pl[3]);  // row rb, key 8 u + 2 tig + 1
+#pragma unroll
+      for (int c = 0; c < kSteps; ++c) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(vs[8 * u * S + 8 * c], bh0, bl0);
+        split(vs[(8 * u + 1) * S + 8 * c], bh1, bl1);
+        mma_3xtf32(o[c], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+    if (mask && next) store_bits(stage ^ 1);
+    __syncthreads();  // this stage, Q (the last time) and the logits are no longer read
+  }
+  // this part's O (unnormalized; each warp its rows' half of the columns),
+  // m and l (the same in both halves) into shared memory, over Q
+  l_a = tc::quad_sum(l_a);
+  l_b = tc::quad_sum(l_b);
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    const int c = hk * (D / 2) + 8 * j + 2 * tig;
+    *reinterpret_cast<float2*>(o_s + ra * S + c) = make_float2(o[j][0], o[j][1]);
+    *reinterpret_cast<float2*>(o_s + rb * S + c) = make_float2(o[j][2], o[j][3]);
+  }
+  if (hk == 0 && tig == 0) {
+    m_s[ra] = m_a;
+    m_s[rb] = m_b;
+    l_s[ra] = l_a;
+    l_s[rb] = l_b;
+  }
+
+  // the parts merge as the bf16 kernel's do: rows lo .. lo + share - 1 of
+  // the tile belong to block lo / share; each block stores its rows' O, m
+  // and l into their owners' shared memory after a cluster barrier, and
+  // after a second one each owner adds the parts in part order.
+  cg::cluster_group cluster = cg::this_cluster();
+  auto at = [&](float* p, int rank) { return parts > 1 ? cluster.map_shared_rank(p, rank) : p; };
+  const int share = (kRows + parts - 1) / parts;
+  const int valid = min(kRows, rows - r0);  // rows of the tile inside the group
+  constexpr int kQuads = D / 4;
+  if (parts > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  for (int e = tid; e < valid * kQuads; e += kThreads) {
+    const int r = e / kQuads, c = (e % kQuads) * 4;
+    const int owner = r / share, i = part * share + r - owner * share;
+    *reinterpret_cast<float4*>(at(recv_s, owner) + i * D + c) =
+        *reinterpret_cast<const float4*>(o_s + r * S + c);
+  }
+  for (int r = tid; r < valid; r += kThreads) {
+    const int owner = r / share, i = part * share + r - owner * share;
+    *at(m_recv + i, owner) = m_s[r];
+    *at(l_recv + i, owner) = l_s[r];
+  }
+  if (parts > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  const int lo = part * share;
+  const int n = min(lo + share, valid) - lo;  // rows this block owns
+  for (int i = tid; i < n; i += kThreads) {
+    float m = -FLT_MAX;
+    for (int p = 0; p < parts; ++p) m = fmaxf(m, m_recv[p * share + i]);
+    float l = 0.f;
+    for (int p = 0; p < parts; ++p) {
+      const float w = expf(m_recv[p * share + i] - m);
+      w_s[p * share + i] = w;
+      l = __fadd_rn(l, __fmul_rn(w, l_recv[p * share + i]));
+    }
+    inv_s[i] = 1.f / fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  for (int e = tid; e < n * kQuads; e += kThreads) {
+    const int i = e / kQuads, c = (e % kQuads) * 4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p = 0; p < parts; ++p) {
+      const float w = w_s[p * share + i];
+      const float4 x = *reinterpret_cast<const float4*>(recv_s + (p * share + i) * D + c);
+      acc.x = __fadd_rn(acc.x, __fmul_rn(w, x.x));
+      acc.y = __fadd_rn(acc.y, __fmul_rn(w, x.y));
+      acc.z = __fadd_rn(acc.z, __fmul_rn(w, x.z));
+      acc.w = __fadd_rn(acc.w, __fmul_rn(w, x.w));
+    }
+    const float inv = inv_s[i];
+    *reinterpret_cast<float4*>(out_g + (int64_t)(r0 + lo + i) * D + c) =
+        make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
+                   int B, int NH, int KVH, int Sq, int Skv, float scale, float softclamp,
+                   cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (allowed != cudaSuccess) return allowed;
+  const tc::Geometry geo = geometry(B, NH, KVH, Sq, Skv, tc::sm_count());
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(geo.row_tiles, geo.parts, B * KVH);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = geo.parts;
+  cluster.val.clusterDim.z = 1;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, flash_attention_kernel<D>, static_cast<const float*>(q),
+                            static_cast<const float*>(k), static_cast<const float*>(v),
+                            static_cast<const uint8_t*>(mask), static_cast<float*>(out), NH,
+                            KVH, Sq, Skv, geo.part_keys, scale, softclamp);
+}
+
+cudaError_t dispatch_head_dim(int D, const void* q, const void* k, const void* v,
+                              const void* mask, void* out, int B, int NH, int KVH, int Sq,
+                              int Skv, float scale, float softclamp, cudaStream_t stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+    return cudaErrorMisalignedAddress;  // 16-byte cp.async and stores
+  switch (D) {
+    case 32: return launch<32>(q, k, v, mask, out, B, NH, KVH, Sq, Skv, scale, softclamp, stream);
+    case 64: return launch<64>(q, k, v, mask, out, B, NH, KVH, Sq, Skv, scale, softclamp, stream);
+    case 128: return launch<128>(q, k, v, mask, out, B, NH, KVH, Sq, Skv, scale, softclamp, stream);
+    case 256: return launch<256>(q, k, v, mask, out, B, NH, KVH, Sq, Skv, scale, softclamp, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+static_assert(smem_bytes<256>() <= 232448, "the fp32 kernel's shared memory exceeds 227 KB");
+
+}  // namespace fp32
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. softclamp <= 0 disables the clamp.
@@ -807,31 +1190,25 @@ extern "C" int blurr_flash_attention(const void* q, const void* k, const void* v
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)fp32::dispatch_head_dim<float>(D, q, k, v, mask, out, B, NH, KVH, Sq, Skv,
-                                               scale, softclamp, s);
+    return (int)fp32::dispatch_head_dim(D, q, k, v, mask, out, B, NH, KVH, Sq, Skv, scale,
+                                        softclamp, s);
   if (dtype == 1)
     return (int)tc::dispatch_head_dim(D, q, k, v, mask, out, B, NH, KVH, Sq, Skv, scale,
                                       softclamp, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The launch geometry of a call: grid[0..2] the grid (x, y, z) and grid[3]
-// the keys of a part (bf16; 0 for fp32, which does not split the keys).
-// bf16: (64-row tiles of the folded rows, key parts = cluster size, B KVH);
-// fp32: (16-query tiles, NH, B). Returns a cudaError_t.
+// The launch geometry of a call: grid[0..2] the grid (64-row tiles of the
+// folded rows, key parts = cluster size, B KVH) and grid[3] the keys of a
+// part; the two kernels choose the number of parts each its own way.
+// Returns a cudaError_t.
 extern "C" int blurr_flash_attention_grid(int B, int NH, int KVH, int Sq, int Skv, int dtype,
                                           int* grid) {
-  if (B <= 0 || NH <= 0 || KVH <= 0 || NH % KVH || Sq <= 0 || Skv <= 0)
+  if (B <= 0 || NH <= 0 || KVH <= 0 || NH % KVH || Sq <= 0 || Skv <= 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    grid[0] = (Sq + fp32::kBlockQ - 1) / fp32::kBlockQ;
-    grid[1] = NH;
-    grid[2] = B;
-    grid[3] = 0;
-    return 0;
-  }
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const tc::Geometry geo = tc::geometry(B, NH, KVH, Sq, Skv, tc::sm_count());
+  const tc::Geometry geo = dtype == 0 ? fp32::geometry(B, NH, KVH, Sq, Skv, tc::sm_count())
+                                      : tc::geometry(B, NH, KVH, Sq, Skv, tc::sm_count());
   grid[0] = geo.row_tiles;
   grid[1] = geo.parts;
   grid[2] = B * KVH;

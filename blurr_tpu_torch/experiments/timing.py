@@ -16,10 +16,11 @@ import subprocess
 
 import torch
 
-# the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W); fp32
-# is the rate outside the tensor cores (full fp32, no TF32)
+# the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W);
+# tf32x3 is the TF32 tensor-core rate (495e12) over the three products that
+# take an fp32 product as 3xTF32
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "tf32x3": 495e12 / 3}
 
 
 def card() -> str:
@@ -76,7 +77,7 @@ def bound(inputs, outputs, ops: float, kind: str) -> dict:
     """The least time the card could take for a function: the larger of the
     bytes it must move (each input tensor read once, each output written
     once) over the memory rate, and its ``ops`` operations over the peak rate
-    of their ``kind`` ("bf16", "int8" or "fp32"). Returns ``bound_ms`` and
+    of their ``kind`` ("bf16", "int8" or "tf32x3"). Returns ``bound_ms`` and
     ``bound_by`` ("bytes" or "operations")."""
     n_bytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3

@@ -9,14 +9,19 @@ softmax with ``l`` floored at 1e-30, and the output in ``q.dtype``. Keys
 past Skv take no part, so a fully masked row averages V over the Skv keys,
 as the plain version does (the TPU kernel's padded keys join that average).
 
-One entry point, two kernels by dtype (the source's header gives the
-design). bf16, the served prefill, runs on tensor cores (``mma.sync``
-m16n8k16): the query heads of a KV group are folded into rows, so a block
-of 64 rows reads each K/V tile once for all heads, and the keys are split
-into parts whose (m, l, O) merge in a fixed order inside a thread block
-cluster; P is rounded to bf16 for P V, as the plain version rounds its
-softmax weights. fp32 keeps the first port's CUDA-core kernel (full fp32,
-no TF32). ``grid`` gives a call's launch geometry.
+One entry point, two kernels by dtype, both on the tensor cores (the
+source's header gives the design): the query heads of a KV group are
+folded into rows, so a block of 64 rows reads each K/V tile once for all
+heads, and the keys are split into parts whose (m, l, O) merge in a fixed
+order inside a thread block cluster. bf16, the served prefill, takes
+``mma.sync`` m16n8k16 and rounds P to bf16 for P V, as the plain version
+rounds its softmax weights. fp32 (the baseline preset's naive step, 180
+launches a control step; the fp32 prefix-cache prefill) takes 3xTF32
+``mma.sync`` m16n8k8: each fp32 operand is split into a TF32 high part and
+a TF32 residual, and three products keep the output within 1e-5 of the
+plain fp32 version, P in fp32 as the TPU kernel keeps it; it is bound by
+operations at 165 TFLOP/s (495 TF32 over three products). Its times on an
+H100 stand in PERF.md, row 1. ``grid`` gives a call's launch geometry.
 
 ``flash_attention`` launches the kernel for CUDA tensors, and uses the
 plain version ``flash_attention_reference`` only for CPU tensors. It counts
@@ -104,8 +109,8 @@ def flash_attention(
     kvh, skv = k.shape[1], k.shape[2]
     if scale is None:
         scale = d**-0.5
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("bf16 q, k and v must be 16-byte aligned (16-byte copies)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned (16-byte copies)")
     lib = _library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -127,12 +132,13 @@ flash_attention.launches = 0
 
 
 def grid(b: int, nh: int, kvh: int, sq: int, skv: int, d: int, dtype: torch.dtype):
-    """The launch geometry of a call: ``(grid, part_keys)``. For bf16 the
-    grid is (64-row tiles of the nh / kvh * sq folded rows, key parts,
-    b * kvh); the key parts of a row tile form one cluster and hold
-    ``part_keys`` keys each (the last one fewer). For fp32 it is (16-query
-    tiles, nh, b) and ``part_keys`` is 0. Builds the kernel (the split
-    depends on the current card's SM count)."""
+    """The launch geometry of a call: ``(grid, part_keys)``. The grid is
+    (64-row tiles of the nh / kvh * sq folded rows, key parts, b * kvh); the
+    key parts of a row tile form one cluster and hold ``part_keys`` keys
+    each (the last one fewer). bf16 takes the most parts that keep one wave
+    of one block per SM; fp32 the count that minimizes waves times a
+    block's 32-key tiles plus one. Builds the kernel (the split depends on
+    the current card's SM count)."""
     if d not in HEAD_DIMS or dtype not in _DTYPE_CODES:
         raise ValueError(f"no kernel for head_dim {d} and {dtype}")
     out = (ctypes.c_int * 4)()

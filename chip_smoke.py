@@ -10,16 +10,19 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              sm_90a, one nvcc per source, all at once; prints ptxas's
              registers and spills.
 3. kernel  - each kernel against its plain PyTorch version on the card at
-             the shapes the paths give it. Flash attention: fp32 at 2e-4
-             with TF32 off; bf16 against the plain version in fp32 at 2e-2;
-             each the same bits on a second call, its launch geometry
-             logged, at the Pi-0 prefill over 1 and over 4 rows (the
-             batched eval's), the naive step, the pool64 prefill, a ragged
-             GQA shape and the smallest head_dim; timed at the Pi-0 prefill shape (fp32 and bf16, the
-             kernels line's entry), at the naive step's 281 rows (fp32)
-             and at the pool64 prefill (bf16), each beside its plain
-             version, SDPA and its bound (fp32 against the peak outside
-             the tensor cores). The int4 matmul: bit for
+             the shapes the paths give it. Flash attention: bf16 against
+             the plain version in fp32 at 2e-2 at the Pi-0 prefill over 1
+             and over 4 rows (the batched eval's), the naive step, the
+             pool64 prefill, a ragged GQA shape and the smallest head_dim;
+             fp32 (3xTF32, TF32 off in the plain version) at 1e-5 at each
+             of those shapes and at a batched baseline bucket
+             [4,8,281,256], with q and k x0.3 and x1.0; each the same bits
+             on a second call, its launch geometry logged; timed at the
+             Pi-0 prefill shape (fp32 and bf16, the kernels line's entry),
+             at the naive step's 281 rows and the bucket of 4 (fp32) and
+             at the pool64 prefill (bf16), each beside its plain version,
+             SDPA and its bound (fp32 against the TF32 peak over three
+             products). The int4 matmul: bit for
              bit (bound 1e-6 relative) at every w4a8 linear of the Pi-0
              step, the same bits on a second call, its split of K (S) and
              grid logged; then it, its plain version and a bf16 matmul of
@@ -415,6 +418,15 @@ from blurr_tpu_torch.experiments.timing import events_ms as _time_ms  # noqa: E4
 from blurr_tpu_torch.experiments.timing import graph_ms as _graph_ms  # noqa: E402
 
 FP32_TOL = 2e-4  # fp32 sums in another order (TF32 off)
+# K1's fp32 kernel against its plain version (TF32 off) at every kernel
+# shape, q and k x0.3 and x1.0: its 3xTF32 products keep about 21 bits of
+# each product, so it stays within a few fp32 roundings of the plain
+# version (H100: 3.4e-7 / 2.9e-6 at the naive step); one TF32 product (a
+# kernel that dropped the residuals) reads 8e-5 / 6e-4 there
+# (scripts/ablate_flash_fp32_torch.py), past this bound, which FP32_TOL
+# would not see
+FP32_EXACT_TOL = 1e-5
+FP32_QK_SCALES = (0.3, 1.0)
 BF16_TOL = 2e-2  # bf16 output rounding against the fp32 plain version
 # kernel vs plain attention through the whole bf16 control step: both round
 # P to bf16 for P@V, but the kernel rounds the unnormalized p (and divides by
@@ -463,6 +475,7 @@ AGENT_TIMED_STEPS = 20  # control steps timed after each eval-agent run
 PI0_SHAPE = (1, 8, 1, 277, 277, 256)  # b, nh, kvh, sq, skv, d
 NAIVE_SHAPE = (1, 8, 1, 281, 281, 256)  # the naive step: 276 + proprio + 4 actions
 POOL64_SHAPE = (1, 8, 1, 97, 97, 256)
+BASELINE_BUCKET_SHAPE = (4, 8, 1, 281, 281, 256)  # a batched baseline server's naive step
 BATCHED_SHAPE = (4, 8, 1, 277, 277, 256)  # the batched eval's prefill, 4 envs
 KERNEL_SHAPES = [
     PI0_SHAPE,                  # the joint prefill, pad rows fully masked
@@ -595,11 +608,11 @@ def build() -> None:
                 log(f"build: {name} ptxas {line.strip()}")
 
 
-def _attention_inputs(shape, device):
+def _attention_inputs(shape, device, qk_scale=0.3):
     b, nh, kvh, sq, skv, d = shape
     g = torch.Generator(device=device).manual_seed(0)
-    q = torch.randn(b, nh, sq, d, generator=g, device=device) * 0.3
-    k = torch.randn(b, kvh, skv, d, generator=g, device=device) * 0.3
+    q = torch.randn(b, nh, sq, d, generator=g, device=device) * qk_scale
+    k = torch.randn(b, kvh, skv, d, generator=g, device=device) * qk_scale
     v = torch.randn(b, kvh, skv, d, generator=g, device=device)
     if nh == 8 and kvh == 1 and sq == skv:  # a Pi-0 prefill or naive step
         from blurr_tpu_torch.ops.masks import pi0_full_mask, pi0_prefix_mask
@@ -647,17 +660,18 @@ def _fmt_times(t: dict, dense=None, dense_name: str = "") -> str:
     return line
 
 
-def _hold_flash(shape, dtype, tol, label, device) -> float:
-    """K1 at ``shape`` (b, nh, kvh, sq, skv, d) in ``dtype`` against its
-    plain version in fp32, within ``tol``, and the same bits on a second
-    call; its launch geometry logged. Returns the largest error."""
+def _hold_flash(shape, dtype, tol, label, device, qk_scale=0.3) -> float:
+    """K1 at ``shape`` (b, nh, kvh, sq, skv, d) in ``dtype``, q and k drawn
+    at ``qk_scale``, against its plain version in fp32, within ``tol``, and
+    the same bits on a second call; its launch geometry logged. Returns the
+    largest error."""
     from blurr_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
         grid,
     )
 
-    q, k, v, mask = _attention_inputs(shape, device)
+    q, k, v, mask = _attention_inputs(shape, device, qk_scale)
     qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
     out = flash_attention(qc, kc, vc, mask)
     again = torch.equal(out, flash_attention(qc, kc, vc, mask))
@@ -667,11 +681,10 @@ def _hold_flash(shape, dtype, tol, label, device) -> float:
         raise RuntimeError(f"kernel output not finite at {shape} {dtype}")
     err = (out.float() - ref).abs().max().item()
     blocks, part_keys = grid(*shape, dtype)
-    log(f"{label}: flash_attention {shape} {str(dtype)[6:]} "
+    log(f"{label}: flash_attention {shape} {str(dtype)[6:]} q and k x{qk_scale:g} "
         f"max_abs_err={err:.3e} (tol {tol:g}), same bits on a second call {again}; "
-        f"grid {blocks}" + (f" (64-row tiles of the folded heads, {blocks[1]} key "
-                            f"parts of {part_keys} keys, batch x KV heads)"
-                            if part_keys else " (16-query tiles, heads, batch)"))
+        f"grid {blocks} (64-row tiles of the folded heads, {blocks[1]} key parts of "
+        f"{part_keys} keys, batch x KV heads)")
     torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
     if not again:
         raise RuntimeError(f"kernel gives other bits on a second call at {shape} {dtype}")
@@ -679,41 +692,51 @@ def _hold_flash(shape, dtype, tol, label, device) -> float:
 
 
 def kernel_vs_plain(device) -> dict:
-    """Flash attention against its plain version at every kernel shape, fp32
-    and bf16, each the same bits on a second call (its launch geometry
-    logged); then timed at the two prefill shapes beside the plain version,
-    SDPA (the library's fused attention, without the soft clamp) and the
-    bound: bf16 and fp32 at the 277-row prefill, fp32 at the naive step's
-    281 rows, bf16 at the pool64 prefill. Returns the kernels line's entry:
-    bf16 at the Pi-0 prefill."""
+    """Flash attention against its plain version, each the same bits on a
+    second call (its launch geometry logged): bf16 within BF16_TOL at every
+    kernel shape; fp32 within FP32_EXACT_TOL at every kernel shape and a
+    batched baseline server's [4,8,281,256], with q and k x0.3 and x1.0.
+    Then timed beside the plain version, SDPA (the library's
+    fused attention, without the soft clamp) and the bound: bf16 and fp32
+    at the 277-row prefill, fp32 at the naive step's 281 rows and at a
+    batched baseline bucket of 4 (against the 3xTF32 peak), bf16 at the
+    pool64 prefill. Returns the kernels line's entry: bf16 at the Pi-0
+    prefill."""
     from blurr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = {}
     for shape in KERNEL_SHAPES:
-        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-            errs[(shape, dtype)] = _hold_flash(shape, dtype, tol, "kernel", device)
+        errs[(shape, torch.bfloat16)] = _hold_flash(shape, torch.bfloat16, BF16_TOL, "kernel",
+                                                    device)
+    for shape in KERNEL_SHAPES + [BASELINE_BUCKET_SHAPE]:
+        for qk_scale in FP32_QK_SCALES:
+            _hold_flash(shape, torch.float32, FP32_EXACT_TOL, "kernel-fp32", device, qk_scale)
+    smi = card()
     times, bounds = {}, {}
     for shape, dtypes in ((PI0_SHAPE, (torch.bfloat16, torch.float32)),
                           (NAIVE_SHAPE, (torch.float32,)),
+                          (BASELINE_BUCKET_SHAPE, (torch.float32,)),
                           (POOL64_SHAPE, (torch.bfloat16,))):
         q, k, v, mask = _attention_inputs(shape, device)
         b, nh, _, sq, skv, d = shape
         for dtype in dtypes:
             qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
-            times[(shape, dtype)] = _kernel_times(
+            t = times[(shape, dtype)] = _kernel_times(
                 lambda: flash_attention(qc, kc, vc, mask),
                 lambda: flash_attention_reference(qc, kc, vc, mask),
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qc, kc, vc, attn_mask=mask[:, None], enable_gqa=True))
-            log(f"kernel: time at {shape} {str(dtype)[6:]}: "
-                f"{_fmt_times(times[(shape, dtype)])}")
-            kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+            log(f"kernel: time at {shape} {str(dtype)[6:]}: {_fmt_times(t)}")
+            kind = "bf16" if dtype == torch.bfloat16 else "tf32x3"
             bounds[(shape, dtype)] = bound = _bound(
                 (qc, kc, vc, mask), (qc,), 4 * b * nh * sq * skv * d, kind)
             log(f"kernel: flash_attention bound at {shape} {kind} {bound['bound_ms']:.5f} ms "
-                f"({bound['bound_by']}{', peak outside the tensor cores' if kind == 'fp32' else ''})")
+                f"({bound['bound_by']}{', TF32 peak over three products' if kind == 'tf32x3' else ''}); "
+                f"in a CUDA graph {bound['bound_ms'] / t['graph_ms']:.1%} of it reached; "
+                f"faster than SDPA {t['graph_ms'] < t['library_graph_ms']}, than the plain "
+                f"version {t['graph_ms'] < t['plain_graph_ms']}; on {smi}")
     key = (PI0_SHAPE, torch.bfloat16)
     return {"max_abs_err": errs[key], **times[key], **bounds[key]}
 
@@ -769,8 +792,8 @@ def kernel_text_vs_plain(device) -> None:
                     f"q and k x{qk_scale:g} (largest |logit| {top:.2f}), K/V a layer's slice "
                     f"of the cache buffer, keys {sq}.. masked"
                     f"{f', row 1 padded by {TEXT_PAD}' if b > 1 else ''}: max_abs_err={err:.3e} "
-                    f"(tol {tol:g}), same bits on a second call {again}; grid {blocks}"
-                    + (f" ({blocks[1]} key parts of {part_keys} keys)" if part_keys else ""))
+                    f"(tol {tol:g}), same bits on a second call {again}; grid {blocks} "
+                    f"({blocks[1]} key parts of {part_keys} keys)")
                 if not torch.isfinite(out).all():
                     raise RuntimeError(f"kernel output not finite at {shape} {dtype}")
                 torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
@@ -1912,7 +1935,8 @@ def _step_device_time(server, image, proprio, label, *names, top: int = 0,
     for name in names:
         ours = [e for e in kernels if name in e.key]
         ours_ms = sum(e.self_device_time_total for e in ours) / 1000.0
-        shares.append(f"{name} {ours_ms:.3f} ms over {sum(e.count for e in ours)} kernels "
+        shares.append(f"{name} {ours_ms:.3f} ms ({ours_ms / max(total_ms, 1e-9):.1%}) over "
+                      f"{sum(e.count for e in ours)} kernels "
                       f"({', '.join(f'{e.key[:48]} x{e.count}' for e in ours)})")
     log(f"{label}: one control step under torch.profiler: device time {total_ms:.3f} ms over "
         f"{sum(e.count for e in kernels)} kernels; of it {'; '.join(shares)}")

@@ -3,18 +3,22 @@
 On the CPU its wrapper runs the plain PyTorch version; that is held against
 the JAX Pallas kernel in interpret mode at the shapes of
 tests/test_pallas_attention.py, at the same atol = rtol = 2e-4. A torch
-mirror of the bf16 kernel's algorithm (query heads folded into rows, 64-key
-tiles, the key split and its fixed-order merge, P rounded for P V) is held
-against the Pallas kernel with fp32 P and against the plain version with
-bf16 P. On a fully masked row the port follows JAX's XLA attention, not the
-Pallas kernel's padded keys; a test pins that difference. The CUDA kernel
-itself is held against the plain version by the ``cuda`` tests below, which
-skip without a card (run them on the GPU with
-``python -m pytest tests/test_torch_flash_attention.py -m cuda``), and by
-chip_smoke.py.
+mirror of each kernel's algorithm (query heads folded into rows, key tiles,
+the key split and its fixed-order merge) is held against the Pallas kernel:
+the bf16 kernel's with fp32 P and, with P rounded for P V, against the
+plain version; the fp32 kernel's with its 3xTF32 products (each operand
+split into a TF32 high part and a TF32 residual) at 1e-5, and a witness
+with the high parts' product alone must miss that. On a fully masked row
+the port follows JAX's XLA attention, not the Pallas kernel's padded keys;
+a test pins that difference. The CUDA kernel itself is held against the
+plain version by the ``cuda`` tests below, which skip without a card (run
+them on the GPU with ``python -m pytest tests/test_torch_flash_attention.py
+-m cuda``), and by chip_smoke.py.
 """
 
 import functools
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -38,13 +42,24 @@ SHAPES = [
 ]
 # and the pool64 prefill (96 image tokens + proprio), on the card
 CUDA_SHAPES = SHAPES + [(1, 8, 1, 97, 97, 256)]
+# fp32 on the card also at the naive step's 281 rows over 4 requests (a
+# batched baseline server's bucket)
+CUDA_FP32_SHAPES = CUDA_SHAPES + [(4, 8, 1, 281, 281, 256)]
 KEY_TILE = 64  # keys per staged K/V tile of the bf16 kernel
+FP32_KEY_TILE = 32  # keys per staged K/V tile of the fp32 kernel
+# the fp32 kernel against an exact fp32 attention: 3xTF32 keeps about 21
+# bits of each product (the residuals' product, below 2^-22 of it, is
+# dropped), so the outputs stay within a few fp32 roundings of the exact
+# function (~2e-7 here); one TF32 product keeps 11 bits and reads ~1e-4 at
+# q and k x0.3, ~4e-4 at x1.0. 1e-5 sits between the two.
+FP32_EXACT_TOL = 1e-5
+PI0 = SHAPES[2]
 
 
-def _inputs(b, nh, kvh, sq, skv, d):
+def _inputs(b, nh, kvh, sq, skv, d, qk_scale=0.3):
     rs = np.random.RandomState
-    q = (rs(0).randn(b, nh, sq, d) * 0.3).astype(np.float32)
-    k = (rs(1).randn(b, kvh, skv, d) * 0.3).astype(np.float32)
+    q = (rs(0).randn(b, nh, sq, d) * qk_scale).astype(np.float32)
+    k = (rs(1).randn(b, kvh, skv, d) * qk_scale).astype(np.float32)
     v = rs(2).randn(b, kvh, skv, d).astype(np.float32)
     mask = rs(3).rand(b, sq, skv) > 0.3
     mask[:, :, 0] = True
@@ -90,13 +105,53 @@ def _merge(partials):
     return m, l, o
 
 
-def _mirror(q, k, v, mask, parts, p_dtype, softclamp=DEFAULT_SOFTCLAMP):
-    """The bf16 kernel's algorithm in torch, fp32 but for P: the query heads
-    of a KV group folded into rows (row r is head r // Sq at query r % Sq,
-    mask row r % Sq); the keys split into ``parts`` parts of ceil(Skv /
-    parts) keys, each walked in 64-key tiles with its own online (m, l, O)
-    and P rounded to ``p_dtype`` for P V (l sums the fp32 p); then the parts
-    merged in part order."""
+def _matmul(a, b):
+    return a @ b
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to 10 mantissa bits, ties away from
+    zero (half of the 13 dropped bits added to the bit pattern, then those
+    bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(terms):
+    """a @ b on TF32 operands: with ``terms`` 3 the kernel's 3xTF32 (each
+    operand split into hi = tf32(x) and lo = tf32(x - hi); hi hi + hi lo +
+    lo hi, the residuals' product dropped), with 1 hi hi alone."""
+
+    def mm(a, b):
+        ah, bh = _tf32(a), _tf32(b)
+        out = ah @ bh
+        if terms == 3:
+            out = (_tf32(a - ah) @ bh + ah @ _tf32(b - bh)) + out
+        return out
+
+    return mm
+
+
+def _by_halves(mm):
+    """a @ b as the fp32 kernel takes S = Q K^T: the two warps of a row
+    group each sum one half of the head dim, and their sums are added."""
+
+    def halves(a, b):
+        h = a.shape[-1] // 2
+        return mm(a[..., :h], b[..., :h, :]) + mm(a[..., h:], b[..., h:, :])
+
+    return halves
+
+
+def _mirror(q, k, v, mask, parts, p_dtype, softclamp=DEFAULT_SOFTCLAMP,
+            key_tile=KEY_TILE, qk=_matmul, pv=_matmul):
+    """A kernel's algorithm in torch, fp32 but for P and the products: the
+    query heads of a KV group folded into rows (row r is head r // Sq at
+    query r % Sq, mask row r % Sq); the keys split into ``parts`` parts of
+    ceil(Skv / parts) keys, each walked in tiles of ``key_tile`` keys with
+    its own online (m, l, O) and P rounded to ``p_dtype`` for P V (l sums
+    the fp32 p); then the parts merged in part order. ``qk`` and ``pv`` take
+    the products S = Q K^T and P V."""
     b, nh, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     rows = nh // kvh * sq
@@ -111,9 +166,9 @@ def _mirror(q, k, v, mask, parts, p_dtype, softclamp=DEFAULT_SOFTCLAMP):
         m = torch.full((b, kvh, rows), big_neg)
         l = torch.zeros(b, kvh, rows)
         o = torch.zeros(b, kvh, rows, d)
-        for k0 in range(kb, ke, KEY_TILE):
-            k1 = min(ke, k0 + KEY_TILE)  # keys past the part take no part
-            s = torch.einsum("bkrd,bksd->bkrs", qf, kf[:, :, k0:k1]) * d**-0.5
+        for k0 in range(kb, ke, key_tile):
+            k1 = min(ke, k0 + key_tile)  # keys past the part take no part
+            s = qk(qf, kf[:, :, k0:k1].transpose(-1, -2)) * d**-0.5
             if softclamp is not None:
                 s = torch.tanh(s / softclamp) * softclamp
             s = torch.where(mask_rows[..., k0:k1], s, big_neg)
@@ -121,16 +176,25 @@ def _mirror(q, k, v, mask, parts, p_dtype, softclamp=DEFAULT_SOFTCLAMP):
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = alpha * l + p.sum(-1)
-            o = o * alpha[..., None] + p.to(p_dtype).float() @ vf[:, :, k0:k1]
+            o = o * alpha[..., None] + pv(p.to(p_dtype).float(), vf[:, :, k0:k1])
             m = m_new
         partial.append((m, l, o))
     _, l, o = _merge(partial)
     return (o / l.clamp_min(1e-30)[..., None]).reshape(b, nh, sq, d)
 
 
+def _mirror_fp32(q, k, v, mask, parts, terms=3, softclamp=DEFAULT_SOFTCLAMP):
+    """The fp32 kernel's algorithm: the fold and the key split of the bf16
+    kernel, 32-key tiles, P kept in fp32, and both products on TF32
+    operands (``terms`` 3: the kernel's 3xTF32)."""
+    mm = _tf32_matmul(terms)
+    return _mirror(q, k, v, mask, parts, torch.float32, softclamp,
+                   key_tile=FP32_KEY_TILE, qk=_by_halves(mm), pv=mm)
+
+
 @functools.lru_cache(maxsize=None)
-def _pallas_at(shape):
-    q, k, v, mask = _inputs(*shape)
+def _pallas_at(shape, qk_scale=0.3):
+    q, k, v, mask = _inputs(*shape, qk_scale=qk_scale)
     return np.asarray(pallas_flash(*(jnp.asarray(a) for a in (q, k, v, mask)),
                                    softclamp=DEFAULT_SOFTCLAMP, interpret=True))
 
@@ -145,6 +209,92 @@ def test_mirror_fp32_p_matches_pallas_interpret(b, nh, kvh, sq, skv, d, parts):
     ref = _pallas_at((b, nh, kvh, sq, skv, d))
     assert mask.any(-1).all()  # no row is fully masked here
     np.testing.assert_allclose(out.numpy(), ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3])
+@pytest.mark.parametrize("b,nh,kvh,sq,skv,d", SHAPES)
+def test_fp32_mirror_3xtf32_matches_pallas_interpret(b, nh, kvh, sq, skv, d, parts):
+    """The fp32 kernel's algorithm (3xTF32 products, 32-key tiles, the fold
+    and the key split) is the Pallas kernel's function within
+    FP32_EXACT_TOL."""
+    q, k, v, mask = _inputs(b, nh, kvh, sq, skv, d)
+    out = _mirror_fp32(*(torch.from_numpy(a) for a in (q, k, v, mask)), parts)
+    err = np.abs(out.numpy() - _pallas_at((b, nh, kvh, sq, skv, d))).max()
+    assert err <= FP32_EXACT_TOL, err
+
+
+@pytest.mark.parametrize("qk_scale", [0.3, 1.0])
+@pytest.mark.parametrize("terms", [3, 1])
+def test_fp32_mirror_sees_a_lost_correction_term(terms, qk_scale):
+    """At the Pi-0 prefill shape (3 key parts, as the card splits it), with
+    q and k x0.3 and x1.0 (logits of std ~0.1 and ~1): 3xTF32 holds
+    FP32_EXACT_TOL; the high parts' product alone (a plain TF32 kernel)
+    misses it by 5x or more, so the tolerance sees a dropped term."""
+    q, k, v, mask = _inputs(*PI0, qk_scale=qk_scale)
+    out = _mirror_fp32(*(torch.from_numpy(a) for a in (q, k, v, mask)), 3, terms)
+    err = np.abs(out.numpy() - _pallas_at(PI0, qk_scale)).max()
+    if terms == 3:
+        assert err <= FP32_EXACT_TOL, err
+    else:
+        assert err >= 5 * FP32_EXACT_TOL, err
+
+
+def _kernel_tanh_coefficients():
+    """The coefficients of the fp32 kernel's tanh polynomial, read from its
+    source (highest degree first, as its Horner steps take them)."""
+    src = (pathlib.Path(__file__).resolve().parents[1]
+           / "blurr_tpu_torch" / "csrc" / "flash_attention.cu").read_text()
+    body = src[src.index("float tanh_fp32(float y)"):]
+    body = body[:body.index("const float small")]
+    return [float(c) for c in re.findall(r"(-?\d\.\d+e-?\d+)f", body)]
+
+
+def _fma32(a, b, c):
+    """fmaf in float32: one rounding of a * b + c (the product of two
+    float32 is exact in float64)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def test_fp32_kernel_tanh_within_one_ulp():
+    """The fp32 kernel's branch-free tanh, its polynomial taken from the
+    source and evaluated in float32 as the kernel's Horner steps round it:
+    within one ulp of tanh below |y| = 0.55; above it 1 - 2 / (e^(2|y|) + 1)
+    with each operation rounded once, within one ulp too (the card's expf
+    and division add their own few ulp, which the card's checks see)."""
+    coef = _kernel_tanh_coefficients()
+    assert len(coef) == 5
+    a = np.concatenate([np.geomspace(1e-6, 0.55, 20001), np.linspace(0, 0.55, 20001)])
+    a = a.astype(np.float32)
+    t = (a.astype(np.float64) * a).astype(np.float32)
+    p = np.full_like(a, coef[0])
+    for c in coef[1:]:
+        p = _fma32(p, t, np.float32(c))
+    small = _fma32((p.astype(np.float64) * t).astype(np.float32), a, a)
+    ref = np.tanh(a.astype(np.float64))
+    ulp = np.spacing(ref.astype(np.float32)).astype(np.float64)
+    assert (np.abs(small - ref) <= ulp).all()
+    y = np.linspace(0.55, 12, 20001).astype(np.float32)
+    e = np.exp(2 * y.astype(np.float64)).astype(np.float32)
+    q = (2.0 / (e.astype(np.float64) + 1)).astype(np.float32)
+    big = (1 - q.astype(np.float64)).astype(np.float32)
+    ref = np.tanh(y.astype(np.float64))
+    assert (np.abs(big - ref) <= np.spacing(ref.astype(np.float32))).all()
+
+
+def test_ablation_variants_apply_to_the_source():
+    """scripts/ablate_flash_fp32_torch.py builds each variant of the fp32
+    kernel by text substitution; every text it replaces is still in the
+    source (the script refuses a variant whose text is gone)."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "ablate_flash_fp32_torch.py"
+    spec = importlib.util.spec_from_file_location("ablate_flash_fp32_torch", path)
+    ablate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ablate)
+    src = ablate.SOURCE.read_text()
+    for name, (subs, _, _) in ablate.VARIANTS.items():
+        for old, _ in subs:
+            assert src.count(old) == 1, (name, old)
 
 
 @pytest.mark.parametrize("parts", [1, 2, 3])
@@ -212,9 +362,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _cuda_inputs(device, b, nh, kvh, sq, skv, d, dtype):
+def _cuda_inputs(device, b, nh, kvh, sq, skv, d, dtype, qk_scale=0.3):
     """The test inputs on the card in ``dtype``, with some rows fully masked."""
-    q, k, v, mask = (torch.from_numpy(a).to(device) for a in _inputs(b, nh, kvh, sq, skv, d))
+    q, k, v, mask = (torch.from_numpy(a).to(device)
+                     for a in _inputs(b, nh, kvh, sq, skv, d, qk_scale=qk_scale))
     g = torch.Generator(device=device).manual_seed(4)
     rows = torch.rand(b, sq - sq // 2, 1, generator=g, device=device) > 0.2
     mask[:, sq // 2 :, :] &= rows  # some rows fully masked
@@ -237,6 +388,42 @@ def test_kernel_matches_plain_on_cuda(cuda_device, b, nh, kvh, sq, skv, d, dtype
     ref = flash_attention_reference(q.float(), k.float(), v.float(), mask)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qk_scale", [0.3, 1.0])
+@pytest.mark.parametrize("b,nh,kvh,sq,skv,d", CUDA_FP32_SHAPES)
+def test_fp32_kernel_within_exact_tol_of_plain(cuda_device, b, nh, kvh, sq, skv, d, qk_scale):
+    """fp32 against the plain version (TF32 off) within FP32_EXACT_TOL, with
+    q and k x0.3 and x1.0: a kernel that kept one TF32 product would miss
+    it. The same bits on a second call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask = _cuda_inputs(cuda_device, b, nh, kvh, sq, skv, d, torch.float32, qk_scale)
+    out = flash_attention(q, k, v, mask)
+    again = flash_attention(q, k, v, mask)
+    ref = flash_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= FP32_EXACT_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_kernel_every_head_dim_fp32(cuda_device, d, masked):
+    """Every head_dim in fp32 within FP32_EXACT_TOL of the plain version,
+    GQA 2:1 over a ragged 150 keys, with rows fully masked, and without a
+    mask."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask = _cuda_inputs(cuda_device, 2, 4, 2, 90, 150, d, torch.float32)
+    if not masked:
+        mask = None
+    out = flash_attention(q, k, v, mask)
+    ref = flash_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= FP32_EXACT_TOL
 
 
 @pytest.mark.cuda
@@ -271,18 +458,38 @@ def test_kernel_same_bits_and_one_launch_per_call(cuda_device, b, nh, kvh, sq, s
     assert torch.equal(first, second)
 
 
+def _fp32_parts(b, nh, kvh, sq, skv, sms):
+    """The fp32 kernel's key split: the parts (at most 8, at most one per
+    32 keys) that minimize the waves of one block per SM times a block's
+    32-key tiles plus one; the fewest on a tie."""
+    tiles = -(-nh // kvh * sq // 64) * b * kvh
+    most = max(1, min(8, -(-skv // 32)))
+    cost = {p: -(-tiles * p // sms) * (1 + -(-(-(-skv // p)) // 32)) for p in range(1, most + 1)}
+    return min(cost, key=lambda p: (cost[p], p))
+
+
 @pytest.mark.cuda
 def test_grid_at_the_prefill_shapes(cuda_device):
-    """The bf16 grid folds the 8 heads into 64-row tiles and splits the keys
-    into parts of ceil(Skv / parts) keys, within one wave of one block per
-    SM."""
+    """Both kernels fold the 8 heads into 64-row tiles and split the keys
+    into parts of ceil(Skv / parts) keys; bf16 within one wave of one block
+    per SM, fp32 as ``_fp32_parts`` chooses (at the naive step's 281 rows
+    over 132 SMs 36 tiles x 3 parts of 94 keys, at 4 requests 3 parts
+    too)."""
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    for sq in (277, 97):
+    for sq in (277, 97, 281):
         (tiles, parts, groups), part_keys = grid(1, 8, 1, sq, sq, 256, torch.bfloat16)
         assert (tiles, groups) == (-(-8 * sq // 64), 1)
         assert 1 <= parts <= 8 and tiles * parts <= max(sms, tiles)
         assert part_keys == -(-sq // parts) and (parts - 1) * part_keys < sq
-    assert grid(1, 8, 1, 277, 277, 256, torch.float32) == ((18, 8, 1), 0)
+    for b, nh, kvh, sq, skv, d in CUDA_FP32_SHAPES + [(1, 8, 1, 276, 296, 256),
+                                                      (2, 8, 1, 276, 296, 256)]:
+        (tiles, parts, groups), part_keys = grid(b, nh, kvh, sq, skv, d, torch.float32)
+        assert (tiles, groups) == (-(-nh // kvh * sq // 64), b * kvh)
+        assert part_keys == -(-skv // parts) and (parts - 1) * part_keys < skv
+        assert parts == -(-skv // -(-skv // _fp32_parts(b, nh, kvh, sq, skv, sms)))
+    if sms == 132:
+        assert grid(1, 8, 1, 281, 281, 256, torch.float32) == ((36, 3, 1), 94)
+        assert grid(4, 8, 1, 281, 281, 256, torch.float32) == ((36, 3, 4), 94)
 
 
 @pytest.mark.cuda
@@ -292,3 +499,13 @@ def test_kernel_rejects_misaligned_bf16(cuda_device):
     shifted.copy_(q)
     with pytest.raises(ValueError, match="aligned"):
         flash_attention(shifted, k, v, mask)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_misaligned_fp32(cuda_device):
+    """The fp32 kernel's 16-byte copies too take only aligned tensors."""
+    q, k, v, mask = _cuda_inputs(cuda_device, 1, 2, 1, 64, 64, 32, torch.float32)
+    shifted = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda_device)[1:].view(k.shape)
+    shifted.copy_(k)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, shifted, v, mask)

@@ -324,7 +324,8 @@ PORT_FILES = sorted((REPO_ROOT / "blurr_tpu_torch").rglob("*.py")) + [
     REPO_ROOT / "scripts" / "verify_checkpoint_torch.py",
     REPO_ROOT / "scripts" / "train_pi0_flow_torch.py",
     REPO_ROOT / "scripts" / "export_torch_checkpoint_torch.py",
-    REPO_ROOT / "scripts" / "time_quant_linear_torch.py"]
+    REPO_ROOT / "scripts" / "time_quant_linear_torch.py",
+    REPO_ROOT / "scripts" / "ablate_flash_fp32_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))
