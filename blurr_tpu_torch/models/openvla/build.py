@@ -16,9 +16,18 @@ quantizes the LLM in place; for a checkpoint-free id,
 ``memory_safe_quant_init`` builds the LLM quantized directly instead, its
 int8 bytes drawn on the device, so a 7B never exists in bf16 (JAX's does so
 from 32 layers on; the port at every depth, so the small ids the tests
-build take the path a 7B takes). An orbax
-``checkpoint_path`` (the JAX trainer's output) raises
-``NotImplementedError``: it comes with the training port (ROADMAP M13).
+build take the path a 7B takes).
+
+``checkpoint_path`` is a parameter tree of the port's trainer
+(``scripts/train_openvla_lora_torch.py --save-params``: ``params.safetensors``
++ ``tree.json``, read by ``models/pi0/checkpoint.restore_params``). It
+replaces every weight: ``model_id`` gives the spec, the tokenizer and the
+statistics only, and the model is built in the tree's structure (its LLM
+drawn quantized as the tree's bases are, the ``lora/<base kind>``
+adapters rebuilt) without a bf16 7B in between. A tree that carries a
+quantized LLM refuses ``quantization``, and one that carries LoRA refuses
+post-training quantization, as JAX's do. An orbax directory of the JAX
+trainer is refused (``restore_params`` names the format it reads).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from blurr_tpu_torch.ops.lora import LoRALinear
 from blurr_tpu_torch.ops.quant import QUANTIZED_LINEARS, W4A8Linear
 
 
@@ -42,12 +52,19 @@ class BuiltVLA:
     dataset_stats: Optional[dict]
 
 
-def _refuse_checkpoint(checkpoint_path) -> None:
-    if checkpoint_path:
-        raise NotImplementedError(
-            f"checkpoint_path {checkpoint_path!r}: orbax trees from the JAX trainer "
-            "are not read yet; they come with the training port (ROADMAP M13)"
-        )
+def _tree_quant_init(checkpoint_path: str) -> Optional[str]:
+    """The quantized kind of a parameter tree's LLM linears ('w8a8' or
+    'w4a8', under an adapter or not) where they share one, else None (an fp
+    LLM is built). A directory without the port's ``tree.json`` gives None
+    and is refused by ``restore_params``."""
+    import json
+
+    tree = Path(checkpoint_path) / "tree.json"
+    if not tree.is_file():
+        return None
+    kinds = {k.removeprefix("lora/") for name, k in json.loads(tree.read_text())
+             .get("modules", {}).items() if name.startswith("llama.")}
+    return next(iter(kinds)) if len(kinds) == 1 and kinds <= {"w8a8", "w4a8"} else None
 
 
 def build_openvla(
@@ -96,11 +113,25 @@ def build_openvla(
         )
         from blurr_tpu_torch.models.openvla.processing import load_hf_tokenizer
 
-        _refuse_checkpoint(checkpoint_path)
         spec = OpenVLASpec.from_snapshot_dir(path)
         norm_stats = load_norm_stats(str(path))
         dataset_stats = load_dataset_statistics(str(path))
         tokenizer = load_hf_tokenizer(str(path))
+    elif str(model_id) in RANDOM_SPECS:
+        spec = RANDOM_SPECS[str(model_id)]()
+    else:
+        raise ValueError(f"model_id {model_id!r}: pass an HF snapshot dir or one "
+                         f"of {sorted(RANDOM_SPECS)}")
+
+    if checkpoint_path:
+        from blurr_tpu_torch.models.pi0.checkpoint import restore_params
+
+        # every weight comes from the tree: built uninitialized in its
+        # structure, then restored
+        model = restore_params(make_model(spec, norm_stats,
+                                          _tree_quant_init(str(checkpoint_path))),
+                               str(checkpoint_path))
+    elif path.is_dir():
         model = load_openvla_hf_dir(make_model(spec, norm_stats), str(path))
         if oft:
             head, proj = load_oft_aux_params(str(path), device, dtype)
@@ -113,23 +144,23 @@ def build_openvla(
                     init_dense(model.proprio_projector, generator)
                 else:
                     model.proprio_projector = proj
+    elif quantization and memory_safe_quant_init:
+        model = make_model(spec, quant_init=quantization).init_params(generator)
+        return BuiltVLA(model.eval(), spec, None, None, None)
     else:
-        if str(model_id) not in RANDOM_SPECS:
-            raise ValueError(f"model_id {model_id!r}: pass an HF snapshot dir or one "
-                             f"of {sorted(RANDOM_SPECS)}")
-        _refuse_checkpoint(checkpoint_path)
-        spec = RANDOM_SPECS[str(model_id)]()
-        if quantization and memory_safe_quant_init:
-            model = make_model(spec, quant_init=quantization).init_params(generator)
-            return BuiltVLA(model.eval(), spec, None, None, None)
         model = make_model(spec).init_params(generator)
 
     if quantization is not None:
         if _llama_has_quant_dicts(model.llama):
+            if checkpoint_path:
+                raise ValueError(f"checkpoint {checkpoint_path!r} already carries a quantized "
+                                 f"LLM; drop quantization={quantization!r} (the tree serves "
+                                 "as-is)")
             raise ValueError("params already quantized")
         if _llama_has_lora_dicts(model.llama):
-            raise ValueError("the LLM carries LoRA factors; PTQ would skip the wrapped "
-                             "projections. Merge the adapter first.")
+            raise ValueError("the LLM carries LoRA factor dicts; PTQ would skip the wrapped "
+                             "projections. Merge the adapter first (ops.lora.merge_lora_tree) "
+                             "or train with --quantize-base.")
         (quantize_llama_w8a8 if quantization == "w8a8" else quantize_llama_w4a8)(model.llama)
     return BuiltVLA(model.eval(), spec, tokenizer, norm_stats, dataset_stats)
 
@@ -155,5 +186,6 @@ def llama_has_w4a8(llama) -> bool:
 
 
 def _llama_has_lora_dicts(llama) -> bool:
-    """A LoRA factor dict anywhere (a JAX tree; the port's modules hold none)."""
-    return _has(llama, {"lora_a"}, ())
+    """A LoRA adapter anywhere (a ``LoRALinear``, or a JAX tree's factor
+    dict): PTQ would skip the wrapped projections."""
+    return _has(llama, {"lora_a"}, (LoRALinear,))

@@ -19,10 +19,14 @@ dtype, for parity with JAX's bridge; ``load_jax_params`` copies such a
 tree, or JAX's own as numpy, into the port's modules, each tensor cast to
 its parameter's device and dtype. Quantized JAX leaves (w8a8 ``{"q8a", "s"}``,
 w4a8 ``{"q4", "s"}``) load into a model quantized the same way, their
-bytes as they are. A position table of the other layout than the model's
-replaces it (``vit.ViT`` takes both). A ``lora_adapter/`` directory in a
-snapshot raises ``NotImplementedError``: merging it comes with the training
-port (ROADMAP M13).
+bytes as they are, and JAX's LoRA dicts (``{"w", "lora_a", "lora_b",
+"lora_s"}``, over an fp or quantized ``w``) into a model given adapters
+the same way (``ops.lora.inject_lora_tree``). A position table of the other
+layout than the model's replaces it (``vit.ViT`` takes both). A
+``lora_adapter/`` directory in a snapshot (PEFT) is merged into the LLM's
+weights as they load (``ops.lora.maybe_merge_lora_adapter``: skipped where
+the base already holds it, and left unmerged with a warning where it
+cannot be read), unless ``lora`` / ``merge_lora`` is False.
 
 OFT's aux heads ship as ``action_head--{step}_checkpoint.pt`` (keys
 prefixed ``module.model.``) and ``proprio_projector--{step}_checkpoint.pt``
@@ -49,6 +53,7 @@ from blurr_tpu_torch.models.openvla.model import (
 )
 from blurr_tpu_torch.models.openvla.vit import ViT
 from blurr_tpu_torch.models.pi0.checkpoint import _weight, copy_pairs, load_safetensors_dir
+from blurr_tpu_torch.ops.lora import maybe_merge_lora_adapter
 
 log = logging.getLogger(__name__)
 
@@ -166,25 +171,20 @@ def prismatic_vision_params(state: Dict, spec) -> Tuple[Dict, Dict]:
     return vit, proj
 
 
-def _refuse_lora(path: str) -> None:
-    if os.path.isdir(os.path.join(path, "lora_adapter")):
-        raise NotImplementedError(
-            f"{path} holds a lora_adapter/ directory; merging a LoRA adapter "
-            "comes with the training port (ROADMAP M13)"
-        )
-
-
-def openvla_params_from_hf_dir(path: str, spec) -> Dict:
+def openvla_params_from_hf_dir(path: str, spec, merge_lora: bool = True) -> Dict:
     """A fused OpenVLA snapshot directory -> the model's tree (``llama``,
-    ``dinov2``, ``siglip``, ``projector``)."""
-    _refuse_lora(path)
+    ``dinov2``, ``siglip``, ``projector``), its ``lora_adapter/`` merged into
+    the LLM unless ``merge_lora`` is False."""
     state = load_safetensors_dir(path)
     projector = {}
     for name in ("fc1", "fc2", "fc3"):
         projector[f"{name}_w"] = state[f"projector.{name}.weight"].t()
         projector[f"{name}_b"] = state[f"projector.{name}.bias"]
+    llama = llama_params_from_hf(state)
+    if merge_lora:
+        maybe_merge_lora_adapter(llama, path)
     return {
-        "llama": llama_params_from_hf(state),
+        "llama": llama,
         "dinov2": timm_vit_params_from_hf(state, "vision_backbone.featurizer.",
                                           spec.dinov2.effective_num_layers),
         "siglip": timm_vit_params_from_hf(state, "vision_backbone.fused_featurizer.",
@@ -294,9 +294,8 @@ def load_jax_params(model: OpenVLA, tree: Dict) -> OpenVLA:
     """Copy a JAX-layout tree (JAX's as numpy, or this module's from a
     snapshot) into ``model`` in place, every tensor cast to its parameter's
     device and dtype, quantized bytes as they are. Raises on a shape or kind
-    mismatch (quantize the model as the tree is first), on a LoRA dict
-    (``NotImplementedError``) and when a parameter or buffer of the model is
-    left unset."""
+    mismatch (quantize the model and inject its adapters as the tree is
+    first) and when a parameter or buffer of the model is left unset."""
     copy_pairs(model, _pairs(model, tree))
     return model
 
@@ -421,10 +420,8 @@ def load_openvla_hf_dir(model: OpenVLA, path: str, lora: bool = True) -> OpenVLA
     transposed copy on the host. A position table of the other layout than
     a tower's replaces it; the blocks a tower never runs are not read.
     Raises on a missing key or a shape mismatch. A ``lora_adapter/``
-    directory raises unless ``lora`` is False, which ignores it (JAX's
-    ``merge_lora=False``)."""
-    if lora:
-        _refuse_lora(path)
+    directory is then merged into the LLM (``maybe_merge_lora_adapter``)
+    unless ``lora`` is False, which ignores it (JAX's ``merge_lora=False``)."""
     state = load_safetensors_dir(path)
     for vit, prefix in ((model.dinov2, "vision_backbone.featurizer."),
                         (model.siglip, "vision_backbone.fused_featurizer.")):
@@ -445,6 +442,8 @@ def load_openvla_hf_dir(model: OpenVLA, path: str, lora: bool = True) -> OpenVLA
                 raise ValueError(f"{key}: shape {tuple(src.shape)} in the snapshot, "
                                  f"{tuple(dst.shape)} in the model")
             dst.copy_(src)
+    if lora:
+        maybe_merge_lora_adapter(model.llama, path)
     return model
 
 

@@ -25,6 +25,14 @@ decode step reads nothing back from the device. ``greedy_generate`` keeps
 the tokens on the device until the caller fetches them;
 ``greedy_generate_jacobi`` reads one flag back per sweep. Not ported:
 ``relayout_qkv_for_jacobi`` (a TPU layout fix).
+
+Training (JAX ``forward(..., remat=)``) runs ``Llama.forward`` with
+``cache=None``: each layer attends over its own fresh K and V, so no layer
+writes into a buffer another layer saved for the backward (the views of
+one cache tensor share its version counter, and autograd refuses a saved
+view that a later layer's in-place write has touched). ``remat`` wraps each
+layer in ``torch.utils.checkpoint.checkpoint`` (non-reentrant), which
+recomputes its activations in the backward.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from blurr_tpu_torch.ops.activations import silu
 from blurr_tpu_torch.ops.attention import grouped_attention, merge_heads, split_heads
@@ -124,7 +133,11 @@ class LlamaLayer(nn.Module):
             self.k_b = nn.Parameter(torch.empty(kv_out, **kw))
             self.v_b = nn.Parameter(torch.empty(kv_out, **kw))
 
-    def forward(self, h, cos, sin, mask, k_buf, v_buf, offset: int) -> torch.Tensor:
+    def forward(self, h, cos, sin, mask, k_buf=None, v_buf=None, offset: int = 0
+                ) -> torch.Tensor:
+        """One layer over ``h`` [B, S, H]. With buffers, K and V are written
+        into them at ``offset`` in place and attention reads the buffers;
+        without (training), it reads this layer's own K and V."""
         s = self.spec
         x = llama_rms_norm(h, self.input_norm, s.eps)
         qh, kh, vh = self.q_proj(x), self.k_proj(x), self.v_proj(x)
@@ -132,10 +145,13 @@ class LlamaLayer(nn.Module):
             qh, kh, vh = qh + self.q_b, kh + self.k_b, vh + self.v_b
         q = apply_rope(split_heads(qh, s.num_heads, s.head_dim), cos, sin)
         k = apply_rope(split_heads(kh, s.num_kv_heads, s.head_dim), cos, sin)
-        n = h.shape[1]
-        k_buf[:, :, offset:offset + n] = k
-        v_buf[:, :, offset:offset + n] = split_heads(vh, s.num_kv_heads, s.head_dim)
-        attn = grouped_attention(q, k_buf, v_buf, mask, softclamp=None)
+        v = split_heads(vh, s.num_kv_heads, s.head_dim)
+        if k_buf is not None:
+            n = h.shape[1]
+            k_buf[:, :, offset:offset + n] = k
+            v_buf[:, :, offset:offset + n] = v
+            k, v = k_buf, v_buf
+        attn = grouped_attention(q, k, v, mask, softclamp=None)
         h = h + self.o_proj(merge_heads(attn))
         x = llama_rms_norm(h, self.post_norm, s.eps)
         return h + self.down_proj(silu(self.gate_proj(x)) * self.up_proj(x))
@@ -193,17 +209,31 @@ class Llama(nn.Module):
         return self
 
     def forward(self, embeds: torch.Tensor, position_ids: torch.Tensor, mask: torch.Tensor,
-                cache: Cache, cache_offset: int) -> Tuple[torch.Tensor, Cache]:
+                cache: Optional[Cache], cache_offset: int = 0, remat: bool = False
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """One forward over S tokens ([B, S, H]) at positions [B, S], the
         mask bool [B, S, max_len] over the cache buffer; each layer writes
-        its K/V at ``cache_offset`` in place. Returns (hidden [B, S, H], cache)."""
+        its K/V at ``cache_offset`` in place. Returns (hidden [B, S, H], cache).
+
+        ``cache`` None is the training route (the module docstring): the
+        mask is [B, S, S] over the S tokens themselves, and ``remat``
+        recomputes each layer in the backward."""
         s = self.spec
         n = embeds.shape[1]
+        cos, sin = rope_cos_sin(position_ids, s.head_dim, s.rope_theta)
+        h = embeds
+        if cache is None:
+            for layer in self.layers:
+                if remat:
+                    h = checkpoint(layer, h, cos, sin, mask, use_reentrant=False)
+                else:
+                    h = layer(h, cos, sin, mask)
+            return h, None
+        if remat:
+            raise ValueError("remat is for the training route (cache=None)")
         if cache_offset + n > cache[0].shape[3]:
             raise ValueError(f"{n} tokens at offset {cache_offset} overflow a cache of "
                              f"{cache[0].shape[3]}")
-        cos, sin = rope_cos_sin(position_ids, s.head_dim, s.rope_theta)
-        h = embeds
         for i, layer in enumerate(self.layers):
             h = layer(h, cos, sin, mask, cache[0][i], cache[1][i], cache_offset)
         return h, cache

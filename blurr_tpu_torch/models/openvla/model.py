@@ -19,8 +19,12 @@ head's and projector's module names are those of the reference's
 ``action_head--*.pt`` / ``proprio_projector--*.pt`` state dicts.
 
 Every entry point takes and returns tensors on the model's device; ids
-and pixel values may be numpy. Not ported: the training losses
-(``action_ce_loss``, ``oft_l1_loss``).
+and pixel values may be numpy. The training losses, ``action_ce_loss``
+(teacher-forced next-token cross-entropy of the action tokens) and
+``oft_l1_loss`` (L1 of OFT's continuous chunk), run the LLM's training
+route (``llama.Llama.forward`` with no cache, optionally rematerialized)
+and are differentiable through the LoRA factors and the OFT modules; the
+decoding entry points keep the in-place cache and run without gradients.
 """
 
 from __future__ import annotations
@@ -279,6 +283,33 @@ class OpenVLA(nn.Module):
         discretized = np.digitize(a, np.linspace(-1, 1, self.spec.n_action_bins))
         return (self.spec.action_token_vocab - discretized).astype(np.int32)
 
+    def action_ce_loss(self, input_ids, attn_valid, pixel_values, action_tokens,
+                       remat: bool = False) -> torch.Tensor:
+        """Teacher-forced next-token cross-entropy over the ``action_dim``
+        action tokens, a 0-d fp32 tensor. ``input_ids`` [B, T] hold each
+        prompt with its label tokens appended right after it (right padding
+        at the end), ``attn_valid`` [B, T] covers prompt and labels, and
+        ``action_tokens`` [B, action_dim] are the labels. Label i sits at
+        id position n_prompt + i, is predicted from the position before it,
+        and id position j embeds at n_patch + j: the ``action_dim`` hidden
+        rows are gathered before the head, which runs on them alone."""
+        s = self.spec
+        ids = _to(input_ids, self.device).long()
+        attn_valid = _to(attn_valid, self.device).long()
+        labels = _to(action_tokens, self.device).long()
+        embeds, valid = self._inputs(ids, pixel_values, attn_valid)
+        b, total, h = embeds.shape
+        n_patch = total - ids.shape[1]
+        pos = torch.arange(total, device=self.device)[None].expand(b, total)
+        hid, _ = self.llama(embeds, pos, llama_lib.causal_prefill_mask(valid, total), None,
+                            remat=remat)
+        n_prompt = attn_valid.sum(-1) - s.action_dim
+        label_pos = (n_patch + n_prompt[:, None] - 1
+                     + torch.arange(s.action_dim, device=self.device)[None])
+        sel = hid.gather(1, label_pos[..., None].expand(b, s.action_dim, h))
+        logp = torch.log_softmax(self.llama.logits(sel).float(), dim=-1)
+        return -logp.gather(-1, labels[..., None]).mean()
+
     def unnormalize(self, normalized: np.ndarray, unnorm_key: str) -> np.ndarray:
         stats = self.norm_stats[unnorm_key]["action"]
         high, low = np.asarray(stats["q99"]), np.asarray(stats["q01"])
@@ -385,6 +416,25 @@ class OpenVLAOFT(OpenVLA):
         Right-padded prompts (``attn_valid``) keep their pad columns masked,
         and the tail (proprio token, empty token, placeholders) takes
         positions from each row's own prompt length."""
+        return self.continuous_chunk(input_ids, pixel_values, proprio, attn_valid)
+
+    def oft_l1_loss(self, input_ids, pixel_values, actions, proprio=None, attn_valid=None,
+                    remat: bool = False) -> torch.Tensor:
+        """OFT's fine-tuning objective: the mean |chunk - actions| of the
+        parallel-decoded chunk against the targets [B, chunk_len,
+        action_dim] (cast to the chunk's dtype), on the training route.
+        Ragged right-padded prompts ride ``attn_valid``: each row computes
+        its unpadded forward."""
+        pred = self.continuous_chunk(input_ids, pixel_values, proprio, attn_valid,
+                                     train=True, remat=remat)
+        return (pred - _to(actions, pred.device, pred.dtype)).abs().mean()
+
+    def continuous_chunk(self, input_ids, pixel_values, proprio=None, attn_valid=None,
+                         train: bool = False, remat: bool = False) -> torch.Tensor:
+        """``predict_action_continuous``'s forward, with gradients where the
+        caller keeps them: ``train`` runs the LLM's training route (no
+        cache; ``remat`` recomputes its layers in the backward), else the
+        serving route writes an in-place cache."""
         s = self.spec
         embeds, v_prefix = self._inputs(input_ids, pixel_values, attn_valid)
         b, s_e, h = embeds.shape
@@ -409,8 +459,8 @@ class OpenVLAOFT(OpenVLA):
             torch.cat([v_prefix, torch.ones(b, n_tail, dtype=torch.long, device=dev)], 1), total)
         act = torch.arange(total, device=dev) >= total - n_tok
         mask = mask | (act[None, :, None] & act[None, None, :])
-        cache = llama_lib.alloc_cache(s.llama, b, total, embeds.dtype, dev)
-        hid, _ = self.llama(embeds, pos, mask, cache, 0)
+        cache = None if train else llama_lib.alloc_cache(s.llama, b, total, embeds.dtype, dev)
+        hid, _ = self.llama(embeds, pos, mask, cache, 0, remat=remat)
         hid = self.llama.final_hidden(hid)
         out = self.action_head(hid[:, -n_tok:].reshape(b, -1))
         return out.reshape(b, self.chunk_len, s.action_dim)

@@ -621,8 +621,9 @@ def _state_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def _placeholder(kind: str, name: str, shapes: Dict, current, device, dtype) -> nn.Module:
-    """An empty module of ``kind`` at ``name`` with the file's shapes; an
-    ``nn.Linear`` (``current`` or under it) for the fp kind."""
+    """An empty module of ``kind`` at ``name`` with the file's shapes;
+    ``current`` itself where it is of that kind already (an ``nn.Linear``
+    for the fp kind, or a quantized base built as the file holds it)."""
     def empty(key, dt=None):
         info = shapes[f"{name}.{key}"]
         return torch.empty(info[0], dtype=dt or info[1], device=device)
@@ -632,6 +633,8 @@ def _placeholder(kind: str, name: str, shapes: Dict, current, device, dtype) -> 
         base = _placeholder(kind[5:], name + ".base", shapes, base, device, dtype)
         return LoRALinear(base, empty("lora_a", dtype), empty("lora_b", dtype),
                           empty("lora_s"))
+    if type(current) in _KIND_OF and _KIND_OF[type(current)] == kind:
+        return current
     bias = getattr(current, "bias", None)
     if kind == "fp":
         if type(current) is not nn.Linear:

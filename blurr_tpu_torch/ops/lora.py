@@ -16,20 +16,36 @@ scalar), so a JAX adapter tree copies over byte for byte
 base runs int8 or int4 with straight-through gradients, and only the
 factors train). ``ops.quant.mm`` also dispatches the dict form.
 
-The PEFT half (``merge_peft_adapter_into_llama``, ``save_peft_adapter``)
-belongs to the OpenVLA trainer and is not ported yet (ROADMAP M13).
+The PEFT half: ``save_peft_adapter`` writes the adapters of an OpenVLA
+LLM (``models/openvla/llama.Llama``) as a PEFT ``lora_adapter/`` directory
+(``adapter_config.json`` + ``adapter_model.safetensors``, torch [out, in]
+factors under ``base_model.model.language_model.model.layers.{i}.
+self_attn.q_proj.lora_A.weight``-style keys), the format the reference's
+eval merges at load; ``merge_peft_adapter_into_llama`` merges such a
+directory (or ``adapter_model.bin``) into the LLM's fp weights, a module or
+a JAX-layout tree, unless the base already holds the delta
+(``_adapter_already_merged``); ``maybe_merge_lora_adapter`` merges
+``<dir>/lora_adapter/`` where there is one and logs a warning, leaving the
+weights unmerged, where it cannot be read. The files are read and written
+by the port's own safetensors reader and writer.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, Optional, Tuple
+import json
+import logging
+import os
+import re
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from blurr_tpu_torch.ops.quant import linear, lora_delta
+
+log = logging.getLogger(__name__)
 
 # JAX's weight keys, by the attribute of the port's module that holds them:
 # the mixture linears and the SigLIP layer linears
@@ -173,3 +189,216 @@ def lora_trainable_mask(root: nn.Module) -> Dict[str, bool]:
         name: name.endswith((".lora_a", ".lora_b"))
         for name, _ in root.named_parameters()
     }
+
+
+# ---------------------------------------------------------------------------
+# PEFT adapter directories (OpenVLA's LLM)
+# ---------------------------------------------------------------------------
+
+# JAX's weight key -> (the PEFT block, the projection's module name)
+_PEFT_NAME_MAP = {
+    "q_w": ("self_attn", "q_proj"), "k_w": ("self_attn", "k_proj"),
+    "v_w": ("self_attn", "v_proj"), "o_w": ("self_attn", "o_proj"),
+    "gate_w": ("mlp", "gate_proj"), "up_w": ("mlp", "up_proj"),
+    "down_w": ("mlp", "down_proj"),
+}
+_PEFT_KEY = re.compile(r"layers\.(\d+)\.(?:self_attn|mlp)\.(\w+)\.lora_(A|B)\.weight")
+# a factor's projection coefficient <W, d> / <d, d> inside this band on
+# every sampled factor means the base already holds the delta
+MERGED_BAND = (0.6, 1.4)
+
+# (projection module name, layer) -> the base weight as an [in, out] view
+WeightOf = Callable[[str, int], Optional[torch.Tensor]]
+
+
+def _read_peft(adapter_dir: str) -> Tuple[float, Dict[str, Dict[int, Dict[str, torch.Tensor]]]]:
+    """(scale = lora_alpha / r, {projection: {layer: {"A": [r, in], "B":
+    [out, r]}}} in fp32) of a PEFT directory."""
+    from blurr_tpu_torch.models.pi0.checkpoint import read_safetensors
+
+    with open(os.path.join(adapter_dir, "adapter_config.json")) as f:
+        acfg = json.load(f)
+    scale = float(acfg.get("lora_alpha", 16)) / float(acfg.get("r", 16))
+    tensors: Dict[str, torch.Tensor] = {}
+    st = os.path.join(adapter_dir, "adapter_model.safetensors")
+    pt = os.path.join(adapter_dir, "adapter_model.bin")
+    if os.path.exists(st):
+        tensors = read_safetensors(st)
+    elif os.path.exists(pt):
+        tensors = torch.load(pt, map_location="cpu")
+    if not tensors:
+        raise FileNotFoundError(f"no adapter weights in {adapter_dir}")
+    per: Dict[str, Dict[int, Dict[str, torch.Tensor]]] = {}
+    for k, v in tensors.items():
+        m = _PEFT_KEY.search(k)
+        if m:
+            per.setdefault(m.group(2), {}).setdefault(int(m.group(1)), {})[m.group(3)] = v.float()
+    return scale, per
+
+
+def _delta(ab: Dict[str, torch.Tensor], scale: float) -> torch.Tensor:
+    """scale * (B @ A)^T: the torch [out, in] product as JAX's [in, out]."""
+    return scale * (ab["B"] @ ab["A"]).T
+
+
+def _adapter_already_merged(weight_of: WeightOf, per: Dict, scale: float,
+                            n_check: int = 6) -> bool:
+    """Whether the base weights already hold the adapter's deltas. For each
+    sampled (projection, layer) factor the projection coefficient
+    c = <W, d> / <d, d> is ~1 when W = W_base + d and ~0 +- (|W|/|d|)
+    cos(W, d) otherwise; that second term is unbounded for a small delta
+    mildly aligned with W, so "merged" needs EVERY sampled coefficient in
+    ``MERGED_BAND``. The sample goes round the projections and alternates
+    the front and back of each one's layers, so a merged head with an
+    unmerged tail is seen at both ends; zero deltas (B = 0) are skipped."""
+    projs = [p for p in sorted(per) if weight_of(p, None) is not None]
+    layers_of = {p: sorted(i for i, ab in per[p].items() if "A" in ab and "B" in ab)
+                 for p in projs}
+    candidates: List[Tuple[str, int]] = []
+    rank = 0
+    while len(candidates) < n_check and any(layers_of.values()):
+        for p in projs:
+            lst = layers_of[p]
+            if not lst:
+                continue
+            candidates.append((p, lst.pop(0) if rank % 2 == 0 else lst.pop(-1)))
+            if len(candidates) >= n_check:
+                break
+        rank += 1
+    coeffs = []
+    for proj, i in candidates:
+        delta = _delta(per[proj][i], scale)
+        denom = float((delta * delta).sum())
+        if denom < 1e-12:
+            continue
+        w = weight_of(proj, i).float()
+        coeffs.append(float((w * delta.to(w.device)).sum()) / denom)
+    log.debug("adapter projection coefficients: %s", coeffs)
+    lo, hi = MERGED_BAND
+    return bool(coeffs) and all(lo < c < hi for c in coeffs)
+
+
+def _weight_of(llama) -> WeightOf:
+    """The [in, out] weight view of a projection of ``llama``: a
+    ``models/openvla/llama.Llama`` (its ``nn.Linear``s) or a JAX-layout
+    tree ({"layers": {"q_w": [L, in, out], ...}}). ``layer`` None asks
+    whether the LLM has the projection at all. Raises ValueError on a
+    projection that is not a plain linear (quantized or adapted)."""
+    names = {proj: key for key, (_, proj) in _PEFT_NAME_MAP.items()}
+    if isinstance(llama, nn.Module):
+        def weight_of(proj, layer):
+            if proj not in names:
+                return None
+            if layer is None:
+                return True
+            mod = getattr(llama.layers[layer], proj)
+            if type(mod) is not nn.Linear:
+                raise ValueError(f"layers.{layer}.{proj} is a {type(mod).__name__}: a PEFT "
+                                 "adapter merges into fp weights only")
+            return mod.weight.T
+        return weight_of
+    layers = llama["layers"]
+
+    def weight_of(proj, layer):
+        key = names.get(proj)
+        if key is None or key not in layers:
+            return None
+        if layer is None:
+            return True
+        w = layers[key]
+        if isinstance(w, dict):
+            raise ValueError(f"layers.{key} is a {sorted(w)} dict: a PEFT adapter merges "
+                             "into fp weights only")
+        return w[layer]
+    return weight_of
+
+
+@torch.no_grad()
+def merge_peft_adapter_into_llama(llama, adapter_dir: str):
+    """Merge a PEFT LoRA directory into the LLM's fp weights in place
+    (``_weight_of``: a module or a JAX-layout tree of tensors), each W +
+    (alpha / r) * (B @ A)^T computed in fp32 and rounded to the weight's
+    dtype, and return the LLM. Left as it is where the base already holds
+    the delta (``_adapter_already_merged``, with a warning)."""
+    scale, per = _read_peft(adapter_dir)
+    weight_of = _weight_of(llama)
+    if _adapter_already_merged(weight_of, per, scale):
+        log.warning("Base weights already contain the LoRA adapter (projection coefficient "
+                    "~1); skipping merge to avoid double-applying it (OFT snapshots may ship "
+                    "pre-merged base weights alongside lora_adapter/).")
+        return llama
+    merged = 0
+    for proj, by_layer in per.items():
+        if weight_of(proj, None) is None:
+            continue
+        for i, ab in by_layer.items():
+            if "A" not in ab or "B" not in ab:
+                continue
+            w = weight_of(proj, i)
+            w.copy_((w.float() + _delta(ab, scale).to(w.device)).to(w.dtype))
+            merged += 1
+    log.info("Merged %d LoRA layer factors from %s", merged, adapter_dir)
+    return llama
+
+
+def maybe_merge_lora_adapter(llama, model_dir: str):
+    """Merge ``<model_dir>/lora_adapter/`` where there is one (the
+    reference's --use-lora auto); an adapter that cannot be merged logs a
+    warning and the LLM stays unmerged."""
+    adapter_dir = os.path.join(model_dir, "lora_adapter")
+    if os.path.isdir(adapter_dir):
+        try:
+            return merge_peft_adapter_into_llama(llama, adapter_dir)
+        except Exception as exc:
+            log.warning("LoRA merge failed (%s); continuing without.", exc)
+    return llama
+
+
+def save_peft_adapter(llama: nn.Module, adapter_dir: str,
+                      base_model_name: str = "openvla/openvla-7b",
+                      module_prefix: str = "language_model.model.layers") -> int:
+    """Write the ``LoRALinear`` factors of an OpenVLA LLM's layers as a PEFT
+    ``lora_adapter/`` directory: ``adapter_model.safetensors`` (fp32, A as
+    [r, in], B as [out, r]) and ``adapter_config.json`` (r, lora_alpha =
+    layer 0's scale * r; a layer whose scale differs has it folded into its
+    B, so the merge is exact). Returns the number of (projection, layer)
+    factor pairs written."""
+    from blurr_tpu_torch.models.pi0.checkpoint import save_safetensors
+
+    tensors: Dict[str, torch.Tensor] = {}
+    rank = alpha = None
+    targets = []
+    prefix = f"base_model.model.{module_prefix}"
+    for _, (block, proj) in _PEFT_NAME_MAP.items():
+        mods = [getattr(layer, proj, None) for layer in llama.layers]
+        if not all(isinstance(m, LoRALinear) for m in mods):
+            continue
+        targets.append(proj)
+        s0 = float(mods[0].lora_s)
+        rank = mods[0].rank
+        alpha = s0 * rank
+        for i, m in enumerate(mods):
+            a = m.lora_a.detach().float().cpu()
+            b = m.lora_b.detach().float().cpu()
+            s = float(m.lora_s)
+            if s != s0:
+                b = b * (s / s0)
+            tensors[f"{prefix}.{i}.{block}.{proj}.lora_A.weight"] = a.T.contiguous()
+            tensors[f"{prefix}.{i}.{block}.{proj}.lora_B.weight"] = b.T.contiguous()
+    if not tensors:
+        raise ValueError("no LoRA adapters found in the LLM's layers")
+    os.makedirs(adapter_dir, exist_ok=True)
+    save_safetensors(tensors, os.path.join(adapter_dir, "adapter_model.safetensors"))
+    cfg = {
+        "peft_type": "LORA",
+        "base_model_name_or_path": base_model_name,
+        "r": int(rank),
+        "lora_alpha": alpha,
+        "lora_dropout": 0.0,
+        "bias": "none",
+        "target_modules": sorted(set(targets)),
+        "task_type": "CAUSAL_LM",
+    }
+    with open(os.path.join(adapter_dir, "adapter_config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)
+    return len(tensors) // 2

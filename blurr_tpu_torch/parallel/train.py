@@ -1,13 +1,20 @@
-"""The flow-matching training step on one card.
+"""The training step on one card.
 
 Counterpart of ``blurr_tpu/parallel/train.py:make_optax_train_step`` (and
-of the fixture ``make_train_step``, plain SGD). JAX jits one function of
-(params, opt_state, batch, key); here the step is a closure over the model
-and its optimizer that updates them in place:
+of the fixture ``make_train_step``, plain SGD), and of the jitted steps of
+``scripts/train_openvla_lora.py``. JAX jits one function of (params,
+opt_state, batch, key); here the step is a closure over the model and its
+optimizer that updates them in place:
 
-    batch floats cast to the compute dtype -> flow_loss on (noise, t)
+    batch floats cast to the compute dtype -> the loss on (batch, *extra)
     -> gradients of the trainable parameters -> [accumulate k] -> AdamW
     (clip inside) -> [EMA]
+
+The loss is a callable ``loss_fn(model, *inputs, remat=)`` whose inputs
+are the batch's ``batch_keys`` in order, then the step's extra arguments:
+Pi-0's flow loss (the default, ``flow_loss`` on ``_BATCH_KEYS`` and the
+step's noise and t), OpenVLA's ``action_ce_loss`` or ``oft_l1_loss``
+(``scripts/train_openvla_lora_torch.py``).
 
 ``compute_dtype`` (master-fp32) keeps the parameters, the moments and the
 gradients in their own (fp32) dtype while the forward and backward run on
@@ -23,7 +30,7 @@ explicitly; ``sample_noise_and_t`` draws them from a ``torch.Generator``
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -53,36 +60,48 @@ def sample_noise_and_t(generator: torch.Generator, actions: torch.Tensor):
     return noise, t
 
 
-class _LossAndGrads(nn.Module):
-    """The model's flow loss and the gradients of ``wrt``, computed inside
-    one call so that ``torch.func.functional_call`` keeps the cast copies in
-    place for the backward too (``remat`` recomputes layers there)."""
+def flow_loss(model: nn.Module, input_ids, attention_mask, pixel_values, proprios, actions,
+              noise, t, remat: bool = False) -> torch.Tensor:
+    """Pi-0's loss on ``_BATCH_KEYS`` and the step's (noise, t)."""
+    return model.flow_loss(input_ids, attention_mask, pixel_values, proprios, actions, t, noise,
+                           remat=remat)
 
-    def __init__(self, model: nn.Module):
+
+class _LossAndGrads(nn.Module):
+    """The loss and the gradients of ``wrt``, computed inside one call so
+    that ``torch.func.functional_call`` keeps the cast copies in place for
+    the backward too (``remat`` recomputes layers there)."""
+
+    def __init__(self, model: nn.Module, loss_fn: Callable):
         super().__init__()
         self.model = model
+        self.loss_fn = loss_fn
 
     def forward(self, args, remat: bool, wrt):
-        loss = self.model.flow_loss(*args, remat=remat)
+        loss = self.loss_fn(self.model, *args, remat=remat)
         return loss, torch.autograd.grad(loss, wrt, allow_unused=True)
 
 
 def make_train_step(model: nn.Module, optimizer: AdamW, remat: bool = False,
                     compute_dtype: Optional[torch.dtype] = None, accum_steps: int = 1,
-                    ema: Optional[ParamsEMA] = None):
-    """``step(batch, noise, t) -> loss`` (a 0-d fp32 tensor, left on the
-    device): one micro-batch's flow loss and gradients of
-    ``optimizer.params``; with ``accum_steps`` k > 1 the parameters update
-    on every k-th call with the mean of the k gradients
-    (``GradAccumulator``, ``optax.MultiSteps``), and the EMA follows each
-    update. ``step.accumulator`` holds the accumulator (None for k = 1)."""
+                    ema: Optional[ParamsEMA] = None, loss_fn: Callable = flow_loss,
+                    batch_keys: Sequence[str] = _BATCH_KEYS):
+    """``step(batch, *extra) -> loss`` (a 0-d fp32 tensor, left on the
+    device): one micro-batch's ``loss_fn(model, *batch[batch_keys],
+    *extra, remat=remat)`` and the gradients of ``optimizer.params``
+    (Pi-0's default: ``step(batch, noise, t)``); with ``accum_steps`` k > 1
+    the parameters update on every k-th call with the mean of the k
+    gradients (``GradAccumulator``, ``optax.MultiSteps``), and the EMA
+    follows each update. ``step.accumulator`` holds the accumulator (None
+    for k = 1)."""
     trainable = optimizer.params
     acc = GradAccumulator(trainable, accum_steps) if accum_steps > 1 else None
-    holder = _LossAndGrads(model)
+    holder = _LossAndGrads(model, loss_fn)
+    keys = tuple(batch_keys)
 
-    def step(batch: Dict[str, torch.Tensor], noise: torch.Tensor, t: torch.Tensor):
+    def step(batch: Dict[str, torch.Tensor], *extra: torch.Tensor):
         batch = cast_batch(batch, compute_dtype or param_dtype(model))
-        args = tuple(batch[k] for k in _BATCH_KEYS) + (t, noise)
+        args = tuple(batch[k] for k in keys) + extra
         if compute_dtype is None:
             loss, grads = holder(args, remat, trainable)
         else:

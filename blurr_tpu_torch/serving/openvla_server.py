@@ -15,9 +15,14 @@ parallel forward (``oft=True``, with each request's proprio when
 ``unnorm_key``, the q01 / q99 unnormalization on the host. The wire
 protocol and the clients are Pi-0's.
 
-Not ported yet, and refused with ``NotImplementedError``: tensor and data
-parallelism (``tp`` / ``dp`` > 1, ROADMAP M14) and orbax checkpoints
-(``checkpoint_path`` and ``reload_checkpoint``, M13).
+``checkpoint_path`` serves a parameter tree of the port's trainer
+(``scripts/train_openvla_lora_torch.py --save-params``) through
+``build_openvla(checkpoint_path=...)``, its adapters unmerged over its
+quantized bases, and ``reload_checkpoint`` swaps one in while serving (the
+Pi-0 server's atomic and ``drop_first`` reloads), held against the startup
+model's tensors and module types. Not ported yet, and refused with
+``NotImplementedError``: tensor and data parallelism (``tp`` / ``dp`` > 1,
+ROADMAP M14).
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from blurr_tpu_torch.models.openvla.processing import (
     process_image,
     tokenize_prompt_ids,
 )
-from blurr_tpu_torch.serving.server import ActionServer, refuse
+from blurr_tpu_torch.serving.server import ActionServer, model_signature, refuse
 
 TOKEN_CACHE_SIZE = 1024
 
@@ -48,7 +53,9 @@ class OpenVLAActionServer(ActionServer):
     draws random weights from ``PRNGKey(0)``). ``quantization`` 'w8a8' /
     'w4a8' quantizes the LLM (a checkpoint-free one is drawn quantized).
     ``unnorm_key`` selects the norm statistics applied to the answers; None
-    returns normalized actions. ``max_batch``, ``batch_window_ms``,
+    returns normalized actions. ``checkpoint_path`` replaces every weight by
+    a trained parameter tree (``model_id`` still gives the spec, the
+    tokenizer and the statistics). ``max_batch``, ``batch_window_ms``,
     ``max_queue`` and ``bucket_mode`` are dynamic batching's, as in the Pi-0
     server.
     """
@@ -60,8 +67,7 @@ class OpenVLAActionServer(ActionServer):
                  chunk_len: int = 8, use_proprio: bool = False, proprio_dim: int = 8,
                  checkpoint_path: Optional[str] = None, max_queue: int = 0,
                  decode: str = "ar", bucket_mode: str = "pow2", *, device="cuda"):
-        refuse(tp=(tp > 1, "M14"), dp=(dp > 1, "M14"),
-               checkpoint_path=(bool(checkpoint_path), "M13"))
+        refuse(tp=(tp > 1, "M14"), dp=(dp > 1, "M14"))
         if decode not in ("ar", "jacobi"):
             raise ValueError(f"decode {decode!r}: expected 'ar'/'jacobi'")
         self.device = torch.device(device)
@@ -72,26 +78,33 @@ class OpenVLAActionServer(ActionServer):
         self.use_proprio = bool(use_proprio) and self.oft
         self.proprio_dim = int(proprio_dim)
         self.decode = decode
-        built = build_openvla(
-            model_id, device=self.device, dtype=self.dtype, oft=self.oft,
-            chunk_len=chunk_len, use_proprio=self.use_proprio, proprio_dim=proprio_dim,
-            quantization=quantization, memory_safe_quant_init=True, seed=seed,
-        )
+        # a reload builds through the same arguments (_build)
+        self._build_kw = dict(device=self.device, dtype=self.dtype, oft=self.oft,
+                              chunk_len=chunk_len, use_proprio=self.use_proprio,
+                              proprio_dim=proprio_dim, quantization=quantization,
+                              memory_safe_quant_init=True, seed=seed)
+        self._model_id = model_id
+        built = self._build(checkpoint_path)
         self.model = built.model
+        self._signature = model_signature(self.model)
         self.spec = built.spec
         if unnorm_key is not None and unnorm_key not in self.model.norm_stats:
             raise ValueError(f"unnorm_key {unnorm_key!r} not in the model's norm stats "
                              f"{sorted(self.model.norm_stats)}")
         self.processor = OpenVLAProcessor(built.tokenizer, image_size=self.spec.siglip.image_size,
                                           fused=self.spec.use_fused_vision)
-        self._checkpoint_desc = str(model_id)
+        self._checkpoint_desc = str(checkpoint_path or model_id)
         self._init_runtime(max_batch, batch_window_ms, max_queue, bucket_mode)
 
-    def reload_checkpoint(self, path: str, drop_first: bool = False) -> dict:
-        """JAX's OpenVLA server reloads an orbax tree through
-        ``build_openvla(checkpoint_path=...)``, which the port does not read
-        yet: refused before the served model is touched."""
-        refuse(reload_checkpoint=(True, "M13"))
+    def _build(self, checkpoint_path):
+        return build_openvla(self._model_id, checkpoint_path=checkpoint_path or None,
+                             **self._build_kw)
+
+    def _build_model(self, checkpoint_path):
+        """The reload's model: the startup ``build_openvla`` call with the
+        new tree (JAX ``_build_params``); ``reload_checkpoint`` checks it
+        against the served one before the swap."""
+        return self._build(checkpoint_path).model
 
     def _prepare(self, image: np.ndarray, instruction: str, proprio=None):
         """(ids, attention mask, pixel values[, proprio]) on the device,

@@ -368,11 +368,46 @@ served-int4-shapes holds their K2 shapes too.
              scripts/export_torch_checkpoint_torch.py to a reference .pt and
              loaded by load_checkpoint bit-equal to the directory, which
              equals the trained model merged in memory.
+41. train-openvla-qlora-w4a8 - scripts/train_openvla_lora_torch.py's main()
+             in-process at OpenVLA-7B's widths: random-7b drawn quantized
+             w4a8 on the card (no bf16 7B), rank-32 adapters on all seven
+             projections, bf16, batch 2, the AR objective, 6 steps from a
+             sharded dataset of 16 synthetic 224x224 examples the phase
+             writes (write_openvla_dataset), --save-params. K2 exactly 225
+             times a step (32 x 7 layer products at M 590, the head at the
+             14 label rows; 449 for one forward and backward with remat);
+             the first step's loss and factor gradients through K2 against
+             every w4a8 product on int4_matmul_reference within
+             INT4_REL_TOL; the int4 payloads and scales bit-unchanged, all
+             224 lora_b non-zero, every loss finite; the step median, the
+             peak memory, one step's device time and K2's share.
+42. train-openvla-resume - the same run with --save-state --stop-after 3,
+             then --resume-state to step 6: bit-equal to phase 41's.
+43. train-openvla-serve - phase 41's --save-params served by the OpenVLA
+             server (checkpoint_path, no quantization): the adapters over
+             the int4 bases, 6 requests, 1,575 K2 launches each, every
+             answer equal to the trained model's own; then hot-reloaded
+             into the running server and answered the same.
+44. train-openvla-oft - --oft --use-proprio at 7B w4a8, 3 steps, K2 224 a
+             step; the head and projector .pt files of --save-adapter read
+             back by load_oft_aux_params bit-equal. Then every K2 shape of
+             phases 41-44 held bit-equal against the plain version, the
+             same bits twice, timed in a CUDA graph beside its bound and a
+             bf16 matmul of the dense weight (train-openvla-int4-shapes).
+45. peft-roundtrip - a bf16 LoRA run on a shallow snapshot (2 LLM layers at
+             7B widths) writes --save-adapter into its lora_adapter/;
+             build_openvla(dir) merges it: the first token's logits within
+             PEFT_LOGIT_REL_TOL of the trained model merged in memory; a
+             snapshot whose base already holds the delta loads with
+             "already contain" logged and its weights unchanged.
+46. eval-openloop-vla - scripts/eval_openloop_vla_torch.py in a subprocess
+             on phase 41's --save-params over the dataset's 16 examples:
+             exit 0 and JAX's metric keys.
 Then one JSON line of the kernels (launches summed over the served runs of
 phases 4-10 with the batched, backpressure and reload runs, the
 experiments run, the eval runs of phases 14-18 and 20, the text runs of
 phases 21-23, the OpenVLA runs of phases 25-30b, the eval CLIs' runs of
-phases 32-34 and the training steps and served requests of phases 37-40,
+phases 32-34 and the training steps and served requests of phases 37-45,
 the counts set to 0 just before each; errors
 and times measured here: ms and plain_ms with CUDA events, graph_ms and
 plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
@@ -3201,12 +3236,12 @@ SNAPSHOT_STATS = {"bridge_orig": {"action": {"q01": [-0.5] * 7, "q99": [0.5] * 7
                                              "mask": [True] * 6 + [False]}}}
 
 
-def _hold_int4(g, shape, bn, label) -> None:
+def _hold_int4(g, shape, bn, label, exact: bool = False) -> None:
     """K2 at (M, K, N_pad, G) and block width ``bn`` against its plain
     version, the same bits on a second call (within INT4_REL_TOL of the
-    largest output, as int4_vs_plain), its grid and split of K logged, timed
-    in a CUDA graph beside its bytes bound and a bf16 matmul of the dense
-    weight."""
+    largest output, as int4_vs_plain; bit-equal with ``exact``), its grid
+    and split of K logged, timed in a CUDA graph beside its bound and a bf16
+    matmul of the dense weight."""
     from blurr_tpu_torch.ops.int4_matmul import grid, int4_matmul, int4_matmul_reference
 
     m, k, n, groups = shape
@@ -3227,7 +3262,8 @@ def _hold_int4(g, shape, bn, label) -> None:
         f"same bits on a second call {again}; S={blocks[1]} slices of K, grid {blocks}; "
         f"graph_ms {graph:.5f}, bound {least['bound_ms']:.5f} ms ({least['bound_by']}), "
         f"bf16 matmul of the dense weight graph_ms {dense:.5f}; on {card()}")
-    if not (torch.isfinite(out).all() and err <= tol and again):
+    if not (torch.isfinite(out).all() and err <= tol and again
+            and (torch.equal(out, ref) or not exact)):
         raise RuntimeError(f"{label}: K2 disagrees with its plain version at {shape}")
 
 
@@ -3275,15 +3311,17 @@ class _RecordInt4Shapes:
 
 
 def served_int4_vs_plain(device, seen: set, held: set, label: str = "served-int4-shapes",
-                         what: str = "the OpenVLA phases", by: str = "kernel-openvla") -> None:
-    """Every shape served phases gave K2 held against its plain version:
-    those an earlier phase (``by``) did not hold are held here."""
+                         what: str = "the OpenVLA phases", by: str = "kernel-openvla",
+                         exact: bool = False) -> None:
+    """Every shape served phases gave K2 held against its plain version
+    (bit-equal with ``exact``): those an earlier phase (``by``) did not
+    hold are held here."""
     g = torch.Generator(device=device).manual_seed(3)
     missing = sorted(seen - held)
     log(f"{label}: {what} gave K2 {len(seen)} shapes (M, K, N_pad, G, BN) {sorted(seen)}; "
         f"{len(missing)} not held by {by}{f': {missing}' if missing else ''}")
     for *shape, bn in missing:
-        _hold_int4(g, tuple(shape), bn, label)
+        _hold_int4(g, tuple(shape), bn, label, exact)
     torch.cuda.empty_cache()
 
 
@@ -3625,6 +3663,19 @@ def served_minivla(device) -> dict:
     return total
 
 
+def _shallow_openvla(device):
+    """OpenVLA at OpenVLA-7B's widths and a shallow depth (2 LLM layers, 3
+    of each tower), bf16 weights drawn on the card (generator seed 5)."""
+    from blurr_tpu_torch.models.openvla.llama import LlamaSpec
+    from blurr_tpu_torch.models.openvla.model import DINOV2_L, SIGLIP_SO400M, OpenVLA, OpenVLASpec
+
+    spec = OpenVLASpec(llama=LlamaSpec(num_layers=2),
+                       dinov2=dataclasses.replace(DINOV2_L, num_layers=3),
+                       siglip=dataclasses.replace(SIGLIP_SO400M, num_layers=3))
+    model = OpenVLA(spec, SNAPSHOT_STATS, device=device, dtype=torch.bfloat16)
+    return model.init_params(torch.Generator(device=device).manual_seed(5))
+
+
 def openvla_snapshot(device) -> dict:
     """An HF-keyed snapshot at OpenVLA-7B's widths and a shallow depth,
     written with blurr_spec.json and dataset_statistics.json, loaded by
@@ -3632,15 +3683,9 @@ def openvla_snapshot(device) -> dict:
     same weights bit for bit, and answers bit-equal to those of the model
     built in memory."""
     from blurr_tpu_torch.models.openvla.checkpoint import save_openvla_snapshot
-    from blurr_tpu_torch.models.openvla.llama import LlamaSpec
-    from blurr_tpu_torch.models.openvla.model import DINOV2_L, SIGLIP_SO400M, OpenVLA, OpenVLASpec
 
     label = "openvla-snapshot"
-    spec = OpenVLASpec(llama=LlamaSpec(num_layers=2),
-                       dinov2=dataclasses.replace(DINOV2_L, num_layers=3),
-                       siglip=dataclasses.replace(SIGLIP_SO400M, num_layers=3))
-    model = OpenVLA(spec, SNAPSHOT_STATS, device=device, dtype=torch.bfloat16)
-    model.init_params(torch.Generator(device=device).manual_seed(5))
+    model = _shallow_openvla(device)
     with tempfile.TemporaryDirectory(prefix="blurr_openvla_") as tmp:
         t0 = time.monotonic()
         save_openvla_snapshot(model, tmp, SNAPSHOT_STATS)
@@ -4145,13 +4190,16 @@ def _raw_shards(path: str, cfg, n: int = TRAIN_EXAMPLES, seed: int = 0) -> None:
     }, shard_size=8)
 
 
-def _grads_of(model, trainable, kw, batch, noise, t):
+def _grads_of(model, trainable, kw, batch, *extra):
     """The loss and the gradients of ``trainable`` of one training step's
-    inputs, as the step computes them (the batch cast to its dtype)."""
-    from blurr_tpu_torch.parallel.train import _BATCH_KEYS, cast_batch, param_dtype
+    inputs, as the step built with ``kw`` computes them (the batch cast to
+    its dtype, its loss_fn on its batch_keys; Pi-0's extra are noise, t)."""
+    from blurr_tpu_torch.parallel.train import _BATCH_KEYS, cast_batch, flow_loss, param_dtype
 
     b = cast_batch(batch, kw.get("compute_dtype") or param_dtype(model))
-    loss = model.flow_loss(*[b[k] for k in _BATCH_KEYS], t, noise, remat=kw.get("remat", False))
+    keys = kw.get("batch_keys", _BATCH_KEYS)
+    loss = kw.get("loss_fn", flow_loss)(model, *[b[k] for k in keys], *extra,
+                                        remat=kw.get("remat", False))
     return [loss.detach()] + list(torch.autograd.grad(loss, trainable, allow_unused=True))
 
 
@@ -4170,16 +4218,17 @@ def _rel_reading(got, want) -> float:
 
 
 class _TrainRun:
-    """train_pi0_flow_torch.main(argv) in-process with every optimizer step
-    recorded: its kernel launches (the counts read just before and after the
-    step alone), its host ms (synchronized) and its loss. ``first(model,
-    trainable, kw, batch, noise, t)`` runs before the first step, outside
-    the counts; the step numbered ``profile_at`` runs under torch.profiler,
-    and its ms stays out of the step median."""
+    """A trainer's main(argv) in-process (train_pi0_flow_torch, or
+    ``script``) with every optimizer step recorded: its kernel launches (the
+    counts read just before and after the step alone), its host ms
+    (synchronized) and its loss. ``first(model, trainable, kw, batch,
+    *extra)`` runs before the first step, outside the counts; the step
+    numbered ``profile_at`` runs under torch.profiler, and its ms stays out
+    of the step median."""
 
-    def __init__(self, device, first=None, profile_at=None):
+    def __init__(self, device, first=None, profile_at=None, script="train_pi0_flow_torch"):
         self.device, self.steps, self.first, self.profile_at = device, [], first, profile_at
-        self.prof = None
+        self.prof, self.script = None, script
 
     def __call__(self, argv):
         from torch.profiler import ProfilerActivity, profile
@@ -4192,19 +4241,19 @@ class _TrainRun:
         def make(model, optimizer, **kw):
             step = real(model, optimizer, **kw)
 
-            def recorded(batch, noise, t):
+            def recorded(batch, *extra):
                 if not run.steps and run.first is not None:
-                    run.first(model, optimizer.params, kw, batch, noise, t)
+                    run.first(model, optimizer.params, kw, batch, *extra)
                 torch.cuda.synchronize()
                 before, t0 = _counts(), time.monotonic()
                 profiled = len(run.steps) == run.profile_at
                 if profiled:
                     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        loss = step(batch, noise, t)
+                        loss = step(batch, *extra)
                         torch.cuda.synchronize()
                     run.prof = prof
                 else:
-                    loss = step(batch, noise, t)
+                    loss = step(batch, *extra)
                 torch.cuda.synchronize()
                 ms = (time.monotonic() - t0) * 1000.0
                 after = _counts()
@@ -4217,7 +4266,7 @@ class _TrainRun:
 
         train_lib.make_train_step = make
         try:
-            return _cli("train_pi0_flow_torch").main([*argv, "--device", str(self.device)])
+            return _cli(self.script).main([*argv, "--device", str(self.device)])
         finally:
             train_lib.make_train_step = real
 
@@ -4529,6 +4578,349 @@ def train_full(device, tmp: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# OpenVLA training (scripts/train_openvla_lora_torch.py)
+# ---------------------------------------------------------------------------
+
+VLA_TRAIN_STEPS = 6
+VLA_OFT_STEPS = 3
+VLA_TRAIN_EXAMPLES = 16  # the sharded dataset's examples (the trainer's synthetic frames)
+# K2 per optimizer step of OpenVLA-7B QLoRA w4a8 at batch 2: the 7 products
+# of each of the 32 layers at M = 2 x 295 embedded rows, and the head on the
+# 2 x 7 label rows alone (AR); OFT runs no head. The straight-through
+# backward launches none; remat recomputes the 224 layer products (the head
+# is outside the checkpointed layers)
+VLA_TRAIN_AR_K2 = 32 * 7 + 1  # 225
+VLA_TRAIN_OFT_K2 = 32 * 7  # 224
+VLA_TRAIN_ARGS = ["--model-id", "random-7b", "--quantize-base", "w4a8", "--lora-rank", "32",
+                  "--dtype", "bf16", "--batch-size", "2", "--seed", "0", "--log-every", "1"]
+VLA_INSTRUCTION = "put the spoon on the towel"
+# peft-roundtrip: a bf16 LoRA run merged two ways, in memory (A @ B rounded
+# to bf16, then W + s * delta rounded again) and through the PEFT directory
+# (the fp32 factors' product added in fp32, rounded once to bf16): three
+# bf16 roundings (half an ulp, 2^-9, each) of values up to each tensor's
+# largest |value| apart, so the merged weights within PEFT_WEIGHT_REL_TOL
+# (four such roundings) of it, and the first token's logits of the two
+# merged LLMs, both run in fp32 so that only the weights differ, within
+# PEFT_LOGIT_REL_TOL of the largest |logit|
+PEFT_WEIGHT_REL_TOL = 2.0**-7
+PEFT_LOGIT_REL_TOL = 2.0**-6
+OPENLOOP_KEYS = {"examples", "variant", "mse", "mae", "gripper_agreement", "model_id",
+                 "checkpoint", "quantization", "seed", "token_accuracy"}
+
+
+def _vla_shards(path: str, oft: bool = False) -> None:
+    """A sharded OpenVLA dataset (write_openvla_dataset) of the trainer's
+    synthetic examples: 224x224 frames, four instructions, actions [7] (OFT:
+    [8, 7] chunks and 8-dim proprio)."""
+    from blurr_tpu_torch.models.openvla.data import write_openvla_dataset
+
+    raw = _cli("train_openvla_lora_torch").synthetic_examples(
+        VLA_TRAIN_EXAMPLES, 224, (8, 7) if oft else (7,), 0, proprio_dim=8 if oft else 0)
+    write_openvla_dataset(path, raw["images"], raw["instructions"], raw["actions"],
+                          proprios=raw.get("proprios"), shard_size=8)
+
+
+def _vla_first_logits(model, frame) -> torch.Tensor:
+    """The first action token's logits (fp32 [V]) for ``frame`` and
+    VLA_INSTRUCTION, the prompt tokenized by the stub."""
+    from blurr_tpu_torch.models.openvla.llama import greedy_generate
+    from blurr_tpu_torch.models.openvla.processing import (
+        StubLlamaTokenizer,
+        process_image,
+        tokenize_prompt_ids,
+    )
+
+    ids = torch.tensor([tokenize_prompt_ids(StubLlamaTokenizer(), VLA_INSTRUCTION)])
+    px = process_image(frame, model.spec.siglip.image_size, model.spec.use_fused_vision)
+    with torch.no_grad():
+        _, logits = greedy_generate(model.llama, *model._inputs(ids, px), 1, return_logits=True)
+    return logits[0, 0].float()
+
+
+def train_openvla_qlora(device, tmp: str):
+    """scripts/train_openvla_lora_torch.py's main() in-process at OpenVLA-7B's
+    widths: random-7b drawn quantized w4a8 on the card (no bf16 7B), rank-32
+    adapters on all seven projections, bf16, batch 2, the AR objective,
+    VLA_TRAIN_STEPS steps from a sharded dataset the phase writes, and
+    --save-params. K2 VLA_TRAIN_AR_K2 times a step (and 2 x 225 - 1 for one
+    forward and backward with remat); the first step's loss and factor
+    gradients through K2 against every w4a8 product on
+    int4_matmul_reference; the int4 payloads and scales bit-unchanged, every
+    lora_b non-zero, every loss finite; the step median, the peak memory,
+    one step's device time and K2's share. Returns (launches, the run's
+    result, the K2 shapes it gave, the --save-params directory, the
+    dataset)."""
+    from blurr_tpu_torch.ops import quant
+    from blurr_tpu_torch.ops.int4_matmul import int4_matmul_reference
+    from blurr_tpu_torch.ops.lora import LoRALinear
+
+    label = "train-openvla-qlora-w4a8"
+    data, params = os.path.join(tmp, "vla_shards"), os.path.join(tmp, "vla_params")
+    t0 = time.monotonic()
+    _vla_shards(data)
+    log(f"{label}: wrote a sharded dataset of {VLA_TRAIN_EXAMPLES} examples (224x224 frames) in "
+        f"{time.monotonic() - t0:.2f} s")
+    seen = {}
+
+    def first(model, trainable, kw, batch):
+        seen["frozen"] = {n: b.clone() for n, b in model.named_buffers()
+                          if n.endswith((".q4", ".s"))}
+        seen.update(inputs=batch, kw=kw, trainable=trainable)
+        kernel = _grads_of(model, trainable, kw, batch)
+        real = quant.int4_matmul
+        quant.int4_matmul = int4_matmul_reference
+        try:
+            plain = _grads_of(model, trainable, kw, batch)
+        finally:
+            quant.int4_matmul = real
+        err = _rel_reading(kernel, plain)
+        rows = model.spec.siglip.num_patches + batch["input_ids"].shape[1]
+        log(f"{label}: {rows} embedded rows an example ({batch['input_ids'].shape[1]} ids); the "
+            f"first step through K2 against every w4a8 product on int4_matmul_reference: loss "
+            f"{kernel[0].item():.6f} vs {plain[0].item():.6f}, {len(trainable)} factors, largest "
+            f"error {err:.3e} of the largest |grad| (tol {INT4_REL_TOL:g})")
+        if err > INT4_REL_TOL:
+            raise RuntimeError(f"{label}: K2's step disagrees with the plain route's")
+
+    run = _TrainRun(device, first, profile_at=VLA_TRAIN_STEPS - 2,
+                    script="train_openvla_lora_torch")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with _RecordInt4Shapes() as rec:
+        _zero_counts()
+        result = run([*VLA_TRAIN_ARGS, "--data", data, "--steps", str(VLA_TRAIN_STEPS),
+                      "--save-params", params])
+    secs = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    run.check(label, VLA_TRAIN_STEPS, {"int4_matmul": VLA_TRAIN_AR_K2})
+    model = result.model
+    size = sum(f.stat().st_size for f in Path(params).iterdir())
+    log(f"{label}: main() in {secs:.1f} s (the draw, {VLA_TRAIN_STEPS} steps and a {size / 1e9:.3f} "
+        f"GB --save-params); peak memory {peak} B ({peak / 2**30:.2f} GiB); resident parameters "
+        f"and buffers {resident_bytes(model) / 1e9:.3f} GB; on {card()}")
+    _train_profile(label, run.prof)
+    now = dict(model.named_buffers())
+    changed = [n for n, b in seen.pop("frozen").items() if not torch.equal(b, now[n])]
+    lora_b = [m.lora_b for m in model.modules() if isinstance(m, LoRALinear)]
+    moved = sum(int(b.abs().max().item() > 0) for b in lora_b)
+    log(f"{label}: the int4 payloads and scales bit-unchanged: {not changed}; {moved} of the "
+        f"{len(lora_b)} lora_b non-zero")
+    if changed or moved != len(lora_b) or len(lora_b) != 32 * 7:
+        raise RuntimeError(f"{label}: frozen buffers changed {changed[:3]} or lora_b zero")
+    _zero_counts()
+    _grads_of(model, seen["trainable"], {**seen["kw"], "remat": True}, seen["inputs"])
+    remat = _counts()["int4_matmul"]
+    log(f"{label}: one forward and backward with remat launched K2 {remat} times (want "
+        f"{2 * VLA_TRAIN_AR_K2 - 1})")
+    if remat != 2 * VLA_TRAIN_AR_K2 - 1:
+        raise RuntimeError(f"{label}: remat launched K2 {remat} times")
+    return run.launches(), result, rec.seen, params, data
+
+
+def train_openvla_resume(device, tmp: str, data: str, uninterrupted) -> dict:
+    """The same run with --save-state --stop-after 3, then --resume-state
+    from it to VLA_TRAIN_STEPS: the parameters and buffers bit-equal to the
+    uninterrupted run's. Returns the launches of both runs."""
+    label = "train-openvla-resume"
+    state = os.path.join(tmp, "vla_state")
+    a, b = (_TrainRun(device, script="train_openvla_lora_torch") for _ in range(2))
+    t0 = time.monotonic()
+    a([*VLA_TRAIN_ARGS, "--data", data, "--steps", str(VLA_TRAIN_STEPS), "--save-state", state,
+       "--stop-after", "3"])
+    a.check(label + " (stopped)", 3, {"int4_matmul": VLA_TRAIN_AR_K2})
+    launches = a.launches()
+    size = sum(f.stat().st_size for f in Path(state).iterdir())
+    log(f"{label}: stopped after 3 steps and wrote a {size / 1e9:.3f} GB training state in "
+        f"{time.monotonic() - t0:.1f} s")
+    del a
+    _free()
+    t0 = time.monotonic()
+    result = b([*VLA_TRAIN_ARGS, "--data", data, "--steps", str(VLA_TRAIN_STEPS),
+                "--resume-state", state])
+    b.check(label + " (resumed)", VLA_TRAIN_STEPS - 3, {"int4_matmul": VLA_TRAIN_AR_K2})
+    mine, theirs = result.model.state_dict(), uninterrupted.state_dict()
+    same = mine.keys() == theirs.keys() and all(torch.equal(mine[k], theirs[k]) for k in theirs)
+    log(f"{label}: resumed to step {VLA_TRAIN_STEPS} in {time.monotonic() - t0:.1f} s; its "
+        f"{len(theirs)} parameters and buffers bit-equal to the uninterrupted run's: {same}")
+    if not same:
+        raise RuntimeError(f"{label}: the resumed run ends elsewhere")
+    del result, mine
+    _free()
+    return {n: launches[n] + b.launches()[n] for n in KERNEL_NAMES}
+
+
+def train_openvla_serve(device, params: str, model) -> dict:
+    """The --save-params directory served by the OpenVLA server
+    (checkpoint_path, no quantization): the adapters rebuilt over the int4
+    bases, 1,575 K2 launches a request, every answer equal to the trained
+    model's own on the same request; then hot-reloaded into the running
+    server, and answered the same again."""
+    from blurr_tpu_torch.ops.lora import LoRALinear
+    from blurr_tpu_torch.ops.quant import W4A8Linear
+    from blurr_tpu_torch.serving.client import ActionClient
+
+    label = "train-openvla-serve"
+    server = _openvla_server(label, "random-7b", device, checkpoint_path=params)
+    q = server.model.llama.layers[0].q_proj
+    if not (isinstance(q, LoRALinear) and isinstance(q.base, W4A8Linear)):
+        raise RuntimeError(f"{label}: the adapter tree was not rebuilt: {type(q).__name__}")
+    launches, answers = _serve_openvla(server, label, OPENVLA_AR_LAUNCHES)
+    frames = _openvla_frames()
+    for frame, answer in zip(frames, answers):
+        ids, am, px = server._prepare(frame, OPENVLA_INSTRUCTION)
+        want = model.detokenize_actions(model.predict_action_tokens_ragged(ids, px, am).cpu())
+        if not np.array_equal(answer, want[0].astype(np.float32)):
+            raise RuntimeError(f"{label}: served {answer}, the trained model gives {want}")
+    log(f"{label}: {len(answers)} answers equal to the trained model's in memory")
+    thread = _start(server)
+    try:
+        with ActionClient(port=server.port) as client:
+            t0 = time.monotonic()
+            client.reload(params)
+            secs = time.monotonic() - t0
+            _zero_counts()
+            again = client.predict(frames[0], OPENVLA_INSTRUCTION, [0.0] * 7)
+            reloaded = _counts()
+            stats = client.stats()
+    finally:
+        _stop(server, thread)
+    log(f"{label}: hot reload of {os.path.basename(params)}/ into the running server in "
+        f"{secs:.2f} s; reloads_total {stats['reloads_total']}; the answer after it equal: "
+        f"{np.array_equal(again, answers[0])}")
+    if stats["reloads_total"] != 1 or not np.array_equal(again, answers[0]):
+        raise RuntimeError(f"{label}: the reloaded server answers otherwise")
+    del server
+    _free()
+    return {n: launches[n] + reloaded[n] for n in KERNEL_NAMES}
+
+
+def train_openvla_oft(device, tmp: str):
+    """OFT at 7B w4a8 with proprio: --oft --use-proprio, VLA_OFT_STEPS steps
+    from a sharded dataset of [8, 7] chunks; K2 VLA_TRAIN_OFT_K2 times a
+    step; the head and projector written by --save-adapter as the
+    reference's .pt files and read back by load_oft_aux_params bit-equal.
+    Returns (launches, the K2 shapes it gave)."""
+    from blurr_tpu_torch.models.openvla.checkpoint import load_oft_aux_params
+
+    label = "train-openvla-oft"
+    data, out = os.path.join(tmp, "vla_oft_shards"), os.path.join(tmp, "vla_oft")
+    _vla_shards(data, oft=True)
+    run = _TrainRun(device, profile_at=1, script="train_openvla_lora_torch")
+    torch.cuda.reset_peak_memory_stats()
+    with _RecordInt4Shapes() as rec:
+        _zero_counts()
+        result = run([*VLA_TRAIN_ARGS, "--oft", "--use-proprio", "--data", data, "--steps",
+                      str(VLA_OFT_STEPS), "--save-adapter", os.path.join(out, "lora_adapter")])
+    run.check(label, VLA_OFT_STEPS, {"int4_matmul": VLA_TRAIN_OFT_K2})
+    log(f"{label}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _train_profile(label, run.prof)
+    head, proj = load_oft_aux_params(out, device, torch.bfloat16)
+    same = all(torch.equal(a, b) for mine, theirs in ((result.model.action_head, head),
+                                                      (result.model.proprio_projector, proj))
+               for a, b in zip(mine.state_dict().values(), theirs.state_dict().values()))
+    log(f"{label}: {sorted(f for f in os.listdir(out) if f.endswith('.pt'))} read back by "
+        f"load_oft_aux_params bit-equal: {same}")
+    if not same:
+        raise RuntimeError(f"{label}: the OFT aux files read back otherwise")
+    del result
+    _free()
+    return run.launches(), rec.seen
+
+
+def peft_roundtrip(device, tmp: str) -> dict:
+    """A bf16 LoRA run (rank 16, 2 steps) on a shallow snapshot
+    (``_shallow_openvla``) writes --save-adapter into the snapshot's
+    lora_adapter/; build_openvla(dir) merges it: the first token's logits
+    within PEFT_LOGIT_REL_TOL of the trained model merged in memory
+    (merge_lora_tree). A snapshot whose base already holds the delta loads
+    with "already contain" logged and its weights unchanged."""
+    import shutil
+
+    from blurr_tpu_torch.models.openvla.build import build_openvla
+    from blurr_tpu_torch.models.openvla.checkpoint import load_openvla_hf_dir, save_openvla_snapshot
+    from blurr_tpu_torch.models.openvla.model import OpenVLA
+    from blurr_tpu_torch.ops.lora import _delta, _read_peft, merge_lora_tree
+
+    label = "peft-roundtrip"
+    snap, merged_snap = os.path.join(tmp, "peft_snap"), os.path.join(tmp, "peft_merged")
+    save_openvla_snapshot(_shallow_openvla(device), snap, SNAPSHOT_STATS)
+    _free()
+    run = _TrainRun(device, script="train_openvla_lora_torch")
+    result = run(["--model-id", snap, "--lora-rank", "16", "--dtype", "bf16", "--batch-size", "2",
+                  "--steps", "2", "--lr", "5e-3", "--seed", "0", "--log-every", "1",
+                  "--save-adapter", os.path.join(snap, "lora_adapter")])
+    run.check(label + " (bf16 LoRA)", 2, {})
+    in_memory = copy.deepcopy(result.model)
+    n = merge_lora_tree(in_memory)
+    built, lines = _run_logged(lambda: build_openvla(snap, device=device, dtype=torch.bfloat16))
+    merged = [line for line in lines if "Merged" in line]
+    w_err = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                for a, b in zip(built.model.llama.parameters(), in_memory.llama.parameters()))
+    frame = _openvla_frames()[0]
+    want = _vla_first_logits(copy.deepcopy(in_memory).float(), frame)
+    got = _vla_first_logits(copy.deepcopy(built.model).float(), frame)
+    unmerged = OpenVLA(in_memory.spec, device=device, dtype=torch.float32)
+    base = _vla_first_logits(load_openvla_hf_dir(unmerged, snap, lora=False), frame)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    moved = ((base - want).abs().max() / want.abs().max()).item()
+    log(f"{label}: {n} adapters merged in memory; build_openvla logged {merged}; the LLM's "
+        f"weights within {w_err:.3e} of each tensor's largest |value| (tol "
+        f"{PEFT_WEIGHT_REL_TOL:g}); the first token's logits in fp32 within {err:.3e} of the "
+        f"largest |logit| (tol {PEFT_LOGIT_REL_TOL:g}); the base without the adapter reads "
+        f"{moved:.3e}")
+    if not (merged and w_err <= PEFT_WEIGHT_REL_TOL and err <= PEFT_LOGIT_REL_TOL):
+        raise RuntimeError(f"{label}: the merged snapshot differs from the in-memory merge")
+    save_openvla_snapshot(in_memory, merged_snap, SNAPSHOT_STATS)
+    shutil.copytree(os.path.join(snap, "lora_adapter"), os.path.join(merged_snap, "lora_adapter"))
+    again, lines = _run_logged(lambda: build_openvla(merged_snap, device=device,
+                                                     dtype=torch.bfloat16))
+    skipped = any("already contain the LoRA adapter" in line for line in lines)
+    same = all(torch.equal(a, b) for a, b in zip(again.model.state_dict().values(),
+                                                 in_memory.state_dict().values()))
+    scale, per = _read_peft(os.path.join(snap, "lora_adapter"))
+
+    def coefficients(model):  # <W, d> / <d, d> of every factor
+        out = []
+        for proj, layers in per.items():
+            for i, ab in layers.items():
+                d = _delta(ab, scale).to(device)
+                w = getattr(model.llama.layers[i], proj).weight.detach().T.float()
+                out.append(float((w * d).sum() / (d * d).sum()))
+        return out
+
+    merged_c, unmerged_c = coefficients(again.model), coefficients(unmerged)
+    log(f"{label}: a snapshot whose base holds the delta, with the same lora_adapter/: "
+        f"'already merged' logged {skipped}, its weights unchanged {same}; projection "
+        f"coefficients {min(merged_c):.4f}..{max(merged_c):.4f} (band 0.6..1.4; the unmerged "
+        f"base's {min(unmerged_c):.4f}..{max(unmerged_c):.4f})")
+    if not (skipped and same):
+        raise RuntimeError(f"{label}: a merged base took the adapter again")
+    del result, in_memory, built, again, unmerged
+    _free()
+    return run.launches()
+
+
+def eval_openloop_vla(data: str, params: str) -> None:
+    """scripts/eval_openloop_vla_torch.py as a user runs it, in a subprocess,
+    on the --save-params directory over the dataset's last 16 examples:
+    exit 0 and JAX's metric keys on its last line (its launches are another
+    process's and do not count)."""
+    label = "eval-openloop-vla"
+    cmd = [sys.executable, "scripts/eval_openloop_vla_torch.py", "--model-id", "random-7b",
+           "--checkpoint", params, "--data", data, "--examples", str(VLA_TRAIN_EXAMPLES)]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True, text=True, timeout=600)
+    secs = time.monotonic() - t0
+    lines = proc.stdout.strip().splitlines()
+    log(f"{label}: {' '.join(cmd[1:])} -> exit {proc.returncode} in {secs:.1f} s; {lines[-1:]}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"{label}: the CLI failed:\n{proc.stderr[-3000:]}")
+    metrics = json.loads(lines[-1])
+    if set(metrics) != OPENLOOP_KEYS or metrics["examples"] != VLA_TRAIN_EXAMPLES:
+        raise RuntimeError(f"{label}: metrics {metrics}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -4600,12 +4992,28 @@ def main() -> int:
         del trained
         _free()
         full_launches = train_full(device, tmp)
+    with tempfile.TemporaryDirectory(prefix="blurr_vla_train_") as tmp:
+        t0 = time.monotonic()
+        vla_launches, vla_run, vla_shapes, params, data = train_openvla_qlora(device, tmp)
+        vla_resume_launches = train_openvla_resume(device, tmp, data, vla_run.model)
+        vla_serve_launches = train_openvla_serve(device, params, vla_run.model)
+        del vla_run
+        _free()
+        oft_launches, oft_shapes = train_openvla_oft(device, tmp)
+        served_int4_vs_plain(device, vla_shapes | oft_shapes, set(),
+                             label="train-openvla-int4-shapes",
+                             what="the OpenVLA training runs", by="an earlier phase",
+                             exact=True)
+        peft_launches = peft_roundtrip(device, tmp)
+        eval_openloop_vla(data, params)
+        log(f"openvla-training: the phases took {time.monotonic() - t0:.1f} s")
     runs = (launches, checkpoint_launches, batched_launches, backpressure_launches,
             baseline_launches, w4a8_launches, batched_w4a8_launches, int8_launches,
             cached_launches, experiment_launches, eval_launches, frame_launches,
             async_launches, eval_batched_launches, eval_w4a8_launches, small_agent_launches,
             text_pi0_launches, text_paligemma_launches, small_text_launches, *openvla_runs,
-            train_launches, resume_launches, train_serve_launches, full_launches)
+            train_launches, resume_launches, train_serve_launches, full_launches,
+            vla_launches, vla_resume_launches, vla_serve_launches, oft_launches, peft_launches)
     total = {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
     measured = {"flash_attention": flash, "int4_matmul": int4, "int8_matmul": int8,
                 **experiments}

@@ -22,9 +22,9 @@ quantized (never in bf16), the tiny one's in place; every w4a8 product
 goes through the port's int4 kernel. Without SimplerEnv (or with a task
 named fake_*) the fake env is stepped. The step runs eagerly:
 --use-torch-compile and --attn-implementation are accepted and have no
-effect, and summary.json records torch_compile false. A snapshot with a
-lora_adapter/ directory is refused unless --use-lora off (merging an
-adapter comes with ROADMAP M13).
+effect, and summary.json records torch_compile false. A snapshot's
+lora_adapter/ directory (PEFT) is merged into the LLM as it loads unless
+--use-lora off.
 """
 
 from __future__ import annotations

@@ -16,9 +16,13 @@ wire bytes): .predict(image_u8_hw3, instruction, proprio) -> [action_dim]
 actions (normalized [-1, 1] unless --unnorm-key; OFT: a [chunk-len,
 action_dim] chunk). --max-batch, --batch-window-ms, --bucket-mode and
 --max-queue are dynamic batching's, as in scripts/serve_pi0_torch.py
-(ragged prompts co-batch: each answer is its request's alone). The flags of
-what is not ported yet (--tp / --dp > 1, --checkpoint) fail with the
-server's message naming the ROADMAP milestone.
+(ragged prompts co-batch: each answer is its request's alone).
+--checkpoint DIR serves a scripts/train_openvla_lora_torch.py --save-params
+tree (--model-id still gives the spec, the tokenizer and the statistics;
+its adapters run unmerged over its quantized bases), and
+scripts/serve_ctl_torch.py reload DIR swaps another one in while serving.
+--tp / --dp > 1 are not ported yet and fail with the server's message
+naming the ROADMAP milestone.
 """
 
 from __future__ import annotations

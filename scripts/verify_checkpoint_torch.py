@@ -90,11 +90,10 @@ def shapes(kind: str, checkpoint: str, config: str):
         expected = paligemma_state_dict(model.embed_tokens, model.vision_tower,
                                         model.multi_modal_projector, model.vlm)
         return of(expected), of(load_safetensors_dir(checkpoint))
-    from blurr_tpu_torch.models.openvla.checkpoint import _refuse_lora, openvla_hf_state_dict
+    from blurr_tpu_torch.models.openvla.checkpoint import openvla_hf_state_dict
     from blurr_tpu_torch.models.openvla.model import OpenVLA, OpenVLASpec
 
     model = OpenVLA(OpenVLASpec(), device="meta", dtype=torch.float32)
-    _refuse_lora(checkpoint)
     found = of(load_safetensors_dir(checkpoint))
     # the blocks a tower never runs, which the loader does not read
     for vit, prefix in ((model.dinov2, "vision_backbone.featurizer."),

@@ -208,14 +208,25 @@ def test_hf_cli_random_runs_and_refuses_lora(tmp_path, snapshot):
     assert "Success rate:" in log and "have no effect" in log
     import shutil
 
+    # a snapshot's lora_adapter/ merges as it loads (it was refused before
+    # the PEFT half was ported); --use-lora off leaves it out
+    from blurr_tpu.ops.lora import save_peft_adapter
+
     lora = tmp_path / "lora"
     shutil.copytree(snapshot, lora)
-    (lora / "lora_adapter").mkdir()
+    spec = OpenVLASpec.tiny().llama
+    rng = np.random.RandomState(0)
+    n, h = spec.num_layers, spec.hidden_size
+    save_peft_adapter({"v_w": {"lora_a": rng.randn(n, h, 2).astype(np.float32),
+                               "lora_b": rng.randn(n, 2, spec.num_kv_heads * spec.head_dim
+                                                   ).astype(np.float32),
+                               "lora_s": np.ones((n,), np.float32)}},
+                      str(lora / "lora_adapter"))
     argv = ["--model-id", str(lora), "--task", TASK, "--n-eval-episode", "1", "--max-steps",
             "1", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="M13"):
-        cli.main([*argv, "--log-dir", str(tmp_path / "lora_on")])
-    cli.main([*argv, "--use-lora", "off", "--log-dir", str(tmp_path / "lora_off")])
+    for flag, tag in (("auto", "lora_on"), ("off", "lora_off")):
+        cli.main([*argv, "--use-lora", flag, "--log-dir", str(tmp_path / tag)])
+        assert "Success rate:" in (tmp_path / tag / "run.log").read_text()
 
 
 # ---------------------------------------------------------------------------

@@ -18,9 +18,12 @@ driven through the port's client, an HF snapshot written and served, and
 on tiny random models, the streaming quantizer, the checkpoint checker on a
 ``.pt`` it writes, ``ModuleSpec`` and the action-accuracy metric. Then a
 static check: no ``.py`` file of the port, nor ``chip_smoke.py`` or the
-port's eleven scripts, has an import whose top-level module is ``jax`` or
+port's fourteen scripts, has an import whose top-level module is ``jax`` or
 ``blurr_tpu``. A second subprocess runs a QLoRA training step and a LoRA
-run's export the same way.
+run's export the same way, then the OpenVLA trainer (QLoRA w4a8 AR from a
+sharded dataset written by ``models/openvla/data.py``, its PEFT adapter
+merged back into a snapshot, and OFT), its --save-params tree served and
+scored by the open-loop evaluator.
 """
 
 import ast
@@ -282,6 +285,32 @@ TRAIN_SCRIPT = textwrap.dedent(
         export_torch_checkpoint_torch.main([
             "--device", "cpu", "--config", "config/eval/bridge_tiny.yaml",
             "--params", tmp + "/l", "--out", tmp + "/l.pt"])
+        # the OpenVLA trainer, its files served, scored and merged
+        import eval_openloop_vla_torch
+        import train_openvla_lora_torch
+        from blurr_tpu_torch.models.openvla.build import build_openvla
+        from blurr_tpu_torch.models.openvla.checkpoint import save_openvla_snapshot
+        from blurr_tpu_torch.models.openvla.data import write_openvla_dataset
+        from blurr_tpu_torch.serving.openvla_server import OpenVLAActionServer
+
+        raw = train_openvla_lora_torch.synthetic_examples(4, 28, (7,), 0)
+        write_openvla_dataset(tmp + "/d", raw["images"], raw["instructions"], raw["actions"])
+        run = train_openvla_lora_torch.main([
+            "--device", "cpu", "--steps", "1", "--lora-rank", "2", "--quantize-base", "w4a8",
+            "--data", tmp + "/d", "--save-params", tmp + "/vp"])
+        assert len(run.losses) == 1
+        OpenVLAActionServer("random", checkpoint_path=tmp + "/vp", device="cpu")
+        metrics = eval_openloop_vla_torch.main([
+            "--device", "cpu", "--checkpoint", tmp + "/vp", "--data", tmp + "/d"])
+        assert metrics["examples"] == 4
+        save_openvla_snapshot(build_openvla("random", device="cpu").model, tmp + "/snap")
+        train_openvla_lora_torch.main([
+            "--device", "cpu", "--model-id", tmp + "/snap", "--steps", "1", "--lora-rank", "2",
+            "--save-adapter", tmp + "/snap/lora_adapter"])
+        build_openvla(tmp + "/snap", device="cpu")
+        train_openvla_lora_torch.main([
+            "--device", "cpu", "--steps", "1", "--lora-rank", "2", "--oft", "--use-proprio",
+            "--save-adapter", tmp + "/o/lora_adapter"])
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "blurr_tpu"))
     assert all(sys.modules[m] is None for m in loaded), loaded
     print("NO_JAX_TRAIN_OK")
@@ -291,8 +320,9 @@ TRAIN_SCRIPT = textwrap.dedent(
 
 def test_training_runs_without_jax_or_blurr_tpu():
     """One bridge_tiny QLoRA w4a8 training step (its --save-dir and
-    --save-state), a LoRA run exported to a .pt, with ``jax`` and
-    ``blurr_tpu`` unimportable."""
+    --save-state), a LoRA run exported to a .pt, and the OpenVLA trainer's
+    runs and files (the module docstring), with ``jax`` and ``blurr_tpu``
+    unimportable."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("BLURR_PLATFORM", "BLURR_COMPILE_CACHE")}
     proc = subprocess.run(
@@ -325,7 +355,9 @@ PORT_FILES = sorted((REPO_ROOT / "blurr_tpu_torch").rglob("*.py")) + [
     REPO_ROOT / "scripts" / "train_pi0_flow_torch.py",
     REPO_ROOT / "scripts" / "export_torch_checkpoint_torch.py",
     REPO_ROOT / "scripts" / "time_quant_linear_torch.py",
-    REPO_ROOT / "scripts" / "ablate_flash_fp32_torch.py"]
+    REPO_ROOT / "scripts" / "ablate_flash_fp32_torch.py",
+    REPO_ROOT / "scripts" / "train_openvla_lora_torch.py",
+    REPO_ROOT / "scripts" / "eval_openloop_vla_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))

@@ -151,10 +151,32 @@ def test_build_from_snapshot_serves_jax_actions(tmp_path):
 
 
 def test_snapshot_with_lora_adapter_is_refused(tmp_path):
-    write_snapshot(tmp_path, t_model.OpenVLASpec.tiny())
-    (tmp_path / "lora_adapter").mkdir()
-    with pytest.raises(NotImplementedError, match="M13"):
-        t_ckpt.openvla_params_from_hf_dir(str(tmp_path), t_model.OpenVLASpec.tiny())
+    """A snapshot's lora_adapter/ directory is merged into the LLM as both
+    packages load it (it was refused before the PEFT half was ported): the
+    same merged tree, and the unmerged one with merge_lora False."""
+    from blurr_tpu.ops.lora import save_peft_adapter
+
+    spec = t_model.OpenVLASpec.tiny()
+    write_snapshot(tmp_path, spec)
+    rng = np.random.RandomState(3)
+    n, h = spec.llama.num_layers, spec.llama.hidden_size
+    q_out = spec.llama.num_heads * spec.llama.head_dim
+    save_peft_adapter({"q_w": {"lora_a": rng.randn(n, h, 2).astype(np.float32),
+                               "lora_b": rng.randn(n, 2, q_out).astype(np.float32) * 0.1,
+                               "lora_s": np.full((n,), 2.0, np.float32)}},
+                      str(tmp_path / "lora_adapter"))
+    ours = t_ckpt.openvla_params_from_hf_dir(str(tmp_path), spec)
+    theirs = j_ckpt.openvla_params_from_hf_dir(str(tmp_path), j_model.OpenVLASpec.tiny(),
+                                               jnp.float32)
+    plain = t_ckpt.openvla_params_from_hf_dir(str(tmp_path), spec, merge_lora=False)
+    q, q0 = ours["llama"]["layers"]["q_w"], plain["llama"]["layers"]["q_w"]
+    assert (q - q0).abs().max() > 1e-3
+    # JAX merges into bf16 whatever the dtype it loads in; the port into
+    # the tree's own dtype (fp32 here)
+    np.testing.assert_allclose(np.asarray(theirs["llama"]["layers"]["q_w"], np.float32),
+                               q.numpy(), rtol=0, atol=4e-3 * float(q.abs().max()))
+    _same_tree({k: v for k, v in ours["llama"]["layers"].items() if k != "q_w"},
+               {k: v for k, v in theirs["llama"]["layers"].items() if k != "q_w"})
 
 
 def test_qwen2_style_llm_tree_matches_jax():
@@ -349,7 +371,8 @@ def test_build_errors_match_jax(tmp_path):
         with pytest.raises(ValueError) as terr:
             t_build.build_openvla(**bad, device="cpu", dtype=torch.float32)
         assert str(terr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="M13"):
+    # a directory that is not a parameter tree of the port (e.g. JAX's orbax)
+    with pytest.raises(ValueError, match="not a parameter tree of the port"):
         t_build.build_openvla("random", device="cpu", checkpoint_path=str(tmp_path))
 
 

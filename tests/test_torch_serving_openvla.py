@@ -130,11 +130,54 @@ def test_token_cache_is_bounded():
 
 @pytest.mark.parametrize("kw,match", [
     ({"tp": 2}, "tp.*M14"), ({"dp": 2}, "dp.*M14"),
-    ({"checkpoint_path": "/x"}, "checkpoint_path.*M13"),
 ])
 def test_refused_flags_name_their_milestone(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         _server(**kw)
+
+
+def trained_tree(path, seed=0, quant=None, oft=False, rank=2):
+    """A parameter tree as the trainer's --save-params writes it: a random
+    tiny model (its LLM drawn ``quant``), rank-``rank`` LoRA on q and v with
+    B non-zero. Returns the model."""
+    from blurr_tpu_torch.models.openvla.build import build_openvla
+    from blurr_tpu_torch.models.pi0.checkpoint import save_params
+    from blurr_tpu_torch.ops.lora import LoRALinear, inject_lora_tree
+
+    model = build_openvla("random", device="cpu", dtype=torch.float32, quantization=quant,
+                          memory_safe_quant_init=True, oft=oft, chunk_len=2, seed=seed).model
+    g = torch.Generator().manual_seed(seed)
+    inject_lora_tree(model.llama, g, rank, ("q_w", "v_w"))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LoRALinear):
+                m.lora_b.normal_(0.0, 0.5, generator=g)
+    save_params(model, str(path))
+    return model
+
+
+@pytest.mark.parametrize("quant", [None, "w4a8"])
+def test_checkpoint_path_serves_a_trained_tree(tmp_path, quant):
+    """checkpoint_path: the tree's weights, its adapters rebuilt over its
+    bases, answered as the trained model answers; a quantized tree refuses
+    quantization and a LoRA tree post-training quantization (JAX's
+    messages)."""
+    from blurr_tpu_torch.ops.lora import LoRALinear
+
+    model = trained_tree(tmp_path / "params", seed=5, quant=quant)
+    srv = _server(checkpoint_path=str(tmp_path / "params"))
+    q = srv.model.llama.layers[0].q_proj
+    assert isinstance(q, LoRALinear) and type(q.base) is type(model.llama.layers[0].q_proj.base)
+    img, instr, _ = _request()
+    ids, am, px = srv._prepare(img, instr)
+    np.testing.assert_array_equal(
+        srv._post(srv._step(ids, am, px)),
+        model.detokenize_actions(model.predict_action_tokens_ragged(ids, px, am).numpy())
+        .astype(np.float32))
+    assert srv.stats()["checkpoint"] == str(tmp_path / "params")
+    match = "already carries a quantized LLM" if quant else "carries LoRA factor dicts"
+    with pytest.raises(ValueError, match=match):
+        _server(checkpoint_path=str(tmp_path / "params"), quantization="w8a8")
 
 
 @pytest.mark.parametrize("kw", [
@@ -171,7 +214,7 @@ def test_unknown_decode_is_an_error():
         _server(decode="beam")
 
 
-def test_cli_builds_the_server_and_refuses_what_the_server_refuses():
+def test_cli_builds_the_server_and_refuses_what_the_server_refuses(tmp_path):
     sys.path.insert(0, str(REPO_ROOT / "scripts"))
     import serve_openvla_torch
 
@@ -192,9 +235,15 @@ def test_cli_builds_the_server_and_refuses_what_the_server_refuses():
         with pytest.raises(NotImplementedError, match=match):
             serve_openvla_torch.build_server(serve_openvla_torch.parse_args(
                 ["--device", "cpu", flag, "2"]))
-    with pytest.raises(NotImplementedError, match="M13"):
+    # --checkpoint serves a trained tree (refused before the trainer was
+    # ported); a directory that is not one is refused
+    trained_tree(tmp_path / "params")
+    srv = serve_openvla_torch.build_server(serve_openvla_torch.parse_args(
+        ["--device", "cpu", "--no-bf16", "--checkpoint", str(tmp_path / "params")]))
+    assert type(srv.model.llama.layers[0].v_proj).__name__ == "LoRALinear"
+    with pytest.raises(ValueError, match="not a parameter tree"):
         serve_openvla_torch.build_server(serve_openvla_torch.parse_args(
-            ["--device", "cpu", "--checkpoint", "/x"]))
+            ["--device", "cpu", "--checkpoint", str(tmp_path)]))
     # scripts/serve_pi0_torch.py: the same batching flags, JAX's defaults
     from tests.test_torch_serving import _serve_script
 

@@ -247,22 +247,44 @@ def test_serve_ctl_torch_cli(ckpts, capsys):
         _stop(srv, thread)
 
 
-def test_openvla_reload_names_m13():
-    """The OpenVLA server refuses a reload (JAX's reads an orbax tree, M13)
-    over the wire; the connection and the model keep serving."""
-    srv = OpenVLAActionServer("random", use_bf16=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="M13"):
-        srv.reload_checkpoint("/x")
+def test_openvla_reload_names_m13(tmp_path):
+    """The OpenVLA server hot-reloads a trained parameter tree (refused
+    before the trainer was ported, ROADMAP M13) over the wire into a server
+    started from another: the answers become the tree's; a structurally
+    incompatible tree (rank-3 adapters) is
+    refused with the server's message while the connection and the model
+    keep serving."""
+    from tests.test_torch_serving_openvla import trained_tree
+
+    trained_tree(tmp_path / "b", seed=1)
+    trained = trained_tree(tmp_path / "a", seed=2)
+    trained_tree(tmp_path / "rank3", seed=3, rank=3)
+    srv = OpenVLAActionServer("random", use_bf16=False, device="cpu",
+                              checkpoint_path=str(tmp_path / "b"))
     thread = _serve(srv)
     try:
         img = np.zeros((28, 28, 3), np.uint8)
         with ActionClient(port=srv.port) as client:
-            want = client.predict(img, "pick up the carrot", [0.0] * 7)
-            with pytest.raises(RuntimeError, match="NotImplementedError.*M13"):
-                client.reload("/x", drop_first=True)
+            before = client.predict(img, "pick up the carrot", [0.0] * 7)
+            assert client.reload(str(tmp_path / "a")) == {"reloaded": str(tmp_path / "a"),
+                                                          "drop_first": False}
+            after = client.predict(img, "pick up the carrot", [0.0] * 7)
+            with pytest.raises(RuntimeError, match="ValueError.*structurally incompatible"):
+                client.reload(str(tmp_path / "rank3"), drop_first=True)
+            with pytest.raises(RuntimeError, match="no weights loaded"):
+                client.predict(img, "pick up the carrot", [0.0] * 7)
+            client.reload(str(tmp_path / "a"), drop_first=True)
             np.testing.assert_array_equal(client.predict(img, "pick up the carrot", [0.0] * 7),
-                                          want)
+                                          after)
             stats = client.stats()
     finally:
         _stop(srv, thread)
-    assert stats["reloads_total"] == 0 and stats["checkpoint"] == "random"
+    ids, am, px = srv._prepare(img, "pick up the carrot")
+    want = trained.detokenize_actions(trained.predict_action_tokens_ragged(ids, px, am).numpy())
+    np.testing.assert_array_equal(after, want.astype(np.float32)[0])
+    # a random tiny model answers the edge bins, so the weights tell the
+    # trees apart
+    served, mine = srv.model.state_dict(), trained.state_dict()
+    assert served.keys() == mine.keys() and all(torch.equal(served[k], mine[k]) for k in mine)
+    assert before.shape == after.shape
+    assert stats["reloads_total"] == 2 and stats["checkpoint"] == str(tmp_path / "a")
