@@ -25,8 +25,10 @@ is how the step runs:
   ``torch.cuda.set_sync_debug_mode``), so with ``async_pipeline`` the card
   computes the next chunk while the env steps.
 - ``use_torch_compile`` is read and has no effect: the step runs eagerly.
-- ``--record-dataset`` needs the JAX package's dataset writer
-  (``blurr_tpu.data``, ROADMAP M13) and raises.
+- ``record_dataset_dir`` (``--record-dataset``) stashes every (model-ready
+  inputs, predicted chunk) pair and writes them with the port's
+  ``data.write_dataset`` at the end of the run: the same files JAX's agent
+  writes.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch
 import blurr_tpu_torch.agent.env_adapter.simpler  # noqa: F401  (registers adapters)
 from blurr_tpu_torch.agent.fake_env import make_env
 from blurr_tpu_torch.config.core import instantiate
+from blurr_tpu_torch.data.shards import write_dataset
 from blurr_tpu_torch.models.pi0.checkpoint import load_checkpoint
 from blurr_tpu_torch.models.pi0.pizero import PiZero
 from blurr_tpu_torch.ops import prng
@@ -64,12 +67,6 @@ class EvalAgent:
         self.n_video = cfg["n_video"]
         self.log_dir = cfg["log_dir"]
         self.video_dir = os.path.join(self.log_dir, "videos")
-        if cfg.get("record_dataset_dir"):
-            raise NotImplementedError(
-                "record_dataset_dir: recording a dataset needs the sharded dataset "
-                "writer of blurr_tpu.data, which the port has not ported yet "
-                "(ROADMAP Queue 1, M13)"
-            )
         os.makedirs(self.video_dir, exist_ok=True)
         if device is None:
             device = f"cuda:{int(cfg.get('gpu_id') or 0)}"
@@ -123,6 +120,10 @@ class EvalAgent:
             self.async_pipeline = False
         self.seed = int(cfg.get("seed", 42))
         self._step_idx = 0
+        # --record-dataset: every (model-ready inputs, predicted chunk) pair,
+        # written as a sharded dataset at the end of the run
+        self.record_dir = str(cfg.get("record_dataset_dir") or "") or None
+        self._recorded: list = []
 
         log.info("Creating SimplerEnv env with task='%s'...", cfg["env"]["task"])
         t0 = time.time()
@@ -218,6 +219,22 @@ class EvalAgent:
     def _infer(self, inputs: dict) -> np.ndarray:
         return self._fetch(self._dispatch(inputs))
 
+    def _record_example(self, inputs: dict, actions: np.ndarray) -> None:
+        """One (model-ready inputs, predicted normalized chunk) pair for
+        --record-dataset. The keys are the training loader's, so a recorded
+        rollout trains with ``train_pi0_flow_torch.py --data <dir>`` and
+        scores with ``eval_openloop_torch.py`` unchanged. The actions are the
+        policy's own outputs."""
+        if self.record_dir is None:
+            return
+        self._recorded.append({
+            "input_ids": np.asarray(inputs["input_ids"], np.int32)[0],
+            "attention_mask": np.asarray(inputs["attention_mask"], np.int32)[0],
+            "pixel_values": np.asarray(inputs["pixel_values"], np.float32)[0],
+            "proprios": np.asarray(inputs["proprios"], np.float32)[0],
+            "actions": np.asarray(actions, np.float32),
+        })
+
     def run(self):
         log.info(
             "EvalAgent.run start: n_eval_episode=%d, n_video=%d, act_steps=%d",
@@ -262,6 +279,7 @@ class EvalAgent:
                 t0 = time.time()
                 actions = self._infer(inputs)
                 infer_times.append(time.time() - t0)
+                self._record_example(inputs, actions)
                 log.debug(
                     "Episode %d, step %d: model forward done in %.3f s.",
                     cnt_episode,
@@ -301,6 +319,8 @@ class EvalAgent:
                 t_wait = time.time()
                 next_chunk = self._fetch(pending)
                 fetch_waits.append(time.time() - t_wait)
+                # `inputs` still holds what this chunk was dispatched from
+                self._record_example(inputs, next_chunk)
 
             if recording and video_writer is not None:
                 video_writer.append_data(env_adapter.get_video_frame(env, obs))
@@ -372,5 +392,10 @@ class EvalAgent:
                 len(w),
             )
         log_allocated_device_memory(log, "evaluation", self.device)
+        if self.record_dir and self._recorded:
+            arrays = {k: np.stack([r[k] for r in self._recorded]) for k in self._recorded[0]}
+            write_dataset(self.record_dir, arrays, shard_size=256)
+            log.info("Recorded %d control-step examples to %s", len(self._recorded),
+                     self.record_dir)
         log.info("============================================")
         return success_rate

@@ -193,28 +193,36 @@ class MixtureLayer(nn.Module):
             self.final_scale = AdaptiveLayerscale(tc, h, device=device, dtype=dtype)
 
     def qkv(self, h, cos, sin, joint: JointSpec, clip: Optional[float] = None,
-            time_cond=None):
-        """Norm, project and rope: q [B,NH,S,D], k [B,KVH,S,D] (roped), v."""
+            time_cond=None, capture: Optional[dict] = None):
+        """Norm, project and rope: q [B,NH,S,D], k [B,KVH,S,D] (roped), v.
+        A ``capture`` dict receives the projections' input as "attn_in"."""
         nh, kvh, hd = (
             joint.num_attention_heads, joint.num_key_value_heads, joint.head_dim
         )
         x = apply_norm(self.input_norm, h, time_cond, joint.rms_norm_eps)
+        if capture is not None:
+            capture["attn_in"] = x  # q, k and v share it
         q = apply_rope(split_heads(linear(self.q_proj, x, clip), nh, hd), cos, sin)
         k = apply_rope(split_heads(linear(self.k_proj, x, clip), kvh, hd), cos, sin)
         v = split_heads(linear(self.v_proj, x, clip), kvh, hd)
         return q, k, v
 
     def finish(self, h, attn, eps: float, clip: Optional[float] = None,
-               time_cond=None):
+               time_cond=None, capture: Optional[dict] = None):
         """Output projection + residual, then the GeGLU MLP + residual;
         ``attn`` is this mixture's slice of the merged attention output.
-        adaLN-Zero gates each branch before its residual add."""
+        adaLN-Zero gates each branch before its residual add. A ``capture``
+        dict receives the inputs of the output projection ("o_in"), of the
+        gate and up projections ("mlp_in") and of the down projection
+        ("down_in", the MLP's inner activation)."""
         a = linear(self.o_proj, attn, clip)
         if self.post_scale is not None:
             a = self.post_scale(a, time_cond)
         h = h + a
         x = apply_norm(self.post_norm, h, time_cond, eps)
         inner = geglu(linear(self.gate_proj, x, clip), linear(self.up_proj, x, clip))
+        if capture is not None:
+            capture.update(o_in=attn, mlp_in=x, down_in=inner)
         out = linear(self.down_proj, inner, clip)
         if self.final_scale is not None:
             out = self.final_scale(out, time_cond)
@@ -359,7 +367,8 @@ def naive_forward(
     time_cond: Optional[torch.Tensor] = None,
     prefix_time_cond: Optional[torch.Tensor] = None,
     remat: bool = False,
-) -> torch.Tensor:
+    capture: bool = False,
+):
     """One flow step with no cache: every mixture goes through every layer,
     and each layer's attention runs once over all T rows with the full block
     mask (the reference's no_append path). Returns the action mixture's
@@ -373,7 +382,15 @@ def naive_forward(
     freezes the prefix K/V at the first flow step, so its proprio mixture
     stays conditioned on t=0), else on ``time_cond``. In the last layer only
     the action mixture's output is read, so the others skip their output
-    projection and MLP there (JAX computes and discards them)."""
+    projection and MLP there (JAX computes and discards them).
+
+    ``capture`` (GPTQ calibration, ``models/pi0/calibrate.py``) also returns
+    the inputs of every mixture's linears, ``{mixture: {"attn_in" | "o_in" |
+    "mlp_in" | "down_in": [L, B, S, K]}}``, as JAX's ``capture``: then every
+    mixture runs its whole last layer, since its inputs there are wanted too.
+    It does not combine with ``remat``."""
+    if capture and remat:
+        raise ValueError("capture (GPTQ calibration) does not combine with remat")
     names = list(embeds)
     eps = spec.rms_norm_eps
     lens = [embeds[n].shape[1] for n in names]
@@ -387,30 +404,39 @@ def naive_forward(
         for n in names
     }
     last = spec.num_hidden_layers - 1
+    caps = [] if capture else None
 
     def layer(i, *h):
         hs = dict(zip(names, h))
         layers = {n: mixtures[n].layers[i] for n in names}
+        cap = {n: {} for n in names} if capture else dict.fromkeys(names)
         parts = [
-            layers[n].qkv(hs[n], *ropes[n], spec, _clip_for(spec, n), tcs[n])
+            layers[n].qkv(hs[n], *ropes[n], spec, _clip_for(spec, n), tcs[n], cap[n])
             for n in names
         ]
         q, k, v = (torch.cat(t, dim=2) for t in zip(*parts))
         attn = merge_heads(_attention(spec, q, k, v, full_mask))
         offset = 0
         for n, s in zip(names, lens):
-            if i < last or n == "action":
+            if i < last or n == "action" or capture:
                 hs[n] = layers[n].finish(
-                    hs[n], attn[:, offset : offset + s], eps, _clip_for(spec, n), tcs[n]
+                    hs[n], attn[:, offset : offset + s], eps, _clip_for(spec, n), tcs[n],
+                    cap[n],
                 )
             offset += s
+        if capture:
+            caps.append(cap)
         return tuple(hs[n] for n in names)
 
     h = tuple(hs[n] for n in names)
     for i in range(spec.num_hidden_layers):
         h = checkpoint(layer, i, *h, use_reentrant=False) if remat else layer(i, *h)
     hs = dict(zip(names, h))
-    return apply_norm(mixtures["action"].final_norm, hs["action"], tcs["action"], eps)
+    out = apply_norm(mixtures["action"].final_norm, hs["action"], tcs["action"], eps)
+    if capture:
+        return out, {n: {key: torch.stack([c[n][key] for c in caps]) for key in caps[0][n]}
+                     for n in names}
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -7,7 +7,7 @@ agent, batched eval, open-loop eval and the action server). This module
 computes the same numbers with numpy and torch, so the port serves the same
 noise for the same seed and request index:
 
-- ``prng_key``, ``fold_in``, ``threefry2x32`` and ``random_bits`` follow
+- ``prng_key``, ``fold_in``, ``split``, ``threefry2x32`` and ``random_bits`` follow
   JAX's default implementation (``jax_default_prng_impl = threefry2x32``)
   with ``jax_threefry_partitionable`` on, the default since JAX 0.5: the
   counter of element i of the flattened shape is the 64-bit i split into
@@ -75,6 +75,14 @@ def fold_in(key, data: int) -> np.ndarray:
     a, b = threefry2x32(key, np.zeros(1, np.uint32),
                         np.array([int(data) & 0xFFFFFFFF], np.uint32))
     return np.concatenate([a, b])
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """The key data of ``jax.random.split(key, num)``: uint32 [num, 2]. With
+    ``jax_threefry_partitionable`` on, key i is the hash of the counter
+    (0, i) under ``key`` (``jax/_src/prng.py:_threefry_split_foldlike``)."""
+    a, b = threefry2x32(key, np.zeros(num, np.uint32), np.arange(num, dtype=np.uint32))
+    return np.stack([a, b], axis=1)
 
 
 def random_bits(key, shape, bit_width: int = 32) -> np.ndarray:

@@ -403,12 +403,45 @@ served-int4-shapes holds their K2 shapes too.
 46. eval-openloop-vla - scripts/eval_openloop_vla_torch.py in a subprocess
              on phase 41's --save-params over the dataset's 16 examples:
              exit 0 and JAX's metric keys.
+47. record  - phases 14 and 16 run with --record-dataset (serial, then
+             async into another directory): one example per fetched
+             chunk, the keys at their shapes (_check_recorded).
+48. record-then-score - scripts/eval_openloop_torch.py in-process on each
+             recorded directory (no transform, bridge.yaml bf16, K1 on):
+             every recorded step an example, 17 K1 launches a batch.
+49. openloop - the open-loop CLI in-process at batch 8 on synthetic data
+             at full width: bridge.yaml bf16 (20 examples, the tail batch
+             padded), pool64 w4a8 (K2 370 a batch) and bridge.yaml fp32;
+             the metrics' keys, finite values, 17 K1 launches a batch.
+50. gptq    - bridge_pool64_w4a8_steps1.yaml calibrated on 6 fake-env
+             control steps of the fp model, both mixtures' 18 layers GPTQ
+             w4a8 (wall time split into calibration and walk, calibration
+             rows and peak memory printed); both calibration passes (the
+             held-out one and GPTQ's own) launch K1 18 times a naive
+             forward and nothing else; on held-out captures (episode 101)
+             at layers 0, 8 and 17 of each mixture, each layer's output
+             error summed over its 7 linears below the data-free
+             rounding's (each linear logged); JAX's one-layer-at-a-time
+             walk timed on layer 0 of each mixture; one served step: K2
+             370 launches, the same bits twice.
+51. closed-loop - blurr_tpu_torch.experiments.quant_closed_loop over
+             pool64_bf16, pool64_w4a8 and pool64_w4a8_gptq (in-process),
+             its report lines.
+52. openloop-flash - every (shape, dtype) phases 48-51 gave K1 (the
+             calibration's [1,8,101,256] bf16 naive forward among them),
+             with the first mask it met there, held against the plain
+             version and timed beside SDPA and its bound.
+53. openloop-int4-shapes - every K2 shape phases 48-51 gave held bit-equal
+             against the plain version, the same bits twice, timed in a
+             CUDA graph beside its bound and a bf16 matmul of the dense
+             weight.
 Then one JSON line of the kernels (launches summed over the served runs of
 phases 4-10 with the batched, backpressure and reload runs, the
 experiments run, the eval runs of phases 14-18 and 20, the text runs of
 phases 21-23, the OpenVLA runs of phases 25-30b, the eval CLIs' runs of
-phases 32-34 and the training steps and served requests of phases 37-45,
-the counts set to 0 just before each; errors
+phases 32-34, the training steps and served requests of phases 37-45 and
+the CLI, calibration, GPTQ and experiment runs of phases 48-51, the counts set to 0
+just before each; errors
 and times measured here: ms and plain_ms with CUDA events, graph_ms and
 plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
 function where there is one, at the first timed shape of each kernel;
@@ -643,13 +676,16 @@ def build() -> None:
                 log(f"build: {name} ptxas {line.strip()}")
 
 
-def _attention_inputs(shape, device, qk_scale=0.3):
+def _attention_inputs(shape, device, qk_scale=0.3, mask=None):
+    """q, k and v drawn at ``shape``; the mask is ``mask`` where one is given
+    (one a path passed to K1), else one like a Pi-0 prefill's or naive step's
+    at their shapes, else random."""
     b, nh, kvh, sq, skv, d = shape
     g = torch.Generator(device=device).manual_seed(0)
     q = torch.randn(b, nh, sq, d, generator=g, device=device) * qk_scale
     k = torch.randn(b, kvh, skv, d, generator=g, device=device) * qk_scale
     v = torch.randn(b, kvh, skv, d, generator=g, device=device)
-    if nh == 8 and kvh == 1 and sq == skv:  # a Pi-0 prefill or naive step
+    if mask is None and nh == 8 and kvh == 1 and sq == skv:  # a Pi-0 prefill or naive step
         from blurr_tpu_torch.ops.masks import pi0_full_mask, pi0_prefix_mask
 
         # the image tokens and a short prompt valid, 10 pad rows fully masked
@@ -660,7 +696,7 @@ def _attention_inputs(shape, device, qk_scale=0.3):
             am[i, :n_text - 10 - 3 * i] = 1
         mask = (pi0_full_mask(am, n_text, 1, 4) if sq == NAIVE_SHAPE[3]
                 else pi0_prefix_mask(am, n_text, 1))
-    else:
+    elif mask is None:
         mask = torch.rand(b, sq, skv, generator=g, device=device) > 0.3
         mask[:, :, 0] = True
     return q, k, v, mask
@@ -695,18 +731,18 @@ def _fmt_times(t: dict, dense=None, dense_name: str = "") -> str:
     return line
 
 
-def _hold_flash(shape, dtype, tol, label, device, qk_scale=0.3) -> float:
+def _hold_flash(shape, dtype, tol, label, device, qk_scale=0.3, mask=None) -> float:
     """K1 at ``shape`` (b, nh, kvh, sq, skv, d) in ``dtype``, q and k drawn
-    at ``qk_scale``, against its plain version in fp32, within ``tol``, and
-    the same bits on a second call; its launch geometry logged. Returns the
-    largest error."""
+    at ``qk_scale`` (the mask ``_attention_inputs`` gives), against its plain
+    version in fp32, within ``tol``, and the same bits on a second call; its
+    launch geometry logged. Returns the largest error."""
     from blurr_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
         grid,
     )
 
-    q, k, v, mask = _attention_inputs(shape, device, qk_scale)
+    q, k, v, mask = _attention_inputs(shape, device, qk_scale, mask)
     qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
     out = flash_attention(qc, kc, vc, mask)
     again = torch.equal(out, flash_attention(qc, kc, vc, mask))
@@ -2408,10 +2444,12 @@ def eval_agent_run(agent, label: str):
 
 
 def eval_agent_blurr(device, log_dir: str):
-    agent = eval_agent_new(device, "eval-agent", log_dir, act_steps=4)
+    agent = eval_agent_new(device, "eval-agent", log_dir, act_steps=4,
+                           record_dataset_dir=os.path.join(log_dir, "recorded_serial"))
     _, rungs, launches = eval_agent_run(agent, "eval-agent")
     if not rungs:
         raise RuntimeError("eval-agent: no resize rung was logged")
+    _check_recorded("eval-agent", agent, agent._step_idx)
     inputs = _first_inputs(agent)
     _agent_step_times("eval-agent", "the agent's control step", lambda: agent._infer(inputs))
     _resize_rungs(agent)
@@ -2488,9 +2526,13 @@ def eval_agent_async(agent) -> dict:
     import warnings
 
     agent.async_pipeline = True
+    agent.record_dir = os.path.join(os.path.dirname(agent.record_dir), "recorded_async")
+    agent._recorded = []
+    fetched = _record_fetches(agent)
     lines, _, launches = eval_agent_run(agent, "eval-agent-async")
     if not any(line.startswith("Async pipeline: residual fetch wait") for line in lines):
         raise RuntimeError("eval-agent-async: no residual-fetch line")
+    _check_recorded("eval-agent-async", agent, len(fetched))
     inputs = _first_inputs(agent)
     agent._fetch(agent._dispatch(inputs))
     torch.cuda.synchronize()
@@ -4921,6 +4963,373 @@ def eval_openloop_vla(data: str, params: str) -> None:
         raise RuntimeError(f"{label}: metrics {metrics}")
 
 
+# ---------------------------------------------------------------------------
+# Pi-0's open-loop eval, the recorded dataset and GPTQ (phases 47-53)
+# ---------------------------------------------------------------------------
+
+OPENLOOP_BATCH = 8
+# (label, config, extra flags, examples, launches per batch)
+OPENLOOP_RUNS = (
+    ("openloop-bf16", "config/eval/bridge.yaml", ["--use-bf16"], 20,
+     {"flash_attention": 17}),
+    ("openloop-pool64-w4a8", "config/eval/bridge_pool64_w4a8_steps1.yaml", ["--use-bf16"], 20,
+     {"flash_attention": 17, "int4_matmul": W4A8_STEP_LAUNCHES}),
+    ("openloop-fp32", "config/eval/bridge.yaml", [], 8, {"flash_attention": 17}),
+)
+OPENLOOP_METRICS = {"examples", "horizon", "act_steps", "mse", "mae", "mse_prefix", "eef_l2",
+                    "gripper_agreement", "per_dim_mse", "config", "checkpoint", "seed"}
+GPTQ_CONFIG = "config/eval/bridge_pool64_w4a8_steps1.yaml"
+GPTQ_LAYERS = (0, 8, 17)  # the layers whose held-out output error is compared
+CLOSED_LOOP_VARIANTS = ("pool64_bf16", "pool64_w4a8", "pool64_w4a8_gptq")
+
+
+class _FlashConfigs:
+    """While entered, every config ``blurr_tpu_torch.benchmarks.load_cfg``
+    loads has ``joint.config.use_flash_attn`` set, as the served phases set
+    it on theirs (the shipped YAMLs leave K1 off)."""
+
+    def __enter__(self):
+        from blurr_tpu_torch import benchmarks
+
+        self.real = real = benchmarks.load_cfg
+
+        def load_cfg(config):
+            cfg = real(config)
+            cfg["joint"]["config"]["use_flash_attn"] = True
+            return cfg
+
+        benchmarks.load_cfg = load_cfg
+        return self
+
+    def __exit__(self, *exc):
+        from blurr_tpu_torch import benchmarks
+
+        benchmarks.load_cfg = self.real
+
+
+def _openloop(label, argv, examples: int, per_batch: dict) -> dict:
+    """scripts/eval_openloop_torch.py in-process with K1 on, the counts set
+    to 0 just before it: the metrics' keys, finite values and example count,
+    and each kernel's launches per batch. Returns the launches."""
+    _zero_counts()
+    t0 = time.monotonic()
+    with _FlashConfigs():
+        metrics = _cli("eval_openloop_torch").main(argv)
+    torch.cuda.synchronize()
+    launches = _counts()
+    batches = -(-examples // OPENLOOP_BATCH)
+    log(f"{label}: eval_openloop_torch.py {' '.join(argv)} in {time.monotonic() - t0:.2f} s: "
+        f"mse {metrics['mse']:.6f} mae {metrics['mae']:.6f} gripper_agreement "
+        f"{metrics['gripper_agreement']:.4f} over {metrics['examples']} examples in {batches} "
+        f"batches of {OPENLOOP_BATCH}; on {card()}")
+    floats = [metrics[k] for k in ("mse", "mae", "mse_prefix", "eef_l2")] + metrics["per_dim_mse"]
+    if (set(metrics) != OPENLOOP_METRICS or metrics["examples"] != examples
+            or not np.isfinite(floats).all()):
+        raise RuntimeError(f"{label}: metrics {metrics}")
+    _check_eval_launches(label, launches, per_batch, batches)
+    return launches
+
+
+def openloop_runs(device) -> list:
+    """Phase 49: the open-loop CLI at full width on synthetic data, bf16
+    (bridge.yaml, 20 examples, the tail batch padded), pool64 w4a8 and fp32
+    (K1 is held at their shapes by ``flash_shapes_vs_plain``)."""
+    runs = []
+    for label, config, extra, examples, per_batch in OPENLOOP_RUNS:
+        argv = ["--config", config, "--checkpoint", "random", "--examples", str(examples),
+                "--batch-size", str(OPENLOOP_BATCH), *extra]
+        runs.append(_openloop(label, argv, examples, per_batch))
+        _free()
+    return runs
+
+
+def flash_shapes_vs_plain(device, seen: dict) -> None:
+    """K1 at every (shape, dtype) the open-loop, recording, GPTQ and
+    closed-loop phases gave it, with the first mask it met there, held
+    against its plain version (bf16 within BF16_TOL, fp32 within
+    FP32_EXACT_TOL), then timed beside SDPA and its bound."""
+    from blurr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+
+    smi = card()
+    log(f"openloop-flash: the phases gave K1 {len(seen)} (shape, dtype) pairs "
+        f"{sorted((shape, str(dtype)[6:]) for shape, dtype in seen)}")
+    for (shape, dtype), mask in sorted(seen.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_EXACT_TOL
+        _hold_flash(shape, dtype, tol, "openloop-flash", device, mask=mask)
+        q, k, v, mask = _attention_inputs(shape, device, mask=mask)
+        qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
+        b, nh, _, sq, skv, d = shape
+        t = _kernel_times(lambda: flash_attention(qc, kc, vc, mask),
+                          lambda: flash_attention_reference(qc, kc, vc, mask),
+                          lambda: torch.nn.functional.scaled_dot_product_attention(
+                              qc, kc, vc, attn_mask=mask[:, None], enable_gqa=True))
+        kind = "bf16" if dtype == torch.bfloat16 else "tf32x3"
+        bound = _bound((qc, kc, vc, mask), (qc,), 4 * b * nh * sq * skv * d, kind)
+        log(f"openloop-flash: time at {shape} {str(dtype)[6:]}: {_fmt_times(t)}; bound "
+            f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}, {kind}); on {smi}")
+    torch.cuda.empty_cache()
+
+
+class _RecordFlashShapes:
+    """While entered, the (b, nh, kvh, sq, skv, d) and dtype of every call
+    Pi-0's joint makes to K1, each with the first mask it came with
+    (``joint.flash_attention`` wrapped; the wrapper under it still counts
+    its launches)."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def __enter__(self):
+        from blurr_tpu_torch.models.pi0 import joint
+
+        self.inner = inner = joint.flash_attention
+
+        def recording(q, k, v, mask=None, **kw):
+            key = ((*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3]), q.dtype)
+            if key not in self.seen:
+                self.seen[key] = mask.clone()
+            return inner(q, k, v, mask, **kw)
+
+        joint.flash_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        from blurr_tpu_torch.models.pi0 import joint
+
+        joint.flash_attention = self.inner
+
+
+def _check_recorded(label, agent, fetched: int) -> None:
+    """The agent's --record-dataset directory: one example per fetched chunk,
+    the four input keys and the actions at their shapes, finite."""
+    from blurr_tpu_torch.data import ShardedDataset
+
+    ds = ShardedDataset(agent.record_dir)
+    s = agent.model.spec
+    size = agent.cfg["vision"]["config"]["image_size"]
+    want = {"input_ids": [s.max_image_text_tokens], "attention_mask": [s.max_image_text_tokens],
+            "pixel_values": [3, size, size], "proprios": [s.num_proprio_tokens, s.proprio_dim],
+            "actions": [s.num_action_tokens, s.action_dim]}
+    shapes = {k: v["shape"] for k, v in ds.keys.items()}
+    actions = ds.gather("actions", np.arange(ds.num_examples))
+    log(f"{label}: --record-dataset wrote {ds.num_examples} examples ({fetched} chunks "
+        f"fetched) to {sorted(p.name for p in Path(agent.record_dir).iterdir())}; keys {shapes}")
+    if ds.num_examples != fetched or shapes != want or not np.isfinite(actions).all():
+        raise RuntimeError(f"{label}: the recorded dataset is wrong: {ds.num_examples} "
+                           f"examples, {shapes}")
+
+
+def _recorded_examples(path: str) -> int:
+    from blurr_tpu_torch.data import ShardedDataset
+
+    return ShardedDataset(path).num_examples
+
+
+def record_then_score(recorded) -> list:
+    """Phase 48: the open-loop CLI scores each directory the eval agent
+    recorded (serial and async) with no transform: bridge.yaml bf16, the
+    agent's random draw, every recorded step an example."""
+    runs = []
+    for label, path, n in recorded:
+        argv = ["--config", "config/eval/bridge.yaml", "--checkpoint", "random", "--data", path,
+                "--examples", "1000", "--batch-size", str(OPENLOOP_BATCH), "--use-bf16"]
+        runs.append(_openloop(label, argv, n, {"flash_attention": 17}))
+        _free()
+    return runs
+
+
+def gptq_run(device) -> dict:
+    """Phase 50: GPTQ of bridge_pool64_w4a8_steps1.yaml at full width: 6
+    fake-env control steps of the fp model as calibration, both mixtures'
+    18 layers quantized (wall time and calibration rows printed); on
+    held-out captures (episode 101) layer_output_mse below the data-free
+    quantize_weight_w4a8's at layers 0, 8 and 17 of each mixture, each
+    layer's output error summed over its 7 linears (each linear's ratio
+    logged); then one served step: K2 370 launches, the same bits twice.
+    Both calibration passes run the naive forward with K1 on: 18 launches
+    a flow step of each observation, checked. JAX's one-layer-at-a-time
+    walk (every weight alone, a Hessian for each) is timed on layer 0 of
+    each mixture beside the batched walk. Returns the launches of the two
+    calibration passes and the served step."""
+    from blurr_tpu_torch.agent.env_adapter import simpler  # noqa: F401
+    from blurr_tpu_torch.config.core import instantiate
+    from blurr_tpu_torch.experiments import quant_closed_loop as qcl
+    from blurr_tpu_torch.models.pi0.calibrate import (
+        WEIGHT_INPUTS,
+        collect_pi0_calibration,
+        gptq_quantize_pi0,
+    )
+    from blurr_tpu_torch.models.pi0.pizero import PiZero
+    from blurr_tpu_torch.ops.gptq import gptq_quantize_weight, hessian_from_inputs, layer_output_mse
+    from blurr_tpu_torch.ops.quant import _QUANT_WEIGHT_KEYS, W4A8Linear, quantize_weight_w4a8
+    from blurr_tpu_torch.presets import load_config
+
+    label = "gptq"
+    cfg = load_config(GPTQ_CONFIG)
+    cfg["joint"]["config"]["use_flash_attn"] = True
+    model = PiZero(cfg, device=device, dtype=torch.bfloat16)
+    model.init_params(torch.Generator(device=device).manual_seed(0)).eval()
+    adapter = instantiate(cfg["env"]["adapter"])
+    batches = qcl._calib_batches(model, adapter, cfg, device)
+    held_out = qcl._calib_batches(model, adapter, cfg, device, episode_id=101)
+    n_layers = len(model.joint["vlm"].layers)
+    flow_steps = int(cfg["num_inference_steps"])
+    _zero_counts()
+    caps = collect_pi0_calibration(model, held_out, num_flow_steps=1)
+    torch.cuda.synchronize()
+    runs = [_check_calibration_launches(label, "held-out", _counts(), n_layers, len(held_out))]
+    fp = {(n, i, key): getattr(model.joint[n].layers[i], attr).weight.detach().t().clone()
+          for n in ("vlm", "action") for i in GPTQ_LAYERS
+          for key, attr in _QUANT_WEIGHT_KEYS.items()}
+    fp_keys = list(fp)
+    s = model.spec
+    rows = {"vlm": sum(b["input_ids"].numel() for b in batches),
+            "action": len(batches) * (s.num_action_tokens + s.num_proprio_tokens)}
+    torch.cuda.synchronize()
+    timed = _TimedCalibration()
+    _zero_counts()
+    t0 = time.monotonic()
+    with timed:
+        gptq_quantize_pi0(model, batches, num_flow_steps=flow_steps)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    runs.append(_check_calibration_launches(label, "calibration", _counts(), n_layers,
+                                            len(batches) * flow_steps))
+    log(f"{label}: {Path(GPTQ_CONFIG).name} GPTQ of both mixtures' {n_layers} layers in "
+        f"{secs:.2f} s (wall; the calibration {timed.secs:.2f} s, the batched walk "
+        f"{secs - timed.secs:.2f} s) over {len(batches)} control steps: {rows['vlm']} vlm "
+        f"rows (the padded ones zeroed), {rows['action']} action rows (action and proprio "
+        f"tokens); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card()}")
+    # JAX's walk: a layer at a time, each weight alone with its own Hessian
+    one_layer = {}
+    for n in ("vlm", "action"):
+        gs = model.vlm_w4a8_group_size if n == "vlm" else model.action_w4a8_group_size
+        int8_keys = model.vlm_w4a8_int8_keys if n == "vlm" else model.action_w4a8_int8_keys
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for key in _QUANT_WEIGHT_KEYS:
+            if key not in int8_keys:
+                h = hessian_from_inputs(timed.calib[n][WEIGHT_INPUTS[key]][0].to(device))
+                gptq_quantize_weight(fp[(n, 0, key)], h, gs)
+        torch.cuda.synchronize()
+        one_layer[n] = time.monotonic() - t0
+    log(f"{label}: JAX's one-layer-at-a-time walk on layer 0 (each weight alone, a Hessian "
+        f"for each): vlm {one_layer['vlm']:.3f} s, action {one_layer['action']:.3f} s, so "
+        f"{n_layers * sum(one_layer.values()):.1f} s for both mixtures' {n_layers} layers of "
+        f"one shape, against the batched walk's {secs - timed.secs:.2f} s; on {card()}")
+    del timed
+    sums, linears_below = {}, 0
+    for (n, i, key), w in fp.items():
+        mod = getattr(model.joint[n].layers[i], _QUANT_WEIGHT_KEYS[key])
+        x = caps[n][WEIGHT_INPUTS[key]][i].to(device)
+        e_gptq = float(layer_output_mse(x, w, {"q4": mod.q4, "s": mod.s}))
+        e_rtn = float(layer_output_mse(x, w, quantize_weight_w4a8(w, w.shape[0] // mod.s.shape[0])))
+        log(f"{label}: held-out layer_output_mse {n} layer {i} {key}: GPTQ {e_gptq:.6g}, "
+            f"data-free {e_rtn:.6g} ({e_gptq / e_rtn:.3f}x)")
+        total = sums.setdefault((n, i), [0.0, 0.0])
+        total[0] += e_gptq
+        total[1] += e_rtn
+        linears_below += e_gptq < e_rtn
+    del fp, caps
+    for (n, i), (e_gptq, e_rtn) in sums.items():
+        log(f"{label}: held-out output error of {n} layer {i}, its 7 linears summed: GPTQ "
+            f"{e_gptq:.6g}, data-free {e_rtn:.6g} ({e_gptq / e_rtn:.3f}x)")
+    log(f"{label}: GPTQ below the data-free rounding at {linears_below} of {len(fp_keys)} "
+        f"linears and {sum(g < r for g, r in sums.values())} of {len(sums)} layers")
+    if not all(g < r for g, r in sums.values()):
+        raise RuntimeError(f"{label}: GPTQ's held-out layer error is not below the data-free "
+                           f"rounding's: {sums}")
+    per_step = launches_per_step(model, W4A8Linear)
+    b = batches[0]
+    noise = torch.randn(1, s.num_action_tokens, s.action_dim, device=device,
+                        generator=torch.Generator(device=device).manual_seed(1)).bfloat16()
+    args = (b["input_ids"], b["attention_mask"], b["pixel_values"], b["proprios"], noise)
+    _zero_counts()
+    first = model.infer_action(*args)
+    torch.cuda.synchronize()
+    launches = _counts()
+    runs.append(launches)
+    again = model.infer_action(*args)
+    log(f"{label}: the GPTQ model served a step: {launches['int4_matmul']} int4 launches "
+        f"({per_step} w4a8 linears), {launches['flash_attention']} flash launches, the same "
+        f"bits on a second step {torch.equal(first, again)}, finite "
+        f"{bool(torch.isfinite(first).all())}")
+    if not (launches["int4_matmul"] == per_step == W4A8_STEP_LAUNCHES
+            and launches["flash_attention"] == 17 and torch.equal(first, again)
+            and torch.isfinite(first).all()):
+        raise RuntimeError(f"{label}: the served step is wrong: {launches}")
+    del model
+    _free()
+    return {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
+
+
+def _check_calibration_launches(label, what, launches: dict, n_layers: int,
+                                forwards: int) -> dict:
+    """A calibration pass's counts: K1 once a layer in each of its naive
+    forwards (one an observation and flow step), no other kernel (the
+    mixtures are still fp)."""
+    want = {name: 0 for name in KERNEL_NAMES}
+    want["flash_attention"] = n_layers * forwards
+    log(f"{label}: the {what} pass launched {launches} ({n_layers} layers x {forwards} "
+        f"naive forwards of K1 wanted)")
+    if launches != want:
+        raise RuntimeError(f"{label}: the {what} pass launched {launches}, not {want}")
+    return launches
+
+
+class _TimedCalibration:
+    """While entered, ``calibrate.collect_pi0_calibration``'s wall time
+    (``secs``, summed) and its last result (``calib``), as
+    ``gptq_quantize_pi0`` calls it."""
+
+    def __init__(self):
+        self.secs, self.calib = 0.0, None
+
+    def __enter__(self):
+        from blurr_tpu_torch.models.pi0 import calibrate
+
+        self.inner = inner = calibrate.collect_pi0_calibration
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            self.calib = inner(*args, **kw)
+            torch.cuda.synchronize()
+            self.secs += time.monotonic() - t0
+            return self.calib
+
+        calibrate.collect_pi0_calibration = timed
+        return self
+
+    def __exit__(self, *exc):
+        from blurr_tpu_torch.models.pi0 import calibrate
+
+        calibrate.collect_pi0_calibration = self.inner
+
+
+def closed_loop() -> dict:
+    """Phase 51: experiments/quant_closed_loop's pool64 variants as a user
+    runs them (in-process): bf16, w4a8 and w4a8 GPTQ, 2 episodes each, the
+    report lines against the bf16 control."""
+    from blurr_tpu_torch.experiments import quant_closed_loop as qcl
+
+    _zero_counts()
+    t0 = time.monotonic()
+    out = qcl.main(list(CLOSED_LOOP_VARIANTS))
+    torch.cuda.synchronize()
+    launches = _counts()
+    steps = {tag: len(out[tag][0]) for tag in CLOSED_LOOP_VARIANTS}
+    log(f"closed-loop: {list(CLOSED_LOOP_VARIANTS)} in {time.monotonic() - t0:.1f} s, env "
+        f"steps {steps}, kernel launches {launches}; on {card()}")
+    for line in out["report"]:
+        log(f"closed-loop: {line}")
+    if len(out["report"]) != 2 or len(set(steps.values())) != 1 or not all(
+            np.isfinite(out[tag][1]).all() for tag in CLOSED_LOOP_VARIANTS):
+        raise RuntimeError(f"closed-loop: {out['report']}")
+    _free()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -4968,6 +5377,11 @@ def main() -> int:
         _free()
         eval_w4a8_launches = eval_agent_w4a8(device, tmp)
         _free()
+        with _RecordInt4Shapes() as openloop_shapes, _RecordFlashShapes() as scored_flash:
+            scored_launches = record_then_score(
+                [(f"record-then-score-{kind}", os.path.join(tmp, f"recorded_{kind}"),
+                  _recorded_examples(os.path.join(tmp, f"recorded_{kind}")))
+                 for kind in ("serial", "async")])
     eval_cli()
     small_agent_launches = small_agent_vs_cpu(device)
     _free()
@@ -5007,13 +5421,25 @@ def main() -> int:
         peft_launches = peft_roundtrip(device, tmp)
         eval_openloop_vla(data, params)
         log(f"openvla-training: the phases took {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    with _RecordInt4Shapes() as gptq_shapes, _RecordFlashShapes() as gptq_flash:
+        openloop_launches = openloop_runs(device)
+        gptq_launches = gptq_run(device)
+        closed_loop_launches = closed_loop()
+    flash_shapes_vs_plain(device, {**scored_flash.seen, **gptq_flash.seen})
+    served_int4_vs_plain(device, openloop_shapes.seen | gptq_shapes.seen, set(),
+                         label="openloop-int4-shapes",
+                         what="the open-loop, GPTQ and closed-loop phases", by="an earlier phase",
+                         exact=True)
+    log(f"openloop-gptq: the phases took {time.monotonic() - t0:.1f} s")
     runs = (launches, checkpoint_launches, batched_launches, backpressure_launches,
             baseline_launches, w4a8_launches, batched_w4a8_launches, int8_launches,
             cached_launches, experiment_launches, eval_launches, frame_launches,
             async_launches, eval_batched_launches, eval_w4a8_launches, small_agent_launches,
             text_pi0_launches, text_paligemma_launches, small_text_launches, *openvla_runs,
             train_launches, resume_launches, train_serve_launches, full_launches,
-            vla_launches, vla_resume_launches, vla_serve_launches, oft_launches, peft_launches)
+            vla_launches, vla_resume_launches, vla_serve_launches, oft_launches, peft_launches,
+            *scored_launches, *openloop_launches, gptq_launches, closed_loop_launches)
     total = {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
     measured = {"flash_attention": flash, "int4_matmul": int4, "int8_matmul": int8,
                 **experiments}

@@ -16,8 +16,8 @@ named fake_*) the agent steps the fake env. --checkpoint random draws
 random weights on the device; a path loads a reference .pt checkpoint.
 --batch-envs N steps N envs in lockstep with one batched control step.
 use_torch_compile (the blurr preset sets it) is read and has no effect.
---record-dataset is not ported (it needs the dataset writer of ROADMAP
-M13) and exits non-zero.
+--record-dataset DIR writes every control step's model-ready inputs and
+predicted chunk as a sharded dataset (serial agent only).
 
 Preset semantics:
     baseline / vanilla   fp32, NO prefix KV cache, 10 flow steps
@@ -101,8 +101,10 @@ def parse_args(argv=None) -> argparse.Namespace:
              "(actions land act_steps-1 env steps stale; needs act_steps>=2).")
     parser.add_argument(
         "--record-dataset", type=str, default="",
-        help="Not ported: recording a dataset needs the dataset writer of "
-             "ROADMAP M13; the run exits non-zero.")
+        help="Record every (model-ready inputs, predicted chunk) pair of "
+             "the run into a sharded dataset at this dir: trains with "
+             "train_pi0_flow_torch.py --data and scores with "
+             "eval_openloop_torch.py.")
     parser.add_argument(
         "--batch-envs", type=int, default=1,
         help="Step N environments in lockstep with one batched control step "
@@ -113,10 +115,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.record_dataset:
-        sys.exit("--record-dataset is not ported to blurr_tpu_torch: it needs the "
-                 "sharded dataset writer of blurr_tpu.data (ROADMAP Queue 1, M13). "
-                 "Record with scripts/eval_pi0_simpler.py.")
 
     from blurr_tpu_torch.presets import apply_preset, load_config
 
@@ -144,6 +142,8 @@ def main(argv=None) -> None:
         cfg["act_steps"] = args.act_steps
     if args.async_pipeline:
         cfg["async_pipeline"] = True
+    if args.record_dataset:
+        cfg["record_dataset_dir"] = str(Path(args.record_dataset).expanduser())
 
     log_dir = (
         Path(args.log_dir).expanduser()
@@ -156,6 +156,9 @@ def main(argv=None) -> None:
     device = f"cuda:{args.gpu_id}" if args.device == "cuda" else args.device
 
     if args.batch_envs > 1:
+        if args.record_dataset:
+            sys.exit("--record-dataset is a serial-agent feature; drop "
+                     "--batch-envs or record with batch-envs 1.")
         from blurr_tpu_torch.agent.batched_eval import BatchedEvalAgent
 
         cfg["batch_envs"] = args.batch_envs

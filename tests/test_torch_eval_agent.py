@@ -305,22 +305,79 @@ def test_cli_runs_on_the_cpu_and_the_collector_parses_it(tmp_path):
 
 def test_cli_defaults_and_record_dataset(tmp_path, monkeypatch):
     """The JAX CLI's flags and defaults, plus --device (default cuda);
-    --record-dataset exits non-zero naming ROADMAP's M13."""
+    --record-dataset reaches the agent's config as JAX's CLI sets it, and
+    with --batch-envs > 1 exits with JAX's message."""
     sys.path.insert(0, str(repo_root() / "scripts"))
     try:
         import eval_pi0_simpler
         import eval_pi0_simpler_torch
     finally:
         sys.path.remove(str(repo_root() / "scripts"))
+    from blurr_tpu_torch.agent import eval_agent
+
     argv = ["--task", "t", "--checkpoint", "random"]
     mine = vars(eval_pi0_simpler_torch.parse_args(argv))
     monkeypatch.setattr(sys, "argv", ["eval_pi0_simpler.py", *argv])
     theirs = vars(eval_pi0_simpler.parse_args())
     assert mine.pop("device") == "cuda"
     assert mine == theirs
-    with pytest.raises(SystemExit) as exit_:
-        eval_pi0_simpler_torch.main(["--task", "t", "--checkpoint", "random",
-                                     "--record-dataset", str(tmp_path / "d"),
-                                     "--log-dir", str(tmp_path / "log")])
-    assert exit_.value.code != 0 and "M13" in str(exit_.value.code)
+    seen = []
+
+    class Agent:
+        def __init__(self, cfg, device=None):
+            seen.append((cfg, device))
+
+        def run(self):
+            return 0.0
+
+    monkeypatch.setattr(eval_agent, "EvalAgent", Agent)
+    record = ["--record-dataset", str(tmp_path / "d"), "--log-dir", str(tmp_path / "log")]
+    eval_pi0_simpler_torch.main([*argv, *record, "--device", "cpu"])
+    assert seen[0][0]["record_dataset_dir"] == str(tmp_path / "d") and seen[0][1] == "cpu"
+    exits = []
+    for cli, args in ((eval_pi0_simpler_torch.main, [*argv, *record, "--batch-envs", "2"]),
+                      (eval_pi0_simpler.main, None)):
+        monkeypatch.setattr(sys, "argv", ["eval_pi0_simpler.py", *argv, *record,
+                                          "--batch-envs", "2"])
+        with pytest.raises(SystemExit) as exit_:
+            cli(args) if args else cli()
+        exits.append(str(exit_.value.code))
+    assert exits[0] == exits[1] and "serial-agent feature" in exits[0]
     assert not (tmp_path / "d").exists()
+
+
+@pytest.mark.parametrize("mode", ["serial", "async"])
+def test_record_dataset_matches_jax(tmp_path, mode):
+    """--record-dataset on the fake env: the port writes the shard files of
+    JAX's agent, the four input keys byte for byte, the actions within
+    CHUNK_TOL; one example per fetched chunk (the async prefetch records the
+    inputs its chunk was dispatched from; a chunk dispatched as the episode
+    ends is never fetched, and not recorded). The env is action-coupled, so
+    the port's env steps JAX's chunks: the port's own, ~1e-6 away, would
+    move the later observations by an ulp."""
+    from blurr_tpu.agent.eval_agent import EvalAgent as JEvalAgent
+    from blurr_tpu_torch.agent.eval_agent import EvalAgent
+    from blurr_tpu_torch.data import ShardedDataset
+
+    extra = dict(act_steps=2, async_pipeline=True, n_eval_episode=1) if mode == "async" else {}
+    j_cfg, t_cfg = _agent_cfgs(tmp_path, **extra)
+    j_cfg["record_dataset_dir"] = str(tmp_path / "jax_rec")
+    t_cfg["record_dataset_dir"] = str(tmp_path / "port_rec")
+    theirs = JEvalAgent(j_cfg)
+    mine = EvalAgent(t_cfg, device="cpu")
+    _carry_weights(mine, theirs)
+    fetched, want_chunks = _record(mine, "_fetch"), _record(theirs, "_fetch")
+    theirs.run()
+    chunks = iter(want_chunks)
+    postprocess = mine.env_adapter.postprocess
+    mine.env_adapter.postprocess = lambda actions: postprocess(next(chunks))
+    mine.run()
+    files = lambda d: sorted(p.name for p in (tmp_path / d).iterdir())
+    assert files("port_rec") == files("jax_rec")
+    got, want = ShardedDataset(tmp_path / "port_rec"), ShardedDataset(tmp_path / "jax_rec")
+    assert got.keys == want.keys and got.num_examples == want.num_examples == len(fetched)
+    idx = np.arange(want.num_examples)
+    a, b = got.gather_batch(idx), want.gather_batch(idx)
+    for key in ("input_ids", "attention_mask", "pixel_values", "proprios"):
+        assert a[key].dtype == b[key].dtype and a[key].tobytes() == b[key].tobytes(), key
+    np.testing.assert_allclose(a["actions"], b["actions"], rtol=0, atol=CHUNK_TOL)

@@ -18,12 +18,13 @@ driven through the port's client, an HF snapshot written and served, and
 on tiny random models, the streaming quantizer, the checkpoint checker on a
 ``.pt`` it writes, ``ModuleSpec`` and the action-accuracy metric. Then a
 static check: no ``.py`` file of the port, nor ``chip_smoke.py`` or the
-port's fourteen scripts, has an import whose top-level module is ``jax`` or
+port's fifteen scripts, has an import whose top-level module is ``jax`` or
 ``blurr_tpu``. A second subprocess runs a QLoRA training step and a LoRA
 run's export the same way, then the OpenVLA trainer (QLoRA w4a8 AR from a
 sharded dataset written by ``models/openvla/data.py``, its PEFT adapter
 merged back into a snapshot, and OFT), its --save-params tree served and
-scored by the open-loop evaluator.
+scored by the open-loop evaluator; then Pi-0's open-loop evaluator on a
+sharded dataset, and GPTQ calibrated on its examples.
 """
 
 import ast
@@ -311,6 +312,25 @@ TRAIN_SCRIPT = textwrap.dedent(
         train_openvla_lora_torch.main([
             "--device", "cpu", "--steps", "1", "--lora-rank", "2", "--oft", "--use-proprio",
             "--save-adapter", tmp + "/o/lora_adapter"])
+        # Pi-0's open-loop evaluator over a sharded dataset, and GPTQ
+        # calibrated on its examples
+        import numpy as np
+        import torch
+        import eval_openloop_torch
+        from blurr_tpu_torch.benchmarks import load_cfg, load_model
+        from blurr_tpu_torch.data import ShardedDataset, write_dataset
+        from blurr_tpu_torch.experiments import quant_closed_loop  # noqa: F401
+        from blurr_tpu_torch.models.pi0.calibrate import gptq_quantize_pi0
+
+        cfg = load_cfg("config/eval/bridge_tiny.yaml")
+        write_dataset(tmp + "/rec", eval_openloop_torch._synthetic_examples(cfg, 3, 0))
+        metrics = eval_openloop_torch.main([
+            "--device", "cpu", "--config", "config/eval/bridge_tiny.yaml", "--checkpoint",
+            "random", "--batch-size", "2", "--data", tmp + "/rec"])
+        assert metrics["examples"] == 3
+        model = load_model(cfg, "random", torch.float32, "cpu")
+        gptq_quantize_pi0(model, [ShardedDataset(tmp + "/rec").gather_batch(np.arange(2))],
+                          num_flow_steps=1)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "blurr_tpu"))
     assert all(sys.modules[m] is None for m in loaded), loaded
     print("NO_JAX_TRAIN_OK")
@@ -320,9 +340,9 @@ TRAIN_SCRIPT = textwrap.dedent(
 
 def test_training_runs_without_jax_or_blurr_tpu():
     """One bridge_tiny QLoRA w4a8 training step (its --save-dir and
-    --save-state), a LoRA run exported to a .pt, and the OpenVLA trainer's
-    runs and files (the module docstring), with ``jax`` and ``blurr_tpu``
-    unimportable."""
+    --save-state), a LoRA run exported to a .pt, the OpenVLA trainer's runs
+    and files, and Pi-0's open-loop evaluation and GPTQ (the module
+    docstring), with ``jax`` and ``blurr_tpu`` unimportable."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("BLURR_PLATFORM", "BLURR_COMPILE_CACHE")}
     proc = subprocess.run(
@@ -357,7 +377,8 @@ PORT_FILES = sorted((REPO_ROOT / "blurr_tpu_torch").rglob("*.py")) + [
     REPO_ROOT / "scripts" / "time_quant_linear_torch.py",
     REPO_ROOT / "scripts" / "ablate_flash_fp32_torch.py",
     REPO_ROOT / "scripts" / "train_openvla_lora_torch.py",
-    REPO_ROOT / "scripts" / "eval_openloop_vla_torch.py"]
+    REPO_ROOT / "scripts" / "eval_openloop_vla_torch.py",
+    REPO_ROOT / "scripts" / "eval_openloop_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO_ROOT)))

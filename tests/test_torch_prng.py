@@ -183,3 +183,22 @@ def test_batched_eval_noise_is_jax_noise(tmp_path):
                           .astype(jnp.float32))
         assert noise.dtype == torch.bfloat16 and noise.shape == shape
         _assert_normal_matches(noise, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("seed,idx", KEYS)
+@pytest.mark.parametrize("num", [1, 2, 3, 8])
+def test_split_is_jax_split(seed, idx, num):
+    """``split`` bit-equal to ``jax.random.split``; a chain of splits (the
+    calibration's and the closed-loop experiment's noise) too."""
+    got = prng.split(_key(seed, idx), num)
+    want = np.asarray(jax.random.key_data(jax.random.split(_jax_key(seed, idx), num)))
+    np.testing.assert_array_equal(got, want)
+    mine, theirs = prng.prng_key(seed), jax.random.PRNGKey(seed)
+    for _ in range(3):
+        mine, sub = prng.split(mine)
+        theirs, jsub = jax.random.split(theirs)
+        np.testing.assert_array_equal(sub, np.asarray(jax.random.key_data(jsub)))
+    np.testing.assert_array_equal(mine, np.asarray(jax.random.key_data(theirs)))
+    _assert_normal_matches(prng.normal(sub, (1, 4, 7), torch.bfloat16),
+                           np.asarray(jax.random.normal(jsub, (1, 4, 7), jnp.bfloat16),
+                                      np.float32), torch.bfloat16)
