@@ -46,6 +46,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from blurr_tpu_torch.ops.activations import silu
+from blurr_tpu_torch.ops.embeddings import embedding, table_logits
 from blurr_tpu_torch.ops.attention import grouped_attention, merge_heads, split_heads
 from blurr_tpu_torch.ops.int4_matmul import pick_block_layout, pick_group_size
 from blurr_tpu_torch.ops.quant import (
@@ -139,13 +140,15 @@ class LlamaLayer(nn.Module):
         into them at ``offset`` in place and attention reads the buffers;
         without (training), it reads this layer's own K and V."""
         s = self.spec
+        hd = s.head_dim
         x = llama_rms_norm(h, self.input_norm, s.eps)
         qh, kh, vh = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         if s.qkv_bias:
             qh, kh, vh = qh + self.q_b, kh + self.k_b, vh + self.v_b
-        q = apply_rope(split_heads(qh, s.num_heads, s.head_dim), cos, sin)
-        k = apply_rope(split_heads(kh, s.num_kv_heads, s.head_dim), cos, sin)
-        v = split_heads(vh, s.num_kv_heads, s.head_dim)
+        # the head counts from the widths: this rank's heads under TP
+        q = apply_rope(split_heads(qh, qh.shape[-1] // hd, hd), cos, sin)
+        k = apply_rope(split_heads(kh, kh.shape[-1] // hd, hd), cos, sin)
+        v = split_heads(vh, kh.shape[-1] // hd, hd)
         if k_buf is not None:
             n = h.shape[1]
             k_buf[:, :, offset:offset + n] = k
@@ -245,14 +248,24 @@ class Llama(nn.Module):
         hf = self.final_hidden(h)
         if self.lm_head is not None:
             return self.lm_head(hf)
-        return hf @ self.embed_tokens.t().to(hf.dtype)  # tied (Qwen2-0.5B)
+        return table_logits(hf, self.embed_tokens)  # tied (Qwen2-0.5B)
 
     def embed(self, tokens: torch.Tensor, dtype) -> torch.Tensor:
-        return F.embedding(tokens, self.embed_tokens).to(dtype)
+        return embedding(tokens, self.embed_tokens).to(dtype)
+
+    @property
+    def kv_heads(self) -> int:
+        """The KV heads this model holds: ``num_kv_heads``, or this rank's
+        share of them under tensor parallelism."""
+        return self.layers[0].k_proj.out_features // self.spec.head_dim
 
 
-def alloc_cache(spec: LlamaSpec, batch: int, max_len: int, dtype, device) -> Cache:
-    shape = (spec.num_layers, batch, spec.num_kv_heads, max_len, spec.head_dim)
+def alloc_cache(spec: LlamaSpec, batch: int, max_len: int, dtype, device,
+                kv_heads: Optional[int] = None) -> Cache:
+    """A zeroed (k, v) pair of [L, B, KVH, max_len, D]; ``kv_heads`` (a
+    rank's share under TP) defaults to the spec's."""
+    kvh = spec.num_kv_heads if kv_heads is None else kv_heads
+    shape = (spec.num_layers, batch, kvh, max_len, spec.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -340,7 +353,7 @@ def _prefill(llama: Llama, embeds, attn_valid, max_len: int):
     token's logits [B, V])."""
     b, s, _ = embeds.shape
     dev = embeds.device
-    cache = alloc_cache(llama.spec, b, max_len, embeds.dtype, dev)
+    cache = alloc_cache(llama.spec, b, max_len, embeds.dtype, dev, llama.kv_heads)
     pos = torch.arange(s, device=dev)[None].expand(b, s)
     h, cache = llama(embeds, pos, causal_prefill_mask(attn_valid, max_len), cache, 0)
     n_valid = attn_valid.long().sum(-1)

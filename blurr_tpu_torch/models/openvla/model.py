@@ -43,6 +43,7 @@ from blurr_tpu_torch.models.openvla import llama as llama_lib
 from blurr_tpu_torch.models.openvla.llama import Llama, LlamaSpec, materialize
 from blurr_tpu_torch.models.openvla.processing import EMPTY_TOKEN
 from blurr_tpu_torch.models.openvla.vit import ViT, ViTSpec
+from blurr_tpu_torch.ops.embeddings import embedding
 from blurr_tpu_torch.ops.norms import layer_norm
 
 DINOV2_L = ViTSpec(
@@ -194,11 +195,11 @@ class OpenVLA(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.llama.embed_tokens.device
+        return self.llama.final_norm.device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.llama.embed_tokens.dtype
+        return self.llama.final_norm.dtype
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "OpenVLA":
@@ -228,7 +229,7 @@ class OpenVLA(nn.Module):
 
     def _build_prompt_embeds(self, input_ids, pixel_values) -> torch.Tensor:
         """[BOS] + patches + the prompt's other tokens -> [B, 1 + P + S - 1, H]."""
-        tok = F.embedding(input_ids, self.llama.embed_tokens)
+        tok = embedding(input_ids, self.llama.embed_tokens)
         patches = self._vision_features(pixel_values).to(tok.dtype)
         return torch.cat([tok[:, :1], patches, tok[:, 1:]], dim=1)
 
@@ -445,7 +446,8 @@ class OpenVLAOFT(OpenVLA):
             tail.append(pe[:, None, :])
         n_tok = self.chunk_len * s.action_dim
         # the trailing empty token and the placeholders, all its embedding
-        tail.append(self.llama.embed_tokens[EMPTY_TOKEN].to(embeds.dtype)
+        empty = torch.full((1, 1), EMPTY_TOKEN, dtype=torch.long, device=dev)
+        tail.append(embedding(empty, self.llama.embed_tokens).to(embeds.dtype)
                     .expand(b, 1 + n_tok, h))
         embeds = torch.cat([embeds, *tail], dim=1)
         total = embeds.shape[1]
@@ -459,7 +461,8 @@ class OpenVLAOFT(OpenVLA):
             torch.cat([v_prefix, torch.ones(b, n_tail, dtype=torch.long, device=dev)], 1), total)
         act = torch.arange(total, device=dev) >= total - n_tok
         mask = mask | (act[None, :, None] & act[None, None, :])
-        cache = None if train else llama_lib.alloc_cache(s.llama, b, total, embeds.dtype, dev)
+        cache = None if train else llama_lib.alloc_cache(
+            s.llama, b, total, embeds.dtype, dev, self.llama.kv_heads)
         hid, _ = self.llama(embeds, pos, mask, cache, 0, remat=remat)
         hid = self.llama.final_hidden(hid)
         out = self.action_head(hid[:, -n_tok:].reshape(b, -1))

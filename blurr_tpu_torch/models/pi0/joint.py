@@ -195,16 +195,18 @@ class MixtureLayer(nn.Module):
     def qkv(self, h, cos, sin, joint: JointSpec, clip: Optional[float] = None,
             time_cond=None, capture: Optional[dict] = None):
         """Norm, project and rope: q [B,NH,S,D], k [B,KVH,S,D] (roped), v.
+        The head counts are read from the projections' widths, not from the
+        spec: under tensor parallelism ``q_proj`` gives this rank's NH/tp
+        heads (``parallel/tensor_parallel.py``) over the whole KV head.
         A ``capture`` dict receives the projections' input as "attn_in"."""
-        nh, kvh, hd = (
-            joint.num_attention_heads, joint.num_key_value_heads, joint.head_dim
-        )
+        hd = joint.head_dim
         x = apply_norm(self.input_norm, h, time_cond, joint.rms_norm_eps)
         if capture is not None:
             capture["attn_in"] = x  # q, k and v share it
-        q = apply_rope(split_heads(linear(self.q_proj, x, clip), nh, hd), cos, sin)
-        k = apply_rope(split_heads(linear(self.k_proj, x, clip), kvh, hd), cos, sin)
-        v = split_heads(linear(self.v_proj, x, clip), kvh, hd)
+        qh, kh = linear(self.q_proj, x, clip), linear(self.k_proj, x, clip)
+        q = apply_rope(split_heads(qh, qh.shape[-1] // hd, hd), cos, sin)
+        k = apply_rope(split_heads(kh, kh.shape[-1] // hd, hd), cos, sin)
+        v = split_heads(linear(self.v_proj, x, clip), kh.shape[-1] // hd, hd)
         return q, k, v
 
     def finish(self, h, attn, eps: float, clip: Optional[float] = None,

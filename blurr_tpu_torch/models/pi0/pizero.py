@@ -52,7 +52,7 @@ from blurr_tpu_torch.models.pi0.processing import IMAGENET_STANDARD_MEAN, IMAGEN
 from blurr_tpu_torch.models.pi0.siglip import SiglipVisionModel, projector
 from blurr_tpu_torch.ops import masks as mask_lib
 from blurr_tpu_torch.ops.activations import silu
-from blurr_tpu_torch.ops.embeddings import sinusoidal_pos_emb
+from blurr_tpu_torch.ops.embeddings import embedding, sinusoidal_pos_emb
 from blurr_tpu_torch.ops.quant import (
     linear,
     quantize_dense_int8,
@@ -173,7 +173,7 @@ def merge_embeds(embed_tokens, feats, input_ids, image_token_index: int,
     features ``feats`` [B, N, H], divided by sqrt(``hidden``), written at
     the image-token slots (always the first N positions of the prompt);
     pad tokens embed as 0."""
-    text_embeds = F.embedding(input_ids, embed_tokens)
+    text_embeds = embedding(input_ids, embed_tokens)
     # scalars are filled on the device (torch.full), never copied from
     # the host: such a copy waits for the stream, and the agent's async
     # pipeline relies on a step that never waits

@@ -42,7 +42,7 @@ class SiglipEncoderLayer(nn.Module):
     def __init__(self, cfg: Dict, *, device, dtype):
         super().__init__()
         d, inter = cfg["hidden_size"], cfg["intermediate_size"]
-        self.num_heads = cfg["num_attention_heads"]
+        self.head_dim = d // cfg["num_attention_heads"]
         self.eps = float(cfg.get("layer_norm_eps", 1e-6))
         kw = dict(device=device, dtype=dtype)
         self.layer_norm1 = nn.LayerNorm(d, eps=self.eps, **kw)
@@ -55,12 +55,13 @@ class SiglipEncoderLayer(nn.Module):
         self.fc2 = nn.Linear(inter, d, **kw)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        b, s, d = h.shape
-        hd = d // self.num_heads
+        """The heads are read from the projections' width: under tensor
+        parallelism q, k and v give this rank's heads."""
+        b, s, _ = h.shape
+        hd = self.head_dim
         x = layer_norm(h, self.layer_norm1.weight, self.layer_norm1.bias, self.eps)
-        q = self.q_proj(x).view(b, s, self.num_heads, hd)
-        k = self.k_proj(x).view(b, s, self.num_heads, hd)
-        v = self.v_proj(x).view(b, s, self.num_heads, hd)
+        q, k, v = (proj(x) for proj in (self.q_proj, self.k_proj, self.v_proj))
+        q, k, v = (t.view(b, s, t.shape[-1] // hd, hd) for t in (q, k, v))
         h = h + self.out_proj(mha_flat(q, k, v))
         x = layer_norm(h, self.layer_norm2.weight, self.layer_norm2.bias, self.eps)
         return h + self.fc2(gelu_tanh(self.fc1(x)))

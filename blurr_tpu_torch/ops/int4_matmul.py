@@ -17,7 +17,9 @@ version ``int4_matmul_reference`` agree bit for bit.
 The layout helpers (``pick_block_layout``, ``pack_int4``, ``to_block_major``,
 ``pick_group_size``, ``unpack_int4_reference``, ``from_block_major``) keep the
 JAX package's byte layout, so a JAX-quantized weight copies over as it is.
-The tensor-parallel rule (``int4_matmul_spmd``) is not ported yet.
+The tensor-parallel rule (JAX ``int4_matmul_spmd``: each rank runs the
+kernel on its contiguous column blocks) is
+``parallel/tensor_parallel.py:W4A8Blocks``.
 
 The kernel runs int8 tensor cores on the nibbles unpacked in registers and
 splits K into S slices, one block each, whose exact int32 partial dots meet

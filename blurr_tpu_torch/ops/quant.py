@@ -10,7 +10,9 @@ quantizers. Weights keep the JAX package's layouts and names:
 ``{"q": int8 [K, N], "s": fp32 [N]}`` for int8 weight-only, ``{"fp": bf16
 [K, N]}`` for cached-fp, ``{"q8a": int8 [K, N], "s": fp32 [N]}`` for w8a8 and
 ``{"q4": int8 [NB, K//2, BN] block-major packed int4, "s": fp32 [G, N]}`` for
-w4a8, so a quantized JAX tree copies over byte for byte.
+w4a8, so a quantized JAX tree copies over byte for byte. ``repack_w4a8`` /
+``repack_w4a8_tree`` re-lay the w4a8 packing for tensor parallelism, as
+JAX's do.
 
 In torch idiom a quantized weight is a module: ``Int8Linear``,
 ``CachedFpLinear``, ``W8A8Linear`` and ``W4A8Linear`` hold those tensors as
@@ -118,8 +120,8 @@ def quantize_weight_w4a8(w: torch.Tensor, group_size: int = 512,
     ``mse_scale`` searches ``_W4A8_CLIP_GRID`` for each cell and keeps the
     clip whose reconstruction error is least (a later clip wins only when it
     is strictly better). N is zero-padded to NB*BN in ``q4``; ``s`` keeps the
-    exact N. (The JAX function's ``shards`` packing for tensor parallelism
-    is not ported yet.)"""
+    exact N. JAX's ``shards`` packing for tensor parallelism is this
+    packing re-laid by ``repack_w4a8``."""
     if w.dim() != 2 or w.shape[0] % 2:
         raise ValueError(f"w4a8 takes a 2-D weight with an even K, got {tuple(w.shape)}")
     k, n = w.shape
@@ -143,6 +145,42 @@ def quantize_weight_w4a8(w: torch.Tensor, group_size: int = 512,
     if n_pad != n:
         q = F.pad(q, (0, n_pad - n))
     return {"q4": to_block_major(pack_int4(q), bn), "s": scale.contiguous()}
+
+
+def repack_w4a8(w: dict, shards: int) -> dict:
+    """Re-lay a ``{"q4", "s"}`` w4a8 weight for ``shards``-way tensor
+    parallelism, losslessly: the packed bytes are re-padded and re-blocked
+    so that the block axis NB divides ``shards`` (``pick_block_layout(n,
+    shards)``) and each shard owns whole contiguous column blocks. The
+    nibbles pack along K, so no byte is split; the group scales carry over
+    as they are. Leading [L, ...] axes are kept; a layout that already
+    divides comes back as the same dict."""
+    q4, s = w["q4"], w["s"]
+    n = s.shape[-1]
+    nb, bn = q4.shape[-3], q4.shape[-1]
+    bn2, n_pad2 = pick_block_layout(n, shards)
+    if bn2 == bn and n_pad2 == nb * bn:
+        return w
+    flat = from_block_major(q4)[..., :n]  # the old layout's padding dropped
+    if n_pad2 != n:
+        flat = F.pad(flat, (0, n_pad2 - n))
+    return {**w, "q4": to_block_major(flat, bn2)}
+
+
+@torch.no_grad()
+def repack_w4a8_tree(root: nn.Module, shards: int) -> nn.Module:
+    """``repack_w4a8`` over every ``W4A8Linear`` of ``root``, in place: the
+    module keeps its identity and takes the new ``q4`` buffer, so a module
+    reached from two places (a tie) is re-laid once and stays shared. A
+    layout that already divides keeps its bytes."""
+    if shards <= 1:
+        return root
+    for mod in root.modules():  # each module once, ties included
+        if isinstance(mod, W4A8Linear):
+            out = repack_w4a8({"q4": mod.q4, "s": mod.s}, shards)
+            if out["q4"] is not mod.q4:
+                mod.q4 = out["q4"]
+    return root
 
 
 def quantize_kv_int8(kv: torch.Tensor, clip: Optional[float] = None):

@@ -1,0 +1,401 @@
+"""Ranks, the (data, model) mesh, the tensor-parallel rule table and the
+collectives.
+
+Counterpart of ``blurr_tpu/parallel/mesh.py`` for serving. JAX lays a
+``('data', 'model')`` ``Mesh`` over the chips of one process and lets GSPMD
+insert the collectives that its ``NamedSharding`` rules imply; here each
+rank is a process of its own (``torch.distributed``), the rules pick the TP
+wrapper of each module (``parallel/tensor_parallel.py``), and those
+wrappers call the collectives of this module explicitly.
+
+**Ranks.** ``make_mesh(data, model)`` lays ``data x model`` ranks out as
+JAX's grid does, rank = d * model + m, and gives each rank its model group
+(the ``model`` ranks of its data row, which split the weights) and its data
+group (the ``data`` ranks of its model column, which split the batch).
+``init_ranks`` joins the process group on the backend ``pick_backend``
+chooses: ``gloo`` on the CPU; on CUDA, ``nccl`` when every rank has a card
+of its own (``world <= torch.cuda.device_count()``), else ``gloo``, since
+NCCL refuses two ranks on one device. The choice is logged and passed
+explicitly; nothing falls back to another backend. Each rank computes on
+``rank_device``: ``cuda:rank % device_count``, or the CPU when asked.
+``Workers`` spawns ranks 1 .. n-1 for rank 0 (``spawn`` context), each with
+a pipe to rank 0 for its orders and replies, and joins them by a deadline.
+
+**The rule table** (``rule_for``; JAX ``_spec_for_path``, rule for rule).
+Per module path of the port's models, which axis its weight splits over
+the model ranks:
+
+- the Pi-0 mixtures (``joint.*``): ``q_proj``, ``gate_proj``, ``up_proj``
+  column (their outputs), ``o_proj``, ``down_proj`` row (their inputs);
+  ``k_proj`` and ``v_proj`` whole (Gemma is multi-query: its one KV head is
+  replicated, as JAX replicates ``k_w`` / ``v_w``);
+- LLaMA (``llama.*``, multi-head): the same, with ``k_proj`` and ``v_proj``
+  column too, and ``lm_head`` on the vocabulary (its logits gathered);
+- ``embed_tokens`` (Pi-0's and LLaMA's) on the vocabulary: each rank holds
+  ``V / tp`` rows, looks up the ids it holds and the ranks sum;
+- the SigLIP layers (Pi-0's ``vision_tower``, OpenVLA's ``siglip``
+  tower): ``q_proj`` / ``k_proj`` / ``v_proj`` / ``fc1`` column,
+  ``out_proj`` / ``proj`` / ``fc2`` row. OpenVLA's fused ``qkv`` matches no
+  JAX name (``qkv_w``), so it stays whole, and its ``proj`` (JAX
+  ``out_w``) then takes a whole input, which the row wrapper slices;
+- everything else whole (DINOv2, the projectors, the action encoder and
+  decoder, the norms).
+
+JAX's weights are ``[in, out]`` (stacked ``[L, in, out]``) where an
+``nn.Linear`` holds ``[out, in]``, so JAX's last axis is the port's dim 0.
+The leaves of a quantized or LoRA weight follow their parent as JAX's
+rules say: ``q`` / ``q8a`` / ``fp`` as the weight, a per-channel ``s`` with
+the output, ``lora_a`` with a row parent's input and ``lora_b`` with a
+column parent's output; a w4a8 ``q4`` under any TP rule splits on its block
+axis only, with the matching columns of its padded scales (the w4a8 rule of
+``parallel/tensor_parallel.py``). A column layer's bias is cut with its
+output; a row layer's is added once after the sum (JAX keeps biases whole
+and GSPMD slices them at the add).
+
+``shard_params(model, mesh)`` re-lays every w4a8 packing for the model
+axis first (``ops/quant.py:repack_w4a8_tree``), then swaps each
+rule-bearing module for its TP wrapper in place, holding the rank's slice
+only. Tied modules stay tied: Pi-0's proprio mixture is the action
+mixture's module, and OpenVLA's tied head reads the sharded embedding.
+
+**The collectives** (sum- and max-all-reduce, the all-gather along an
+axis, broadcast, and a tuple of tensors broadcast with its shapes) are the
+only calls into ``torch.distributed`` the TP wrappers and the servers
+make. A bf16 or fp16 tensor is reduced in fp32 and cast back. A group of
+one rank is ``None`` and every collective on it is the identity.
+
+Not ported here (ROADMAP Queue 1 item 6b): ``sp_constrain``,
+``init_multihost`` and ``_augment_fsdp``, which are training's.
+"""
+
+from __future__ import annotations
+
+import datetime
+import logging
+import multiprocessing as mp
+import time
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+log = logging.getLogger(__name__)
+
+COLUMN, ROW, VOCAB = "column", "row", "vocab"
+# the process group's timeout: a collective whose peer has died raises
+# after this long at the latest (a dead peer's closed socket usually first)
+PG_TIMEOUT_S = 30.0
+
+_MIXTURE_RULES = {"q_proj": COLUMN, "o_proj": ROW, "gate_proj": COLUMN,
+                  "up_proj": COLUMN, "down_proj": ROW}
+_LLAMA_RULES = {**_MIXTURE_RULES, "k_proj": COLUMN, "v_proj": COLUMN, "lm_head": VOCAB}
+# biases held beside their linear (LLaMA's Qwen2 knob), by that linear
+_SEPARATE_BIASES = {"q_b": "q_proj", "k_b": "k_proj", "v_b": "v_proj"}
+_SIGLIP_RULES = {"q_proj": COLUMN, "k_proj": COLUMN, "v_proj": COLUMN, "out_proj": ROW,
+                 "proj": ROW, "fc1": COLUMN, "fc2": ROW}
+
+
+def rule_for(path: str) -> Optional[str]:
+    """The TP rule of the module (or parameter) at ``path`` in the port's
+    Pi-0 or OpenVLA model: ``COLUMN``, ``ROW``, ``VOCAB`` or None (whole)."""
+    parts = path.split(".")
+    name = parts[-1]
+    if "joint" in parts:
+        return _MIXTURE_RULES.get(name)
+    if "llama" in parts and name in _LLAMA_RULES:
+        return _LLAMA_RULES[name]
+    if name == "embed_tokens":
+        return VOCAB
+    if ("vision_tower" in parts or "siglip" in parts) and ("layers" in parts or "blocks" in parts):
+        return _SIGLIP_RULES.get(name)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Ranks and the mesh
+# ---------------------------------------------------------------------------
+
+
+def pick_backend(device: torch.device, world: int) -> str:
+    """gloo on the CPU; on CUDA nccl when each of the ``world`` ranks has a
+    card of its own, else gloo (NCCL refuses two ranks on one device)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "gloo"
+    return "nccl" if world <= torch.cuda.device_count() else "gloo"
+
+
+def rank_device(device, rank: int) -> torch.device:
+    """The device rank ``rank`` computes on: ``cuda:rank % device_count``
+    for a CUDA ``device``, else ``device`` (the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def init_ranks(rank: int, world: int, init_method: str, device) -> Tuple[str, torch.device]:
+    """Join the process group of ``world`` ranks at ``init_method`` (a
+    ``tcp://`` or ``file://`` URL) as ``rank``, on the backend
+    ``pick_backend`` gives, with a timeout of ``PG_TIMEOUT_S``. Returns
+    (backend, this rank's device)."""
+    dev = rank_device(device, rank)
+    backend = pick_backend(dev, world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    log.info("rank %d of %d: backend %s on %s (%s)", rank, world, backend, dev, init_method)
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    return backend, dev
+
+
+def free_tcp_init_method() -> str:
+    """``tcp://127.0.0.1:<port>`` with a port that was free a moment ago."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"tcp://127.0.0.1:{s.getsockname()[1]}"
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """This rank's place in the ``data x model`` grid and its two groups
+    (None where the axis has one rank). Built by ``make_mesh``; a Mesh with
+    no groups still tells ``shard_params`` which slice a rank holds."""
+
+    data: int = 1
+    model: int = 1
+    rank: int = 0
+    model_group: Optional[object] = None
+    data_group: Optional[object] = None
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model
+
+
+def make_mesh(data: int = 1, model: int = 1) -> Mesh:
+    """The ``data x model`` mesh over the initialised process group (rank =
+    d * model + m, as JAX's ``('data', 'model')`` grid). Every rank calls it
+    (``dist.new_group`` is collective)."""
+    world = data * model
+    if world == 1:
+        return Mesh()
+    if not dist.is_initialized() or dist.get_world_size() != world:
+        raise RuntimeError(f"make_mesh({data}, {model}) needs an initialised process group "
+                           f"of {world} ranks")
+    rank = dist.get_rank()
+    model_group = data_group = None
+    if model > 1:
+        for d in range(data):
+            ranks = [d * model + m for m in range(model)]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                model_group = g
+    if data > 1:
+        for m in range(model):
+            ranks = [d * model + m for d in range(data)]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                data_group = g
+    return Mesh(data, model, rank, model_group, data_group)
+
+
+def data_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The rows of a bucket ``x`` [B, ...] that this rank's data index
+    takes (B / data contiguous rows; JAX's ``batch_sharding``)."""
+    if mesh.data == 1:
+        return x
+    b = x.shape[0]
+    if b % mesh.data:
+        raise ValueError(f"a batch of {b} rows does not split over {mesh.data} data ranks")
+    n = b // mesh.data
+    return x[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+
+
+class Workers:
+    """Ranks 1 .. world-1 of rank 0: spawned processes running
+    ``target(rank, conn, *args)``, each with a pipe ``conn`` to rank 0.
+
+    ``send`` writes one order to every worker; ``replies`` reads one reply
+    from each by a deadline and raises, naming the rank, when a worker
+    replied with an error, died, or did not answer in time. ``join``
+    stops them by a deadline (a worker still alive then is killed)."""
+
+    def __init__(self, world: int, target: Callable, args: Sequence = ()):
+        ctx = mp.get_context("spawn")
+        self.procs, self.conns = [], []
+        for rank in range(1, world):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=target, args=(rank, child, *args), daemon=True,
+                            name=f"blurr-rank-{rank}")
+            p.start()
+            child.close()
+            self.procs.append(p)
+            self.conns.append(parent)
+
+    def send(self, msg) -> None:
+        for rank, conn in enumerate(self.conns, 1):
+            try:
+                conn.send(msg)
+            except (BrokenPipeError, OSError) as exc:
+                raise RuntimeError(f"rank {rank} is gone: {exc}") from exc
+
+    def replies(self, timeout_s: float) -> List:
+        """One reply from each worker, in rank order (every worker's is read,
+        so each order keeps one reply); a reply ``("error", text)`` raises
+        once all are read."""
+        deadline = time.monotonic() + timeout_s
+        out, errors = [], []
+        for rank, (conn, p) in enumerate(zip(self.conns, self.procs), 1):
+            while not conn.poll(min(1.0, max(0.0, deadline - time.monotonic()))):
+                if not p.is_alive() and not conn.poll(0):
+                    raise RuntimeError(f"rank {rank} died (exit code {p.exitcode})")
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(f"rank {rank} did not answer within {timeout_s:.0f} s")
+            try:
+                reply = conn.recv()
+            except EOFError as exc:
+                raise RuntimeError(f"rank {rank} died (exit code {p.exitcode})") from exc
+            if isinstance(reply, tuple) and reply and reply[0] == "error":
+                errors.append(f"rank {rank} failed: {reply[1]}")
+            out.append(reply)
+        if errors:
+            raise RuntimeError("; ".join(errors))
+        return out
+
+    def pending_errors(self) -> List[str]:
+        """Errors the workers have sent and nobody read (after a collective
+        failed on rank 0: the reason is usually a worker's)."""
+        errs = []
+        for rank, conn in enumerate(self.conns, 1):
+            try:
+                while conn.poll(0):
+                    reply = conn.recv()
+                    if isinstance(reply, tuple) and reply and reply[0] == "error":
+                        errs.append(f"rank {rank} failed: {reply[1]}")
+            except (EOFError, OSError):
+                pass
+        return errs
+
+    def join(self, timeout_s: float) -> None:
+        deadline = time.monotonic() + timeout_s
+        for p in self.procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in self.procs:
+            if p.is_alive():
+                log.warning("%s did not stop within %.0f s; killed", p.name, timeout_s)
+                p.kill()
+                p.join(5.0)
+        for conn in self.conns:
+            conn.close()
+
+
+# ---------------------------------------------------------------------------
+# Collectives (the only calls into torch.distributed the TP layers make)
+# ---------------------------------------------------------------------------
+
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _reduce(x: torch.Tensor, op, group) -> torch.Tensor:
+    if group is None:
+        return x
+    t = x.float() if x.dtype in _HALF else x.contiguous().clone()
+    dist.all_reduce(t, op=op, group=group)
+    return t.to(x.dtype)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (a new tensor; half in fp32)."""
+    return _reduce(x, dist.ReduceOp.SUM, group)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group`` (a new tensor)."""
+    return _reduce(x, dist.ReduceOp.MAX, group)
+
+
+def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in rank
+    order (equal shapes)."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """``x`` of global rank ``src`` into ``x`` on every rank of ``group``
+    (the world when None), in place."""
+    dist.broadcast(x, src, group=group)
+    return x
+
+
+def broadcast_tensors(tensors: Optional[Sequence[torch.Tensor]], device,
+                      src: int = 0) -> Tuple[torch.Tensor, ...]:
+    """Broadcast a tuple of tensors from global rank ``src`` to the world:
+    ``src`` passes them, every other rank passes None and gets them on
+    ``device``. Their dtypes and shapes go first, as one object."""
+    meta = [None if tensors is None else [(t.dtype, tuple(t.shape)) for t in tensors]]
+    dist.broadcast_object_list(meta, src)
+    return tuple(broadcast(tensors[i].to(device).contiguous() if tensors is not None
+                           else torch.empty(shape, dtype=dtype, device=device), src)
+                 for i, (dtype, shape) in enumerate(meta[0]))
+
+
+# ---------------------------------------------------------------------------
+# Sharding a model
+# ---------------------------------------------------------------------------
+
+
+def _parent(root: nn.Module, path: str) -> Tuple[nn.Module, str]:
+    *head, attr = path.split(".")
+    mod = root
+    for p in head:
+        mod = getattr(mod, p) if not p.isdigit() else mod[int(p)]
+    return mod, attr
+
+
+@torch.no_grad()
+def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
+    """Swap every module of ``model`` that ``rule_for`` gives a rule for
+    its TP wrapper over ``mesh``'s model axis, in place, each holding the
+    rank's slice only (the full tensors go with the modules they replace).
+    A model axis of 1 leaves the model as it is (data parallelism
+    replicates). w4a8 packings are re-laid for the axis first."""
+    if mesh.model == 1:
+        return model
+    from blurr_tpu_torch.ops.quant import repack_w4a8_tree
+    from blurr_tpu_torch.parallel import tensor_parallel as tp
+
+    repack_w4a8_tree(model, mesh.model)
+    done = set()
+    for path, mod in list(model.named_modules()):
+        rule = rule_for(path)
+        if rule is None or any(path.startswith(p + ".") for p in done) or not tp.is_linear(mod):
+            continue
+        parent, attr = _parent(model, path)
+        setattr(parent, attr, tp.parallel_linear(mod, rule, mesh))
+        done.add(path)
+    for path, p in list(model.named_parameters()):
+        *head, name = path.split(".")
+        if name == "embed_tokens":
+            parent, attr = _parent(model, path)
+            delattr(parent, attr)
+            setattr(parent, attr, tp.VocabParallelEmbedding.from_table(p, mesh))
+        elif name in _SEPARATE_BIASES and rule_for(".".join(head + [_SEPARATE_BIASES[name]])):
+            # a bias kept beside its linear (Qwen2's q/k/v): cut with its output
+            parent, attr = _parent(model, path)
+            setattr(parent, attr, nn.Parameter(tp.column_slice(p, mesh),
+                                               requires_grad=p.requires_grad))
+    return model

@@ -24,8 +24,11 @@ as JAX's ``cast_floating_preserving_scales``; ``autocast`` would cast
 per operation instead). The step takes its noise and flow time
 explicitly; ``sample_noise_and_t`` draws them from a ``torch.Generator``
 (normal noise, t ~ Beta(1.5, 1) as ``u ** (2/3)``), where JAX draws
-``normal(k1)`` and ``beta(k2, 1.5, 1)`` from the step's key. The meshes,
-``donate``, ``pipeline`` and ``sp_axis`` are ROADMAP M14.
+``normal(k1)`` and ``beta(k2, 1.5, 1)`` from the step's key. The mesh of
+ranks and the TP layers are ported for serving (``parallel/mesh.py``,
+``parallel/tensor_parallel.py``); training over them (the step's mesh,
+``donate``, ``pipeline`` and ``sp_axis``) is M14's training half, ROADMAP
+Queue 1 item 6b.
 """
 
 from __future__ import annotations

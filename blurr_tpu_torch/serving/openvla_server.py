@@ -20,9 +20,16 @@ protocol and the clients are Pi-0's.
 ``build_openvla(checkpoint_path=...)``, its adapters unmerged over its
 quantized bases, and ``reload_checkpoint`` swaps one in while serving (the
 Pi-0 server's atomic and ``drop_first`` reloads), held against the startup
-model's tensors and module types. Not ported yet, and refused with
-``NotImplementedError``: tensor and data parallelism (``tp`` / ``dp`` > 1,
-ROADMAP M14).
+model's tensors and module types.
+
+``tp`` / ``dp`` > 1 run the Pi-0 server's ranks (``serving/server.py``) for
+AR, Jacobi and OFT alike: LLaMA's heads (K/V with Q: it is multi-head), its
+MLP, its head and its embedding split over the model ranks, SigLIP's MLP
+and output projection too (``parallel/mesh.py:rule_for``), and a reload
+re-shards on every rank, as JAX's does. JAX re-lays the 7B's q/k/v for
+Jacobi on one chip only (``relayout_qkv_for_jacobi``, skipped under tp or
+dp); the port has no such relayout (a TPU layout fix), so nothing is
+skipped here.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ from blurr_tpu_torch.models.openvla.processing import (
     process_image,
     tokenize_prompt_ids,
 )
-from blurr_tpu_torch.serving.server import ActionServer, model_signature, refuse
+from blurr_tpu_torch.parallel.mesh import shard_params
+from blurr_tpu_torch.serving.server import ActionServer, model_signature
 
 TOKEN_CACHE_SIZE = 1024
 
@@ -66,11 +74,12 @@ class OpenVLAActionServer(ActionServer):
                  dp: int = 1, max_text_tokens: int = 32, oft: bool = False,
                  chunk_len: int = 8, use_proprio: bool = False, proprio_dim: int = 8,
                  checkpoint_path: Optional[str] = None, max_queue: int = 0,
-                 decode: str = "ar", bucket_mode: str = "pow2", *, device="cuda"):
-        refuse(tp=(tp > 1, "M14"), dp=(dp > 1, "M14"))
+                 decode: str = "ar", bucket_mode: str = "pow2", *, device="cuda",
+                 init_method: Optional[str] = None, _rank: int = 0):
+        ctor = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         if decode not in ("ar", "jacobi"):
             raise ValueError(f"decode {decode!r}: expected 'ar'/'jacobi'")
-        self.device = torch.device(device)
+        self._init_parallel(tp, dp, max_batch, bucket_mode, device, init_method, _rank, ctor)
         self.dtype = torch.bfloat16 if use_bf16 else torch.float32
         self.unnorm_key = unnorm_key
         self.max_text_tokens = int(max_text_tokens)
@@ -84,21 +93,28 @@ class OpenVLAActionServer(ActionServer):
                               proprio_dim=proprio_dim, quantization=quantization,
                               memory_safe_quant_init=True, seed=seed)
         self._model_id = model_id
-        built = self._build(checkpoint_path)
+        with self._ranks_stop_on_error():
+            built = self._build(checkpoint_path)
+            if unnorm_key is not None and unnorm_key not in built.model.norm_stats:
+                raise ValueError(f"unnorm_key {unnorm_key!r} not in the model's norm stats "
+                                 f"{sorted(built.model.norm_stats)}")
         self.model = built.model
         self._signature = model_signature(self.model)
         self.spec = built.spec
-        if unnorm_key is not None and unnorm_key not in self.model.norm_stats:
-            raise ValueError(f"unnorm_key {unnorm_key!r} not in the model's norm stats "
-                             f"{sorted(self.model.norm_stats)}")
         self.processor = OpenVLAProcessor(built.tokenizer, image_size=self.spec.siglip.image_size,
                                           fused=self.spec.use_fused_vision)
         self._checkpoint_desc = str(checkpoint_path or model_id)
-        self._init_runtime(max_batch, batch_window_ms, max_queue, bucket_mode)
+        if self.rank == 0:
+            self._join_ranks()
+            self._init_runtime(max_batch, batch_window_ms, max_queue, bucket_mode)
 
     def _build(self, checkpoint_path):
-        return build_openvla(self._model_id, checkpoint_path=checkpoint_path or None,
-                             **self._build_kw)
+        """``build_openvla``, the model then sharded over this rank's model
+        group (a no-op on one rank)."""
+        built = build_openvla(self._model_id, checkpoint_path=checkpoint_path or None,
+                              **self._build_kw)
+        shard_params(built.model, self.mesh)
+        return built
 
     def _build_model(self, checkpoint_path):
         """The reload's model: the startup ``build_openvla`` call with the
@@ -142,6 +158,11 @@ class OpenVLAActionServer(ActionServer):
         """Action tokens [B, action_dim] (OFT: the chunks [B, chunk_len,
         action_dim]) on the host, for a request or a bucket of them; the
         index is not read (greedy decoding draws no noise)."""
+        inputs = (ids, am, px) if proprio is None else (ids, am, px, proprio)
+        return self._run(inputs).cpu().numpy()
+
+    def _infer(self, ids, am, px, proprio=None) -> torch.Tensor:
+        """The decode (or OFT's forward) on this rank's rows."""
         m = self.model
         if self.oft:
             out = m.predict_action_continuous(ids, px, proprio, attn_valid=am).float()
@@ -149,7 +170,7 @@ class OpenVLAActionServer(ActionServer):
             out = m.predict_action_tokens_jacobi(ids, px, am)
         else:
             out = m.predict_action_tokens_ragged(ids, px, am)
-        return out.cpu().numpy()
+        return out
 
     def _post(self, out: np.ndarray) -> np.ndarray:
         actions = np.asarray(out, np.float32) if self.oft else self.model.detokenize_actions(out)

@@ -26,7 +26,30 @@ by repeating the last request, and runs one step on the bucket; the index
 then counts batches, and the bucket's noise is one draw of the bucket's
 shape. ``max_queue`` > 0 rejects a request ("Overloaded") while that many
 wait unclaimed. ``reload_checkpoint`` swaps the weights while serving.
-Tensor and data parallelism (``tp`` / ``dp`` > 1) are not ported yet.
+
+With ``tp`` or ``dp`` > 1 (JAX ``_init_parallel``) the server runs
+``tp * dp`` ranks, one process each (``parallel/mesh.py``): this process is
+rank 0 (the TCP front, the batcher, ``stats()``) and spawns ranks 1 .. n-1,
+each of which builds the same model through ``_build_model`` and shards it
+(``parallel/mesh.py:shard_params``: tensor parallelism over each data
+row's ``tp`` ranks), then waits for rank 0's orders on its pipe: a step
+(the warmup's too), a reload, the kernel counts, or stop. In a step rank 0
+draws the bucket's noise (one draw for the whole bucket, as one process
+does) and broadcasts the ids, mask, pixels, proprio and noise; each data
+rank takes its rows and rank 0 gathers the actions, so they are the
+one-process bucket's. dp must be a power of 2 with ``max_batch >= dp``
+(and dividing it under 'max'); the smallest bucket is dp. A rank that
+raises fails its request, and every later one: the server is broken and
+says which rank failed; nothing waits longer than the process group's
+timeout (``PG_TIMEOUT_S``) or a deadline. A reload under tp or dp builds
+on every rank while requests wait on the lock, and swaps on every rank
+only once all have built. One process runs one such server at a time
+(``torch.distributed``'s default group is the process's); after ``stop()``
+neither the process group nor a rank's process remains. A known fault with
+no known cause: in ``chip_smoke.py``'s long process, ``torch.profiler``
+has recorded no device activity after parallel servers had run there
+(shorter processes that run them record as before), so a profile taken
+in the server's process afterwards must be checked for events.
 """
 
 from __future__ import annotations
@@ -44,24 +67,50 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from blurr_tpu_torch.models.pi0.checkpoint import load_checkpoint
 from blurr_tpu_torch.models.pi0.pizero import PiZero
 from blurr_tpu_torch.models.pi0.processing import build_processor, process_images
 from blurr_tpu_torch.ops import prng
+from blurr_tpu_torch.ops.flash_attention import flash_attention
+from blurr_tpu_torch.ops.int4_matmul import int4_matmul
+from blurr_tpu_torch.ops.int8_matmul import int8_matmul
+from blurr_tpu_torch.parallel.mesh import (
+    PG_TIMEOUT_S,
+    Mesh,
+    Workers,
+    all_gather,
+    broadcast_tensors,
+    data_rows,
+    free_tcp_init_method,
+    init_ranks,
+    make_mesh,
+    shard_params,
+)
 from blurr_tpu_torch.serving.protocol import ProtocolError, recv_msg, send_msg
 from blurr_tpu_torch.utils.image import lanczos_resize_uint8
 
 log = logging.getLogger(__name__)
 
+# the kernels of the served paths, whose launches ``rank_launches`` reads
+SERVED_KERNELS = {"flash_attention": flash_attention, "int4_matmul": int4_matmul,
+                  "int8_matmul": int8_matmul}
+# how long rank 0 waits for the other ranks to build a model (startup, reload)
+BUILD_DEADLINE_S = 900.0
 
-def refuse(**flags) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP milestone of the
-    first flag ``name=(set, milestone)`` that is set."""
-    for name, (bad, milestone) in flags.items():
-        if bad:
-            raise NotImplementedError(
-                f"{name} is not ported to the PyTorch server yet (ROADMAP {milestone})")
+
+def _rank_main(rank: int, conn, cls, ctor: dict) -> None:
+    """A spawned rank of a parallel server: build as rank 0 does, then serve
+    rank 0's orders until it says stop (or goes away)."""
+    try:
+        server = cls(**{**ctor, "_rank": rank})
+    except BaseException as exc:  # the reason goes to rank 0, then the process ends
+        log.exception("rank %d failed to start", rank)
+        conn.send(("error", f"{type(exc).__name__}: {exc}"))
+        return
+    conn.send(("ready",))
+    server._serve_rank(conn)
 
 
 def model_signature(model: torch.nn.Module) -> dict:
@@ -111,27 +160,35 @@ class ActionServer:
     JAX skips dicts), in the order of the JAX ``_build_params``; the int8
     KV cache is quantized in every control step.
     ``max_batch``, ``batch_window_ms``, ``max_queue`` and ``bucket_mode``
-    are dynamic batching's, as in JAX (the module docstring).
+    are dynamic batching's, as in JAX (the module docstring). ``tp`` /
+    ``dp`` > 1 run the ranks of the module docstring; ``init_method`` is
+    their rendezvous (``tcp://`` or ``file://``; None: a free localhost
+    port). ``_rank`` is set only where a spawned rank builds its server.
     """
 
     def __init__(self, cfg, checkpoint_path: Optional[str] = "random", *, device="cuda",
                  seed: int = 42, max_batch: int = 1, batch_window_ms: float = 2.0,
-                 tp: int = 1, dp: int = 1, max_queue: int = 0, bucket_mode: str = "pow2"):
-        refuse(tp=(tp > 1, "M14"), dp=(dp > 1, "M14"))
+                 tp: int = 1, dp: int = 1, max_queue: int = 0, bucket_mode: str = "pow2",
+                 init_method: Optional[str] = None, _rank: int = 0):
+        ctor = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         self.cfg = cfg
-        self.device = torch.device(device)
+        self._init_parallel(tp, dp, max_batch, bucket_mode, device, init_method, _rank, ctor)
         self.dtype = torch.bfloat16 if cfg.get("use_bf16") else torch.float32
         self.seed = int(seed)
-        self.model = self._build_model(checkpoint_path)
+        with self._ranks_stop_on_error():
+            self.model = self._build_model(checkpoint_path)
         self._signature = model_signature(self.model)
         # the baseline / vanilla presets turn the prefix cache off
         self.prefix_cache = bool(cfg.get("use_prefix_kv_cache", True))
-        self.processor = build_processor(cfg)
+        # only rank 0 prepares requests (a tokenizer can take seconds to load)
+        self.processor = build_processor(cfg) if self.rank == 0 else None
         self._image_size = int(cfg["vision"]["config"]["image_size"])
         self._proprio_dim = int(cfg["proprio_dim"])
         self._noise_dims = (self.model.spec.num_action_tokens, self.model.spec.action_dim)
         self._checkpoint_desc = str(checkpoint_path or "random")
-        self._init_runtime(max_batch, batch_window_ms, max_queue, bucket_mode)
+        if self.rank == 0:
+            self._join_ranks()
+            self._init_runtime(max_batch, batch_window_ms, max_queue, bucket_mode)
 
     def _build_model(self, checkpoint_path) -> PiZero:
         """A ready-to-serve model: a fresh ``PiZero`` on the device, the
@@ -145,22 +202,197 @@ class ActionServer:
             load_checkpoint(model, str(checkpoint_path))
         model.enable_action_quantization()
         model.enable_vlm_quantization()
-        return model.eval()
+        return shard_params(model, self.mesh).eval()
+
+    # ------------------------------------------------------------------
+    # ranks (tensor and data parallelism)
+
+    def _init_parallel(self, tp: int, dp: int, max_batch: int, bucket_mode: str, device,
+                       init_method: Optional[str], rank: int, ctor: dict) -> None:
+        """Check tp / dp (JAX ``_init_parallel`` and its 'max' check), then,
+        with more than one rank, spawn ranks 1 .. n-1 (on rank 0), join the
+        process group and lay out the (dp, tp) mesh. Sets ``tp``, ``dp``,
+        ``rank``, ``mesh``, ``backend`` and ``device`` (this rank's)."""
+        if bucket_mode not in ("pow2", "max"):
+            raise ValueError(f"bucket_mode {bucket_mode!r}: expected 'pow2' or 'max'")
+        self.tp, self.dp = max(1, int(tp)), max(1, int(dp))
+        self.rank, self.world = int(rank), self.tp * self.dp
+        self.mesh, self.backend, self._workers, self._broken = Mesh(), None, None, None
+        if self.dp > 1:
+            if self.dp & (self.dp - 1):
+                raise ValueError(f"dp={self.dp}: must be a power of 2 so every power-of-2 "
+                                 "batch bucket >= dp splits evenly over the data ranks")
+            if max_batch < self.dp:
+                raise ValueError(f"dp={self.dp} needs dynamic batching with max_batch >= dp "
+                                 f"(got max_batch={max_batch}): DP serving splits the batch "
+                                 "over ranks")
+            if bucket_mode == "max" and max_batch % self.dp:
+                raise ValueError(f"bucket_mode='max' pads every batch to max_batch="
+                                 f"{max_batch}, which must be divisible by dp={self.dp} "
+                                 "for the data-parallel split")
+        if self.world == 1:
+            self.device = torch.device(device)
+            return
+        if self.rank == 0:
+            init_method = init_method or free_tcp_init_method()
+            self._workers = Workers(self.world, _rank_main,
+                                    (type(self), {**ctor, "init_method": init_method}))
+        try:
+            self.backend, self.device = init_ranks(self.rank, self.world, init_method, device)
+            self.mesh = make_mesh(self.dp, self.tp)
+        except Exception as exc:
+            if self._workers is not None:
+                errs = self._workers.pending_errors()
+                self._workers.join(PG_TIMEOUT_S)
+                if errs:
+                    raise RuntimeError("; ".join(errs)) from exc
+            raise
+        log.info("rank %d of %d (dp %d x tp %d): backend %s, device %s", self.rank,
+                 self.world, self.dp, self.tp, self.backend, self.device)
+
+    @contextlib.contextmanager
+    def _ranks_stop_on_error(self):
+        """Rank 0's startup after the spawn: on any error the other ranks
+        are stopped and the process group left before it propagates."""
+        try:
+            yield
+        except BaseException:
+            self._shutdown_ranks()
+            raise
+
+    def _join_ranks(self) -> None:
+        """Rank 0, after its own build: every other rank has built too."""
+        if self._workers is None:
+            return
+        try:
+            self._workers.replies(BUILD_DEADLINE_S)
+        except Exception:
+            self._shutdown_ranks()
+            raise
+
+    def _shutdown_ranks(self) -> None:
+        """Stop the other ranks (by a deadline) and leave the process group."""
+        workers, self._workers = self._workers, None
+        if workers is None:
+            return
+        try:
+            workers.send(("stop",))
+        except RuntimeError as exc:
+            log.warning("stopping the ranks: %s", exc)
+        workers.join(PG_TIMEOUT_S)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    def _run(self, tensors) -> torch.Tensor:
+        """One step's device work on every rank (rank 0 calls it under the
+        lock): the inputs broadcast, each rank's ``_forward``, and the other
+        ranks' replies read by a deadline. A failure on any rank breaks the
+        server (every later step raises) and names the rank."""
+        if self._workers is None:
+            if self.world > 1:
+                raise RuntimeError("the server is stopped: its other ranks have left")
+            return self._forward(*tensors)
+        if self._broken is not None:
+            raise RuntimeError(f"the server is broken: {self._broken}")
+        try:
+            self._workers.send(("step",))
+            out = self._forward(*broadcast_tensors(tensors, self.device))
+            self._workers.replies(PG_TIMEOUT_S)
+        except Exception as exc:
+            self._broken = "; ".join(self._workers.pending_errors()) or f"rank 0: {exc}"
+            log.error("parallel step failed: %s", self._broken)
+            raise RuntimeError(f"parallel step failed: {self._broken}") from exc
+        return out
+
+    def _forward(self, *tensors) -> torch.Tensor:
+        """This rank's part of a step on the whole bucket's inputs: its data
+        rows through ``_infer``, then every data rank's rows gathered."""
+        out = self._infer(*(data_rows(t, self.mesh) for t in tensors))
+        return all_gather(out, self.mesh.data_group, 0)
+
+    def _serve_rank(self, conn) -> None:
+        """Ranks 1 .. n-1: serve rank 0's orders until "stop". A failed step
+        sends its reason to rank 0 and ends the process (so rank 0's
+        collectives fail at once); a refused reload keeps serving."""
+        pending = None
+        try:
+            while True:
+                try:
+                    order = conn.recv()
+                except EOFError:
+                    return  # rank 0 is gone
+                op, reply = order[0], ("ok",)
+                if op == "stop":
+                    conn.send(reply)
+                    return
+                try:
+                    with self._on_device():
+                        if op == "step":
+                            self._forward(*broadcast_tensors(None, self.device))
+                        elif op == "reload":
+                            _, path, drop_first = order
+                            if drop_first:
+                                self.model = None
+                                self._free_memory()
+                            pending = self._checked(self._build_model(path), path)
+                        elif op == "commit":
+                            self.model, pending = pending, None
+                        elif op == "abort":
+                            pending = None
+                            if order[1]:  # a failed drop_first reload: no weights
+                                self.model = None
+                        elif op == "launches":
+                            reply = ("ok", {k: fn.launches for k, fn in SERVED_KERNELS.items()})
+                        elif op == "zero_launches":
+                            for fn in SERVED_KERNELS.values():
+                                fn.launches = 0
+                        else:
+                            raise ValueError(f"unknown order {op!r}")
+                except Exception as exc:
+                    log.exception("rank %d: %s failed", self.rank, op)
+                    conn.send(("error", f"{op}: {type(exc).__name__}: {exc}"))
+                    if op == "reload":
+                        continue
+                    return
+                conn.send(reply)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+    def rank_launches(self, zero: bool = False) -> list:
+        """The served kernels' launch counts of every rank ([rank 0, rank 1,
+        ...], each {name: count}); ``zero`` sets them to 0 on every rank
+        instead (and returns them as they were)."""
+        counts = [{k: fn.launches for k, fn in SERVED_KERNELS.items()}]
+        with self._lock:
+            if self._workers is not None:
+                self._workers.send(("launches",))
+                counts += [r[1] for r in self._workers.replies(PG_TIMEOUT_S)]
+                if zero:
+                    self._workers.send(("zero_launches",))
+                    self._workers.replies(PG_TIMEOUT_S)
+        if zero:
+            for fn in SERVED_KERNELS.values():
+                fn.launches = 0
+        return counts
+
+    def _free_memory(self) -> None:
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def _init_runtime(self, max_batch: int = 1, batch_window_ms: float = 2.0,
                       max_queue: int = 0, bucket_mode: str = "pow2") -> None:
         """The request state every server shares: the device lock and the
         step index, the tokenization cache, the request queue and its
         batcher thread, the socket and the counters (JAX
-        ``ActionServer._init_runtime``)."""
-        if bucket_mode not in ("pow2", "max"):
-            raise ValueError(f"bucket_mode {bucket_mode!r}: expected 'pow2' or 'max'")
+        ``ActionServer._init_runtime``); ``bucket_mode`` is checked by
+        ``_init_parallel``."""
         self.bucket_mode = bucket_mode
         self.max_batch = max(1, int(max_batch))
         self.batch_window_s = batch_window_ms / 1000.0
         # > 0 bounds the requests queued unclaimed; the rest are rejected
         self.max_queue = max(0, int(max_queue))
-        self.tp = self.dp = 1
         self._req_idx = 0
         self._lock = threading.Lock()  # device stream + step index + model
         self._tok_cache = {}
@@ -239,11 +471,14 @@ class ActionServer:
     def _step(self, ids, am, px, pr, request_idx: int) -> np.ndarray:
         """The device work of one step over the batch of ``ids``: the action
         chunks [B, horizon, action_dim] on the host (the fetch waits for the
-        device)."""
+        device). The noise is drawn here, on rank 0, for the whole bucket."""
         noise = self.noise(request_idx, ids.shape[0])
+        return self._run((ids, am, px, pr, noise)).float().cpu().numpy()
+
+    def _infer(self, ids, am, px, pr, noise) -> torch.Tensor:
+        """The model's step on this rank's rows."""
         infer = self.model.infer_action if self.prefix_cache else self.model.infer_action_naive
-        actions = infer(ids, am, px, pr, noise)
-        return actions.float().cpu().numpy()
+        return infer(ids, am, px, pr, noise)
 
     def _post(self, out: np.ndarray) -> np.ndarray:
         """``_step``'s output [B, ...] -> the answers [B, ...] (host side).
@@ -257,14 +492,16 @@ class ActionServer:
         return (np.zeros((size, size, 3), np.uint8), "warmup", [0.0] * self._proprio_dim)
 
     def _bucket(self, n: int) -> int:
-        """The batch a step over ``n`` live requests runs at."""
+        """The batch a step over ``n`` live requests runs at (at least dp:
+        the smallest bucket the data ranks split)."""
         if self.bucket_mode == "max":
             return self.max_batch
-        return 1 << (n - 1).bit_length()
+        return max(self.dp, 1 << (n - 1).bit_length())
 
     def _buckets(self) -> list:
-        """Every batch the server can run at: 1, 2, 4, ... up to the first
-        power of 2 >= max_batch under 'pow2'; max_batch alone under 'max'."""
+        """Every batch the server can run at: dp (1 without data
+        parallelism), 2 dp, 4 dp, ... up to the first power of 2 >=
+        max_batch under 'pow2'; max_batch alone under 'max'."""
         return sorted({self._bucket(n) for n in range(1, self.max_batch + 1)})
 
     def _warm(self, bucket: int) -> float:
@@ -305,7 +542,7 @@ class ActionServer:
 
     def _predict_impl(self, image: np.ndarray, instruction: str, proprio) -> np.ndarray:
         inputs = self._prepare(image, instruction, proprio)
-        if self.max_batch <= 1:
+        if self.max_batch <= 1 and self.dp == 1:
             with self._lock, self._on_device():
                 self._require_model()
                 out = self._step(*inputs, request_idx=self._req_idx)
@@ -430,14 +667,14 @@ class ActionServer:
         a failed load leaves the server without weights, every request
         failing "no weights loaded", until a reload succeeds."""
         path = str(path)
-        if drop_first:
+        if self._workers is not None:
+            self._reload_ranks(path, drop_first)
+        elif drop_first:
             with self._lock, self._on_device():
                 old = self._checkpoint_desc
                 self.model = None
                 self._checkpoint_desc = f"(reloading from {old})"
-                gc.collect()
-                if self.device.type == "cuda":
-                    torch.cuda.empty_cache()
+                self._free_memory()
                 try:
                     self.model = self._checked(self._build_model(path), path)
                     self._checkpoint_desc = path
@@ -454,6 +691,39 @@ class ActionServer:
             self._n_reloads += 1
         log.info("hot-reloaded checkpoint: %s (drop_first %s)", path, drop_first)
         return {"reloaded": path, "drop_first": bool(drop_first)}
+
+    def _reload_ranks(self, path: str, drop_first: bool) -> None:
+        """``reload_checkpoint`` under tp or dp: every rank builds (and
+        checks) the new model while requests wait on the lock; all swap
+        once all have built, else none does (``drop_first``: none keeps
+        weights)."""
+        with self._lock, self._on_device():
+            if self._broken is not None:
+                raise RuntimeError(f"the server is broken: {self._broken}")
+            old = self._checkpoint_desc
+            if drop_first:
+                self.model = None
+                self._checkpoint_desc = f"(reloading from {old})"
+                self._free_memory()
+            self._workers.send(("reload", path, drop_first))
+            new = error = None
+            try:
+                new = self._checked(self._build_model(path), path)
+            except Exception as exc:
+                error = exc
+            try:
+                self._workers.replies(BUILD_DEADLINE_S)
+            except RuntimeError as exc:
+                error = error or exc
+            if error is not None:
+                self._workers.send(("abort", drop_first))
+                self._workers.replies(PG_TIMEOUT_S)
+                if drop_first:
+                    self._checkpoint_desc = f"(reload of {path!r} FAILED)"
+                raise error
+            self._workers.send(("commit",))
+            self._workers.replies(PG_TIMEOUT_S)
+            self.model, self._checkpoint_desc = new, path
 
     def _require_model(self) -> None:
         """Called under ``self._lock``: a ``drop_first`` reload holds the
@@ -531,6 +801,9 @@ class ActionServer:
             pass  # socket closed by stop()
 
     def stop(self) -> None:
+        """Stop serving: close the socket, end the batcher and, under tp or
+        dp, stop the other ranks (once the step in flight has finished) and
+        leave the process group."""
         self._closed = True  # reject new requests before the sentinel lands
         if self._sock is not None:
             try:  # wakes the accept() of serve_forever (close alone does not)
@@ -540,6 +813,9 @@ class ActionServer:
             self._sock.close()
         if self._batcher is not None:
             self._queue.put(None)  # shutdown sentinel
+        if self._workers is not None:
+            with self._lock:
+                self._shutdown_ranks()
 
     def _handle(self, conn: socket.socket) -> None:
         with conn:

@@ -176,7 +176,7 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              per control step; every dispatched chunk bit-equal to
              infer_action called directly on the same inputs and noise; the
              steady p50 and the peak memory beside the card's name and power
-             limit; then the agent's control step timed 20 times on one
+             limit; then the agent's control step timed 10 times on one
              frame (median, min, max), and each rung of the resize ladder.
 15. from-frame - infer_action_from_frame on the fake env's 480x640 frame on
              the card: the in-graph lanczos3 resize (fp32, TF32 off) against
@@ -190,12 +190,12 @@ Phases (each prints its lines; any failure exits non-zero with no result):
 17. eval-batched - BatchedEvalAgent, 4 envs in lockstep over 4 episodes; each
              row of every batched chunk against the batch-1 step on that
              row's inputs and noise within BATCHED_TOL; K1 17 times per step;
-             then a round of 4 and a batch-1 step timed 20 times each.
+             then a round of 4 and a batch-1 step timed 10 times each.
 18. eval-agent-w4a8 - bridge_pool64_w4a8_steps1.yaml through the agent as
              shipped (act_steps 1): K2 370 and K1 17 times per step, every
              chunk bit-equal to a direct infer_action, and the agent's
              quantization-failure warning must not fire; the control step
-             timed 20 times.
+             timed 10 times.
 19. eval-cli - scripts/eval_pi0_simpler_torch.py run as a user runs it
              (bridge_pool64_w4a8_steps1.yaml, blurr preset, 2 episodes) in a
              subprocess: exit 0, both summary lines in its run.log and no
@@ -385,7 +385,7 @@ served-int4-shapes holds their K2 shapes too.
              then --resume-state to step 6: bit-equal to phase 41's.
 43. train-openvla-serve - phase 41's --save-params served by the OpenVLA
              server (checkpoint_path, no quantization): the adapters over
-             the int4 bases, 6 requests, 1,575 K2 launches each, every
+             the int4 bases, 4 requests, 1,575 K2 launches each, every
              answer equal to the trained model's own; then hot-reloaded
              into the running server and answered the same.
 44. train-openvla-oft - --oft --use-proprio at 7B w4a8, 3 steps, K2 224 a
@@ -426,7 +426,8 @@ served-int4-shapes holds their K2 shapes too.
              370 launches, the same bits twice.
 51. closed-loop - blurr_tpu_torch.experiments.quant_closed_loop over
              pool64_bf16, pool64_w4a8 and pool64_w4a8_gptq (in-process),
-             its report lines.
+             one episode each (its EPISODES is 2), its report
+             lines.
 52. openloop-flash - every (shape, dtype) phases 48-51 gave K1 (the
              calibration's [1,8,101,256] bf16 naive forward among them),
              with the first mask it met there, held against the plain
@@ -435,13 +436,61 @@ served-int4-shapes holds their K2 shapes too.
              against the plain version, the same bits twice, timed in a
              CUDA graph beside its bound and a bf16 matmul of the dense
              weight.
+Tensor and data parallelism (M14's serving half): two ranks, one process
+each, sharing the card over gloo (NCCL refuses two ranks on one device);
+their times are two processes time-sharing one card. Phase 54 runs after
+phase 3; phases 55-61 run last, after phase 53 (each of 55-59 joins and
+leaves a process group in this process, and no earlier phase runs after
+one).
+54. tp2-kernels - K1 bf16 at a tp=2 rank's [1,4,277,256] and [1,4,97,256]
+             (its 4 query heads over the one KV head) against its plain
+             version; K2 at every tp=2 rank's column blocks of the pool64
+             w4a8 and OpenVLA-7B w4a8 products, each rank bit-equal to its
+             plain version and to the matching columns of the unsharded
+             K2 output; K2 at the products tp=2 keeps whole (Pi-0's k and
+             v) on the packing shard_params re-lays for the model axis,
+             bit-equal to its plain version and to the one-rank packing's
+             output; K3 at the pool64 int8 step's K/2 and N/2 shapes; each
+             timed in a CUDA graph beside its bound.
+55. serve-tp2 - bridge.yaml blurr bf16 (K1 on) on ActionServer(tp=2),
+             drawn from phase 4's seed: 3 requests through the client, the
+             answers within MODEL_TOL of phase 4's, K1 17 a step on each
+             rank (server.rank_launches), rank 0's resident weight bytes
+             against phase 4's, and rank 0's kernels in one step under the
+             profiler.
+56. serve-dp2 - the same config on ActionServer(dp=2, max_batch=4), 8
+             requests from DP2_CLIENTS concurrent clients, K1 17 a batch on
+             each rank; a bucket of 4 through both ranks against rank 0
+             computing it alone, within MODEL_TOL.
+57. serve-tp2-w4a8 / serve-tp2-int8 - pool64 w4a8 (K2 370 a step on each
+             rank) and pool64 int8 (cache_fp_weight false, K3 380), as
+             phase 55, against phases 7 and 9.
+58. serve-tp2-openvla - OpenVLA-7B w4a8 AR on two tensor-parallel ranks:
+             the same answers (tokens) as phase 26 on TP2_OPENVLA_FRAMES
+             frames, K2 1,575 a request on each rank, then a hot reload
+             (drawn again and re-sharded on every rank) and the same
+             answer.
+59. openloop-dp2 - scripts/eval_openloop_torch.py --dp 2 in-process on
+             bridge.yaml bf16 with K1 on (a YAML over bridge.yaml, so the
+             spawned rank reads it too) against --dp 1, within
+             OPENLOOP_DP_RTOL; each rank's K1 17 a batch (the spawned
+             rank's counts come back with its reply).
+60. ranks-shapes - every shape rank 0 gave K1, K2 and K3 in phases 55-59
+             (recorded as they ran) held against its plain version: K1 at
+             each with the first mask it met there, K2 (bit-equal) and K3
+             at those phase 54 did not hold.
+61. profile-after-ranks - no process group and no child process left
+             after phases 55-59 (the threads logged); then how many of 20
+             K6 launches torch.profiler sees, logged only (PERF.md §7: in
+             this process it has seen none after the parallel phases).
 Then one JSON line of the kernels (launches summed over the served runs of
 phases 4-10 with the batched, backpressure and reload runs, the
 experiments run, the eval runs of phases 14-18 and 20, the text runs of
 phases 21-23, the OpenVLA runs of phases 25-30b, the eval CLIs' runs of
 phases 32-34, the training steps and served requests of phases 37-45 and
-the CLI, calibration, GPTQ and experiment runs of phases 48-51, the counts set to 0
-just before each; errors
+the CLI, calibration, GPTQ and experiment runs of phases 48-51 and
+every rank's runs of phases 55-59, the counts set to 0 just before each;
+K1's, K2's and K3's entries add their tp=2 shapes under "shapes_tp2"; errors
 and times measured here: ms and plain_ms with CUDA events, graph_ms and
 plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
 function where there is one, at the first timed shape of each kernel;
@@ -539,7 +588,11 @@ BACKPRESSURE_REQUESTS = 4
 BATCHED_K1_SHAPES = [(2, 8, 1, 277, 277, 256), (8, 8, 1, 277, 277, 256)]
 MAX_W4A8_WEIGHT_BYTES = 3.0e9
 N_REQUESTS = 3
-AGENT_TIMED_STEPS = 20  # control steps timed after each eval-agent run
+# control steps timed after each eval-agent run, and the model steps a served
+# phase's median takes (cut from 20 and 10 to keep the whole script inside
+# its time limit with the parallel phases)
+AGENT_TIMED_STEPS = 10
+STEP_MEDIAN_STEPS = 5
 PI0_SHAPE = (1, 8, 1, 277, 277, 256)  # b, nh, kvh, sq, skv, d
 NAIVE_SHAPE = (1, 8, 1, 281, 281, 256)  # the naive step: 276 + proprio + 4 actions
 POOL64_SHAPE = (1, 8, 1, 97, 97, 256)
@@ -632,6 +685,11 @@ SMALL_PALIGEMMA = {
                     "num_key_value_heads": 1, "head_dim": 32},
     "image_token_index": 999, "pad_token_id": 0, "projection_dim": 128, "hidden_size": 128,
 }
+
+
+# the one-process servers' answers (and resident weight bytes) by phase,
+# which the tensor- and data-parallel phases are held against
+ONE_RANK = {}
 
 
 def log(msg: str) -> None:
@@ -1220,7 +1278,9 @@ def _ffn_phase_split(call, calls: int = 10) -> None:
               e.self_device_time_total / calls / 1000.0
               for e in prof.key_averages() if "ffn_kernel" in e.key}
     if len(phases) != 2:
-        raise RuntimeError(f"the profiler did not see both phases of fused_ffn: {phases}")
+        seen = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        raise RuntimeError(f"the profiler did not see both phases of fused_ffn: {phases} "
+                           f"({len(seen)} events with device time)")
     log("kernel-experiments: fused_ffn device time per call under torch.profiler: " +
         ", ".join(f"{name} {ms:.4f} ms" for name, ms in phases.items()) +
         f"; both {sum(phases.values()):.4f} ms")
@@ -1357,6 +1417,7 @@ def served_control_steps(device):
     log(f"serve: bridge.yaml blurr preset, {n_params / 1e9:.3f} B params "
         f"{server.dtype} drawn on the card in {time.monotonic() - t0:.2f} s")
     image, proprio, launches, actions = _serve_requests(server, cfg, "serve")
+    ONE_RANK["serve"] = (image, proprio, actions, resident_bytes(server.model))
     n_layers = cfg["joint"]["config"]["num_hidden_layers"]
     # 18 layers, the last computes only K/V
     _check_launches("serve", launches,
@@ -1978,7 +2039,7 @@ def _resident_parts(model) -> dict:
 def _step_median(server, image, proprio, label) -> None:
     inputs = server._prepare(image, "put the spoon on the towel", proprio)
     times = []
-    for i in range(10):
+    for i in range(STEP_MEDIAN_STEPS):
         t = time.monotonic()
         server._step(*inputs, request_idx=i)  # returns host numpy: synchronized
         times.append((time.monotonic() - t) * 1000.0)
@@ -2043,7 +2104,8 @@ def served_w4a8_steps(device) -> dict:
     if per_step != W4A8_STEP_LAUNCHES:
         raise RuntimeError(f"the pool64 w4a8 step has {per_step} int4 linears, "
                            f"not {W4A8_STEP_LAUNCHES}")
-    image, proprio, launches, _ = _serve_requests(server, cfg, "serve-w4a8")
+    image, proprio, launches, actions = _serve_requests(server, cfg, "serve-w4a8")
+    ONE_RANK["serve-w4a8"] = (image, proprio, actions, weights)
     n_layers = cfg["joint"]["config"]["num_hidden_layers"]
     _check_launches("serve-w4a8", launches, {"flash_attention": n_layers - 1,
                                              "int4_matmul": per_step, "int8_matmul": 0})
@@ -2093,7 +2155,8 @@ def served_int8_steps(device, cache_fp: bool) -> dict:
 
     joint_lib.decode = recording_decode
     try:
-        image, proprio, launches, _ = _serve_requests(server, cfg, label)
+        image, proprio, launches, actions = _serve_requests(server, cfg, label)
+        ONE_RANK[label] = (image, proprio, actions, weights)
     finally:
         joint_lib.decode = real_decode
     log(f"{label}: prefix cache k/v dtypes read by the decodes {sorted(map(str, cache_dtypes))}")
@@ -3223,7 +3286,8 @@ OPENVLA_INT4_SHAPES = [
     (1, 896, 32384, 7),
     (288, 896, 896, 7), (288, 896, 128, 7), (288, 896, 4864, 7), (288, 4864, 896, 19),
 ]
-OPENVLA_FRAMES = 5  # requests at 224x224; then one off-size 256x320 frame
+# requests at 224x224 (cut from 5); then one off-size 256x320 frame
+OPENVLA_FRAMES = 3
 OPENVLA_INSTRUCTION = "put the spoon on the towel"
 # serve-batched-openvla: prompts of 4 token counts in one bucket
 OPENVLA_BATCH_INSTRUCTIONS = ("put the spoon on the towel", "pick up the carrot",
@@ -3350,6 +3414,32 @@ class _RecordInt4Shapes:
         from blurr_tpu_torch.ops import quant
 
         quant.int4_matmul = self.inner
+
+
+class _RecordInt8Shapes:
+    """While entered, the (M, K, N) of every call the int8 linears make to
+    K3 (``quant.int8_mm_nd`` wrapped; the wrapper under it still counts its
+    launches)."""
+
+    def __init__(self):
+        self.seen = set()
+
+    def __enter__(self):
+        from blurr_tpu_torch.ops import quant
+
+        self.inner = inner = quant.int8_mm_nd
+
+        def recording(x, w):
+            self.seen.add((x.numel() // x.shape[-1], x.shape[-1], w["q"].shape[1]))
+            return inner(x, w)
+
+        quant.int8_mm_nd = recording
+        return self
+
+    def __exit__(self, *exc):
+        from blurr_tpu_torch.ops import quant
+
+        quant.int8_mm_nd = self.inner
 
 
 def served_int4_vs_plain(device, seen: set, held: set, label: str = "served-int4-shapes",
@@ -3619,7 +3709,8 @@ def served_openvla_7b_w4a8(device) -> dict:
     n_int4 = sum(isinstance(m, W4A8Linear) for m in server.model.llama.modules())
     if n_int4 != OPENVLA_FORWARD_LAUNCHES:
         raise RuntimeError(f"{label}: {n_int4} w4a8 linears, not {OPENVLA_FORWARD_LAUNCHES}")
-    launches, _ = _serve_openvla(server, label, OPENVLA_AR_LAUNCHES)
+    launches, answers = _serve_openvla(server, label, OPENVLA_AR_LAUNCHES)
+    ONE_RANK[label] = (answers, resident_bytes(server.model))
     frame = _openvla_frames()[0]
     _step_median(server, frame, None, label)
     _step_device_time(server, frame, None, label, "int4_matmul", top=16)
@@ -4981,6 +5072,7 @@ OPENLOOP_METRICS = {"examples", "horizon", "act_steps", "mse", "mae", "mse_prefi
 GPTQ_CONFIG = "config/eval/bridge_pool64_w4a8_steps1.yaml"
 GPTQ_LAYERS = (0, 8, 17)  # the layers whose held-out output error is compared
 CLOSED_LOOP_VARIANTS = ("pool64_bf16", "pool64_w4a8", "pool64_w4a8_gptq")
+CLOSED_LOOP_EPISODES = 1
 
 
 class _FlashConfigs:
@@ -5027,6 +5119,7 @@ def _openloop(label, argv, examples: int, per_batch: dict) -> dict:
             or not np.isfinite(floats).all()):
         raise RuntimeError(f"{label}: metrics {metrics}")
     _check_eval_launches(label, launches, per_batch, batches)
+    ONE_RANK[label] = metrics
     return launches
 
 
@@ -5309,13 +5402,19 @@ class _TimedCalibration:
 
 def closed_loop() -> dict:
     """Phase 51: experiments/quant_closed_loop's pool64 variants as a user
-    runs them (in-process): bf16, w4a8 and w4a8 GPTQ, 2 episodes each, the
-    report lines against the bf16 control."""
+    runs them (in-process): bf16, w4a8 and w4a8 GPTQ, CLOSED_LOOP_EPISODES
+    each (the experiment rolls 2; one is a cut of its depth to keep the
+    script inside its time limit), the report lines against the bf16
+    control."""
     from blurr_tpu_torch.experiments import quant_closed_loop as qcl
 
     _zero_counts()
     t0 = time.monotonic()
-    out = qcl.main(list(CLOSED_LOOP_VARIANTS))
+    episodes, qcl.EPISODES = qcl.EPISODES, CLOSED_LOOP_EPISODES
+    try:
+        out = qcl.main(list(CLOSED_LOOP_VARIANTS))
+    finally:
+        qcl.EPISODES = episodes
     torch.cuda.synchronize()
     launches = _counts()
     steps = {tag: len(out[tag][0]) for tag in CLOSED_LOOP_VARIANTS}
@@ -5330,6 +5429,497 @@ def closed_loop() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Tensor and data parallelism: two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+TP = 2
+# K1 on a rank of a tp=2 Pi-0: its 8/tp query heads over the one KV head, at
+# the 277-row prefill (bridge.yaml) and the 97-row one (pool64)
+TP2_FLASH_SHAPES = [(1, 4, 1, 277, 277, 256), (1, 4, 1, 97, 97, 256)]
+# (M, K, N, G) of the pool64 w4a8 step's tensor-parallel w4a8 linears (k and
+# v stay whole): vlm q/o, gate/up, down at the 96-token prefill; action q,
+# o, gate/up, down at M 1 (proprio prefill) and 4 (decode). A rank runs K2 on
+# its NB/tp blocks of the packing pick_block_layout(N, tp) gives, over the
+# whole K (a row-parallel input is gathered first)
+TP2_PI0_INT4 = [(96, 2048, 2048, 4), (96, 2048, 16384, 4), (96, 16384, 2048, 32),
+                *[(m, k, n, g) for m in (1, 4) for k, n, g in (
+                    (1024, 2048, 2), (2048, 1024, 4), (1024, 4096, 2), (4096, 1024, 8))]]
+# (M, K, N, G) of the pool64 w4a8 step's w4a8 products that tp=2 keeps whole
+# (vlm and action k and v: Gemma is multi-query), which shard_params still
+# re-lays for the model axis (repack_w4a8: pick_block_layout(256, 2) is BN 128
+# x NB 2 where one rank's packing is BN 256 x NB 1)
+TP2_PI0_INT4_WHOLE = [(96, 2048, 256, 4), (1, 1024, 256, 2), (4, 1024, 256, 2)]
+# OpenVLA-7B's (all its LLM linears split): q/k/v/o, gate/up, down and the
+# head, at M 1 (decode) and 288 (the prompt)
+TP2_OPENVLA_INT4 = [(m, k, n, g) for m in (1, 288) for k, n, g in (
+    (4096, 4096, 8), (4096, 11008, 8), (11008, 4096, 43), (4096, 32064, 8))]
+# (M, K, N) of the pool64 int8 step's tensor-parallel int8 linears on a rank:
+# q and gate/up cut on N, o and down on K (k, v and the action encoder whole)
+TP2_INT8_SHAPES = [(m, k, n) for m in (1, 4) for k, n in (
+    (1024, 1024), (1024, 2048), (2048, 1024))]
+TP2_OPENVLA_FRAMES = 2
+DP2_CLIENTS = 4
+# open-loop metrics at --dp 2 against --dp 1: each rank scores 4 rows of a
+# batch of 8, and a bf16 step of another row count rounds otherwise; the
+# metrics are means over 20 x 4 x 7 errors
+OPENLOOP_DP_RTOL = 2e-2
+
+
+def _pi0_prefix_mask(b, sq, device):
+    """A Pi-0 prefix mask over ``sq`` rows (the prompt and one proprio
+    token), 10 pad rows fully masked."""
+    from blurr_tpu_torch.ops.masks import pi0_prefix_mask
+
+    am = torch.zeros(b, sq - 1, dtype=torch.int32, device=device)
+    am[:, :sq - 11] = 1
+    return pi0_prefix_mask(am, sq - 1, 1)
+
+
+def _tp2_flash(device) -> list:
+    """K1 at each rank's shape of a tp=2 Pi-0 prefill, bf16, against its
+    plain version (and the same bits twice), timed beside SDPA and its
+    bound."""
+    from blurr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+
+    out = []
+    for shape in TP2_FLASH_SHAPES:
+        b, nh, kvh, sq, skv, d = shape
+        mask = _pi0_prefix_mask(b, sq, device)
+        err = _hold_flash(shape, torch.bfloat16, BF16_TOL, "tp2-kernels", device, mask=mask)
+        q, k, v, _ = _attention_inputs(shape, device, mask=mask)
+        qc, kc, vc = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        t = _kernel_times(lambda: flash_attention(qc, kc, vc, mask),
+                          lambda: flash_attention_reference(qc, kc, vc, mask),
+                          lambda: torch.nn.functional.scaled_dot_product_attention(
+                              qc, kc, vc, attn_mask=mask[:, None], enable_gqa=True))
+        least = _bound((qc, kc, vc, mask), (qc,), 4 * b * nh * sq * skv * d, "bf16")
+        log(f"tp2-kernels: flash_attention time at {shape} bf16: {_fmt_times(t)}; bound "
+            f"{least['bound_ms']:.5f} ms ({least['bound_by']}), {least['bound_ms'] / t['graph_ms']:.1%} "
+            f"of it reached in a CUDA graph; on {card()}")
+        out.append({"shape": list(shape), "max_abs_err": err, **t, **least})
+    return out
+
+
+def _tp2_int4(g, shape, label) -> dict:
+    """K2 at one rank's column blocks of an (M, K, N, G) w4a8 product packed
+    for tp=2: each rank's shard bit-equal to its plain version and to the
+    matching columns of the unsharded K2 output, rank 0's timed in a CUDA
+    graph beside its bound and a bf16 matmul of its dense columns."""
+    from blurr_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_reference, pick_block_layout
+
+    m, k, n, groups = shape
+    bn, n_pad = pick_block_layout(n, TP)
+    x, packed, s, q = _int4_inputs(g, m, k, n_pad, groups, bn=bn)
+    whole = int4_matmul(x, packed, s)
+    nb, w = packed.shape[0] // TP, n_pad // TP
+    shards = []
+    for r in range(TP):
+        pr, sr = packed[r * nb:(r + 1) * nb].contiguous(), s[:, r * w:(r + 1) * w].contiguous()
+        out = int4_matmul(x, pr, sr)
+        ref = int4_matmul_reference(x, pr, sr)
+        again = torch.equal(out, int4_matmul(x, pr, sr))
+        torch.cuda.synchronize()
+        ok = torch.equal(out, ref) and torch.equal(out, whole[:, r * w:(r + 1) * w]) and again
+        if not ok:
+            raise RuntimeError(f"{label}: K2's rank-{r} shard of {shape} is not bit-equal to "
+                               "its plain version and the unsharded columns")
+        shards.append((pr, sr, out))
+    pr, sr, out = shards[0]
+    graph = _graph_ms(lambda: int4_matmul(x, pr, sr))
+    plain = _graph_ms(lambda: int4_matmul_reference(x, pr, sr))
+    least = _bound((x, pr, sr), (out,), 2 * m * k * w, "int8")
+    xb, wb = x.bfloat16(), q[:, :w].bfloat16()
+    dense = _graph_ms(lambda: torch.matmul(xb, wb))
+    log(f"{label}: int4_matmul rank shard of (M, K, N, G)={shape}: (M, K, N_pad/tp, G)="
+        f"{(m, k, w, groups)} BN {bn} ({nb} of {packed.shape[0]} blocks a rank), each rank "
+        f"bit-equal to its plain version and to the unsharded output's columns; graph_ms "
+        f"{graph:.5f} (plain {plain:.5f}), bound {least['bound_ms']:.5f} ms "
+        f"({least['bound_by']}), {least['bound_ms'] / graph:.1%} of it reached; bf16 matmul "
+        f"of the dense columns graph_ms {dense:.5f}; on {card()}")
+    return {"shape": [m, k, w, groups], "bn": bn, "max_abs_err": 0.0, "graph_ms": graph,
+            "plain_graph_ms": plain, "dense_bf16_graph_ms": dense, **least}
+
+
+def _tp2_int4_whole(g, shape, label) -> dict:
+    """K2 at an (M, K, N, G) w4a8 product that tp=2 keeps whole, on the
+    packing ``repack_w4a8`` re-lays for the model axis: bit-equal to its
+    plain version and to K2 on the one-rank packing, timed in a CUDA graph
+    beside its bound and a bf16 matmul of the dense weight."""
+    from blurr_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_reference
+    from blurr_tpu_torch.ops.quant import repack_w4a8
+
+    m, k, n, groups = shape
+    x, packed, s, q = _int4_inputs(g, m, k, n, groups)
+    relaid = repack_w4a8({"q4": packed, "s": s[:, :n]}, TP)["q4"]
+    one = int4_matmul(x, packed, s)
+    out = int4_matmul(x, relaid, s)
+    again = torch.equal(out, int4_matmul(x, relaid, s))
+    ref = int4_matmul_reference(x, relaid, s)
+    torch.cuda.synchronize()
+    if not (relaid.shape != packed.shape and torch.equal(out, ref) and torch.equal(out, one)
+            and again):
+        raise RuntimeError(f"{label}: K2 on the re-laid packing of {shape} is not bit-equal "
+                           "to its plain version and the one-rank packing's output")
+    bn = relaid.shape[2]
+    graph = _graph_ms(lambda: int4_matmul(x, relaid, s))
+    plain = _graph_ms(lambda: int4_matmul_reference(x, relaid, s))
+    least = _bound((x, relaid, s), (out,), 2 * m * k * n, "int8")
+    xb, wb = x.bfloat16(), q.bfloat16()
+    dense = _graph_ms(lambda: torch.matmul(xb, wb))
+    log(f"{label}: int4_matmul whole product (M, K, N, G)={shape} on the packing re-laid for "
+        f"tp={TP}: BN {bn} x NB {relaid.shape[0]} (one rank's: BN {packed.shape[2]} x NB "
+        f"{packed.shape[0]}), bit-equal to its plain version and to the one-rank packing's "
+        f"output; graph_ms {graph:.5f} (plain {plain:.5f}), bound {least['bound_ms']:.5f} ms "
+        f"({least['bound_by']}), {least['bound_ms'] / graph:.1%} of it reached; bf16 matmul "
+        f"of the dense weight graph_ms {dense:.5f}; on {card()}")
+    return {"shape": [m, k, n, groups], "bn": bn, "whole": True, "max_abs_err": 0.0,
+            "graph_ms": graph, "plain_graph_ms": plain, "dense_bf16_graph_ms": dense, **least}
+
+
+def _tp2_int8(device, shape, label: str = "tp2-kernels") -> dict:
+    """K3 at one rank's (M, K, N) of a tp=2 int8 step, fp32 and bf16 x
+    against its plain version (as ``int8_vs_plain``), timed in a CUDA graph
+    beside its bound and the library's int8 weight-only product."""
+    from blurr_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+
+    g = torch.Generator(device=device).manual_seed(5)
+    m, k, n = shape
+    x = torch.randn(m, k, device=device, generator=g) * 2
+    q = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=device, generator=g)
+    s = torch.rand(n, device=device, generator=g) * 2e-4 + 1e-5
+    ref = int8_matmul_reference(x, q, s)
+    top, worst = ref.abs().max().item(), 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        out = int8_matmul(x.to(dtype), q, s)
+        again = torch.equal(out, int8_matmul(x.to(dtype), q, s))
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs()
+        bound = INT8_FP32_REL_TOL * top + (BF16_ROUNDING * ref.abs() if dtype == torch.bfloat16
+                                           else 0.0)
+        if not (torch.isfinite(out).all() and (err <= bound).all() and again):
+            raise RuntimeError(f"{label}: K3 disagrees with its plain version at {shape}")
+        if dtype == torch.float32:
+            worst = err.max().item()
+    xb = x.bfloat16()
+    graph = _graph_ms(lambda: int8_matmul(xb, q, s))
+    plain = _graph_ms(lambda: int8_matmul_reference(xb, q, s))
+    q_nk, s_bf16 = q.t().contiguous(), s.bfloat16()
+    library = _graph_ms(lambda: torch._weight_int8pack_mm(xb, q_nk, s_bf16))
+    least = _bound((xb, q, s), (xb.new_empty(m, n),), 2 * m * k * n, "bf16")
+    log(f"{label}: int8_matmul (M, K, N)={shape} fp32 max_abs_err={worst:.3e} (bound "
+        f"{INT8_FP32_REL_TOL * top:.3e}), bf16 within one rounding, the same bits twice; "
+        f"bf16 graph_ms {graph:.5f} (plain {plain:.5f}), bound {least['bound_ms']:.5f} ms "
+        f"({least['bound_by']}), torch._weight_int8pack_mm graph_ms {library:.5f}; on {card()}")
+    return {"shape": list(shape), "max_abs_err": worst, "graph_ms": graph,
+            "plain_graph_ms": plain, "library_graph_ms": library, **least}
+
+
+def tp2_kernels_vs_plain(device) -> dict:
+    """Phase 54: K1, K2 and K3 at every shape a rank of the tp=2 paths gives
+    them (``TP2_*``). Returns their entries by kernel name."""
+    g = torch.Generator(device=device).manual_seed(6)
+    out = {"flash_attention": _tp2_flash(device),
+           "int4_matmul": [_tp2_int4(g, shape, "tp2-kernels")
+                           for shape in TP2_PI0_INT4 + TP2_OPENVLA_INT4]
+                          + [_tp2_int4_whole(g, shape, "tp2-kernels")
+                             for shape in TP2_PI0_INT4_WHOLE],
+           "int8_matmul": [_tp2_int8(device, shape) for shape in TP2_INT8_SHAPES]}
+    torch.cuda.empty_cache()
+    return out
+
+
+def ranks_shapes_vs_plain(device, int4: set, flash: dict, int8: set, tp2: dict) -> None:
+    """Phase 60: every shape rank 0 gave K1, K2 and K3 in phases 55-59 held
+    against its plain version: K1 at each with the first mask it met there;
+    K2 (bit-equal) and K3 at those phase 54 (``tp2``, its entries) did not
+    hold. The ranks of a phase run the same shapes (each holds NB/tp blocks
+    of the same packing, or an equal slice), so rank 0's are every rank's."""
+    label = "ranks-shapes"
+    served_int4_vs_plain(device, int4, {(*e["shape"], e["bn"]) for e in tp2["int4_matmul"]},
+                         label=label, what="rank 0 of phases 55-59", by="tp2-kernels",
+                         exact=True)
+    log(f"{label}: rank 0 of phases 55-59 gave K1 {len(flash)} (shape, dtype) pairs "
+        f"{sorted((shape, str(dtype)[6:]) for shape, dtype in flash)}, each held with the "
+        "first mask it met there")
+    for (shape, dtype), mask in sorted(flash.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_EXACT_TOL
+        _hold_flash(shape, dtype, tol, label, device, mask=mask)
+    missing = sorted(int8 - {tuple(e["shape"]) for e in tp2["int8_matmul"]})
+    log(f"{label}: rank 0 of phases 55-59 gave K3 {len(int8)} shapes (M, K, N) {sorted(int8)}; "
+        f"{len(missing)} not held by tp2-kernels{f': {missing}' if missing else ''}")
+    for shape in missing:
+        _tp2_int8(device, shape, label)
+    torch.cuda.empty_cache()
+
+
+def profile_after_ranks(device) -> None:
+    """Phase 61: what phases 55-59 leave in this process: no process group
+    and no child process (the threads are logged). Then what torch.profiler
+    sees of K6's two kernels, logged and not held: in this script's process
+    it has seen no device activity after the parallel phases (PERF.md §7),
+    a fault whose cause is not known."""
+    import multiprocessing
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from blurr_tpu_torch.experiments import bench_fused_ffn
+    from blurr_tpu_torch.ops.fused_ffn import fused_ffn
+
+    label = "profile-after-ranks"
+    group = torch.distributed.is_initialized()
+    children = [p.name for p in multiprocessing.active_children()]
+    log(f"{label}: after phases 55-59: process group {group}, child processes {children}, "
+        f"threads {[t.name for t in threading.enumerate()]}")
+    if group or children:
+        raise RuntimeError(f"{label}: the parallel phases left a process group ({group}) or "
+                           f"child processes {children}")
+    g = torch.Generator(device=device).manual_seed(4)
+    m, h, inter = bench_fused_ffn.M, bench_fused_ffn.H, bench_fused_ffn.I
+    x = (torch.rand(m, h, generator=g, device=device) * 2 - 1).to(torch.bfloat16)
+    weights = bench_fused_ffn.layer_weights(h, inter, g, device)
+    fused_ffn(x, *weights)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fused_ffn(x, *weights)
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    ffn = sum(e.count for e in seen if "ffn_kernel" in e.key)
+    log(f"{label}: torch.profiler over 10 fused_ffn calls saw {len(seen)} kernel names with "
+        f"device time, {ffn} of 20 K6 launches (not held: PERF.md §7)")
+    del x, weights
+    torch.cuda.empty_cache()
+
+
+def _rank_counts(server, label, per_request: dict, steps: int) -> dict:
+    """Every rank's launches of the served kernels, each ``per_request``
+    times ``steps`` (a kernel not named: never); returns their sum over the
+    ranks."""
+    counts = server.rank_launches()
+    log(f"{label}: launches by rank {counts} ({steps} steps; expected per step and rank "
+        f"{per_request})")
+    for rank, got in enumerate(counts):
+        for name, n in got.items():
+            if n != per_request.get(name, 0) * steps:
+                raise RuntimeError(f"{label}: rank {rank} launched {name} {n} times, not "
+                                   f"{per_request.get(name, 0) * steps}")
+    return {name: sum(c.get(name, 0) for c in counts) for name in KERNEL_NAMES}
+
+
+def _serve_ranks(server, label, requests, clients: int = 1):
+    """``requests`` ((image, instruction, proprio)) through the port's
+    ActionClient from ``clients`` threads, after a warmup and with every
+    rank's counts set to 0 just before. Returns (answers in request order,
+    the stats, the server still running)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from blurr_tpu_torch.serving.client import ActionClient
+
+    log(f"{label}: warmup {server.warmup():.2f} s")
+    server.rank_launches(zero=True)
+
+    def run(part):
+        with ActionClient(port=server.port) as client:
+            out = []
+            for i in part:
+                t = time.monotonic()
+                out.append((i, client.predict(*requests[i]), (time.monotonic() - t) * 1000.0))
+            return out
+
+    parts = [list(range(c, len(requests), clients)) for c in range(clients)]
+    with ThreadPoolExecutor(clients) as pool:
+        done = sorted(x for part in pool.map(run, parts) for x in part)
+    with ActionClient(port=server.port) as client:
+        stats = client.stats()
+    log(f"{label}: {len(requests)} requests from {clients} client(s), latency ms (client) "
+        f"{[round(ms, 3) for _, _, ms in done]}, server p50 {stats.get('latency_ms_p50')} ms "
+        f"(host clock; two ranks time-share one card, so no multi-card speed is claimed; "
+        f"on {card()})")
+    return [a for _, a, _ in done], stats
+
+
+def _start_ranks(label, make):
+    t0 = time.monotonic()
+    server = make()
+    torch.cuda.synchronize()
+    thread = _start(server)
+    log(f"{label}: {server.world} ranks (dp {server.dp} x tp {server.tp}) on backend "
+        f"{server.backend}, rank 0 on {server.device}; built and sharded in "
+        f"{time.monotonic() - t0:.2f} s; rank 0's resident parameters and buffers "
+        f"{resident_bytes(server.model)} B, allocated {torch.cuda.memory_allocated()} B")
+    return server, thread
+
+
+def _held_to_one_rank(label, answers, want, tol) -> float:
+    worst = max(float(np.abs(a - b).max()) for a, b in zip(answers, want))
+    log(f"{label}: answers against the one-process server's on the same weights and "
+        f"requests: max_abs_diff={worst:.3e} (tol {tol:g})")
+    if not worst <= tol:
+        raise RuntimeError(f"{label}: answers {worst} from the one-process server's")
+    return worst
+
+
+def served_tp2(device, label: str, config: str, one_rank: str, per_step: dict,
+               cache_fp=None) -> dict:
+    """Phases 55 and 57: ``config`` at full width served by two tensor-parallel
+    ranks (K1 on), drawn from the seed of the one-process phase
+    ``one_rank``: its N_REQUESTS answers within MODEL_TOL of that phase's,
+    each rank's launches ``per_step`` a step, rank 0's resident weights
+    against the one-process server's and one step of rank 0's kernels
+    under the profiler."""
+    from blurr_tpu_torch.presets import apply_preset, load_config
+    from blurr_tpu_torch.serving.server import ActionServer
+
+    cfg = load_config(config)
+    if config.endswith("bridge.yaml"):
+        apply_preset(cfg, "blurr")
+    if cache_fp is not None:
+        cfg["action_quantization"]["cache_fp_weight"] = cache_fp
+    cfg["joint"]["config"]["use_flash_attn"] = True
+    image, proprio, want, whole = ONE_RANK[one_rank]
+    server, thread = _start_ranks(label, lambda: ActionServer(
+        cfg, "random", device=device, seed=0, tp=TP))
+    try:
+        weights = resident_bytes(server.model)
+        log(f"{label}: resident weight bytes per rank {weights} B ({weights / 1e9:.3f} GB) "
+            f"against one rank's {whole} B ({whole / 1e9:.3f} GB): {weights / whole:.3f}x")
+        answers, stats = _serve_ranks(
+            server, label, [(image, "put the spoon on the towel", proprio)] * N_REQUESTS)
+        launches = _rank_counts(server, label, per_step, N_REQUESTS)
+        _step_device_time(server, image, proprio, f"{label} (rank 0's kernels)",
+                          *per_step)
+    finally:
+        _stop(server, thread)
+    for a in answers:
+        _check_chunk(label, a)
+    _held_to_one_rank(label, answers, want, MODEL_TOL)
+    del server
+    _free()
+    return launches
+
+
+def served_dp2(device) -> dict:
+    """Phase 56: bridge.yaml blurr bf16 over two data ranks, max_batch 4:
+    DP2_CLIENTS concurrent clients (each rank 17 K1 a batch); then one bucket
+    of 4 requests through both ranks against rank 0 computing the whole
+    bucket alone (it holds the whole model), within MODEL_TOL."""
+    from blurr_tpu_torch.presets import apply_preset, load_config
+    from blurr_tpu_torch.serving.server import ActionServer
+
+    label = "serve-dp2"
+    cfg = load_config("config/eval/bridge.yaml")
+    apply_preset(cfg, "blurr")
+    cfg["joint"]["config"]["use_flash_attn"] = True
+    pool = _pi0_requests(cfg["vision"]["config"]["image_size"], 4)
+    server, thread = _start_ranks(label, lambda: ActionServer(
+        cfg, "random", device=device, seed=0, dp=2, max_batch=4,
+        batch_window_ms=BATCH_WINDOW_MS))
+    try:
+        log(f"{label}: buckets {server._buckets()} (the smallest is dp)")
+        answers, stats = _serve_ranks(server, label, [pool[i % 4] for i in range(8)],
+                                      clients=DP2_CLIENTS)
+        launches = _rank_counts(server, label, {"flash_attention": 17}, stats["batches_total"])
+        log(f"{label}: {stats['batches_total']} batches, occupancy "
+            f"{stats['batch_occupancy_mean']}, padding {stats['padding_frac']}")
+        inputs = [server._prepare(*r) for r in pool]
+        bucket = tuple(torch.cat([x[i] for x in inputs]) for i in range(4))
+        with server._lock:
+            both = server._step(*bucket, request_idx=7)
+            alone = server._infer(*bucket, server.noise(7, 4)).float().cpu().numpy()
+    finally:
+        _stop(server, thread)
+    for a in answers:
+        _check_chunk(label, a)
+    _held_to_one_rank(f"{label} bucket of 4", list(both), list(alone), MODEL_TOL)
+    del server
+    _free()
+    return launches
+
+
+def served_tp2_openvla(device) -> dict:
+    """Phase 58: OpenVLA-7B w4a8 AR on two tensor-parallel ranks (the LLM
+    drawn quantized from the one-process phase's seed): the same answers
+    (tokens) as phase 26 on TP2_OPENVLA_FRAMES frames, each rank K2
+    OPENVLA_AR_LAUNCHES a request; then a hot reload (the weights drawn and
+    re-sharded on every rank) and the first frame again, the same answer."""
+    from blurr_tpu_torch.serving.openvla_server import OpenVLAActionServer
+
+    label = "serve-tp2-openvla"
+    want, whole = ONE_RANK["serve-openvla-7b-w4a8"]
+    frames = _openvla_frames()[:TP2_OPENVLA_FRAMES]
+    server, thread = _start_ranks(label, lambda: OpenVLAActionServer(
+        "random-7b", quantization="w4a8", device=device, tp=TP))
+    try:
+        weights = resident_bytes(server.model)
+        log(f"{label}: resident weight bytes per rank {weights} B against one rank's {whole} "
+            f"B: {weights / whole:.3f}x")
+        requests = [(f, OPENVLA_INSTRUCTION, [0.0] * 7) for f in frames]
+        answers, _ = _serve_ranks(server, label, requests)
+        launches = _rank_counts(server, label, {"int4_matmul": OPENVLA_AR_LAUNCHES},
+                                len(frames))
+        t0 = time.monotonic()
+        server.reload_checkpoint("")
+        log(f"{label}: hot reload (drawn again, re-sharded on every rank) "
+            f"{time.monotonic() - t0:.2f} s")
+        server.rank_launches(zero=True)
+        again = server.predict(*requests[0])
+        more = _rank_counts(server, f"{label} after the reload",
+                            {"int4_matmul": OPENVLA_AR_LAUNCHES}, 1)
+    finally:
+        _stop(server, thread)
+    for a, b in zip(answers, want):
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"{label}: {a} against the one-process answer {b}")
+    if not np.array_equal(again, answers[0]):
+        raise RuntimeError(f"{label}: after the reload {again}, before {answers[0]}")
+    log(f"{label}: {len(frames)} answers equal the one-process server's (the same tokens); "
+        f"after the reload the same answer")
+    del server
+    _free()
+    return {name: launches[name] + more[name] for name in KERNEL_NAMES}
+
+
+def openloop_dp2(device, tmp: str) -> dict:
+    """Phase 59: scripts/eval_openloop_torch.py --dp 2 in-process on
+    bridge.yaml bf16 with K1 on (a YAML over bridge.yaml that sets it, so
+    the spawned rank reads it too): its metrics against phase 49's --dp 1
+    run of the same config within OPENLOOP_DP_RTOL (rows scored in batches
+    of 4 instead of 8), each rank's 17 K1 a batch (the spawned rank's counts
+    come back with its reply)."""
+    from blurr_tpu_torch.paths import config_root
+
+    config = os.path.join(tmp, "bridge_flash.yaml")
+    with open(config, "w") as f:
+        f.write(f"defaults:\n  - {config_root() / 'eval' / 'bridge'}\n"
+                "joint:\n  config:\n    use_flash_attn: true\n")
+    argv = ["--config", config, "--checkpoint", "random", "--examples", "20",
+            "--batch-size", str(OPENLOOP_BATCH), "--use-bf16", "--dp", "2"]
+    one = ONE_RANK["openloop-bf16"]
+    _zero_counts()
+    t0 = time.monotonic()
+    others = []
+    two = _cli("eval_openloop_torch").main(argv, rank_launches=others)
+    torch.cuda.synchronize()
+    counts = [_counts(), *({name: c.get(name, 0) for name in KERNEL_NAMES} for c in others)]
+    batches = -(-20 // OPENLOOP_BATCH)
+    log(f"openloop-dp2: --dp 2 in {time.monotonic() - t0:.2f} s (two ranks, gloo, one "
+        f"card): mse {two['mse']:.6f} mae {two['mae']:.6f} against --dp 1's {one['mse']:.6f} "
+        f"{one['mae']:.6f}; launches by rank {counts}; on {card()}")
+    for key in ("mse", "mae", "mse_prefix", "eef_l2"):
+        if not abs(two[key] - one[key]) <= OPENLOOP_DP_RTOL * abs(one[key]):
+            raise RuntimeError(f"openloop-dp2: {key} {two[key]} against --dp 1's {one[key]}")
+    if two["examples"] != one["examples"] or set(two) != OPENLOOP_METRICS:
+        raise RuntimeError(f"openloop-dp2: metrics {two}")
+    if len(counts) != 2:
+        raise RuntimeError(f"openloop-dp2: launch counts of {len(counts)} ranks, not 2")
+    for rank, got in enumerate(counts):
+        _check_eval_launches(f"openloop-dp2 (rank {rank})", got, {"flash_attention": 17},
+                             batches)
+    _free()
+    return {name: sum(c[name] for c in counts) for name in KERNEL_NAMES}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
@@ -5337,22 +5927,31 @@ def main() -> int:
         return 1
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    t_start = time.monotonic()
+
+    def elapsed(phases: str) -> None:
+        log(f"elapsed: phases {phases} done at {time.monotonic() - t_start:.1f} s")
+
     kind = probe()
     build()
     flash = kernel_vs_plain(device)
     kernel_text_vs_plain(device)
     int4 = int4_vs_plain(device)
     int8 = int8_vs_plain(device)
+    tp2 = tp2_kernels_vs_plain(device)
+    elapsed("1-3b, 54")
     server, cfg, image, proprio, launches, actions = served_control_steps(device)
     model_kernel_vs_plain(server, image, proprio)
     checkpoint_launches = served_checkpoint(device, server, cfg, actions)
     del server
     _free()
+    elapsed("4-5e")
     batched_launches = served_batched(device)
     backpressure_launches = served_backpressure(device)
     small_model_vs_cpu(device)
     baseline_launches = served_baseline_steps(device)
     torch.cuda.empty_cache()
+    elapsed("6-6b")
     small_model_vs_cpu(device, adaptive="adaLN-Zero")
     w4a8_launches = served_w4a8_steps(device)
     torch.cuda.empty_cache()
@@ -5363,10 +5962,12 @@ def main() -> int:
     cached_launches = served_int8_steps(device, cache_fp=True)
     torch.cuda.empty_cache()
     small_model_vs_cpu(device, "int8")
+    elapsed("4-11")
     experiments = experiments_vs_plain(device)
     torch.cuda.empty_cache()
     experiment_launches = experiments_run()
     torch.cuda.empty_cache()
+    elapsed("12-13")
     with tempfile.TemporaryDirectory(prefix="blurr_eval_") as tmp:
         agent, eval_launches = eval_agent_blurr(device, tmp)
         frame_launches = from_frame(device, agent)
@@ -5377,11 +5978,13 @@ def main() -> int:
         _free()
         eval_w4a8_launches = eval_agent_w4a8(device, tmp)
         _free()
+        elapsed("14-18")
         with _RecordInt4Shapes() as openloop_shapes, _RecordFlashShapes() as scored_flash:
             scored_launches = record_then_score(
                 [(f"record-then-score-{kind}", os.path.join(tmp, f"recorded_{kind}"),
                   _recorded_examples(os.path.join(tmp, f"recorded_{kind}")))
                  for kind in ("serial", "async")])
+    elapsed("47-48")
     eval_cli()
     small_agent_launches = small_agent_vs_cpu(device)
     _free()
@@ -5389,15 +5992,20 @@ def main() -> int:
     text_paligemma_launches = text_paligemma(device)
     small_text_launches = small_text_vs_cpu(device)
     _free()
+    elapsed("14-23")
     held = int4_openvla_vs_plain(device)
     with _RecordInt4Shapes() as served:
         openvla_runs = (served_openvla_7b(device), served_openvla_7b_w4a8(device),
                         served_openvla_7b_w8a8(device), served_openvla_oft(device),
                         served_minivla(device), openvla_snapshot(device),
-                        served_openvla_batched(device), eval_hf_7b_w4a8(device),
-                        eval_hf_snapshot(device), eval_prismatic(device))
+                        served_openvla_batched(device))
+        elapsed("24-30b")
+        openvla_runs += (eval_hf_7b_w4a8(device), eval_hf_snapshot(device),
+                         eval_prismatic(device))
+        elapsed("32-34")
     jacobi_fp32(device)
     served_int4_vs_plain(device, served.seen, held)
+    elapsed("24-35")
     small_train_vs_cpu(device)
     with tempfile.TemporaryDirectory(prefix="blurr_train_") as tmp:
         train_launches, trained, save_dir = train_qlora_w4a8(device, tmp, set())
@@ -5406,6 +6014,7 @@ def main() -> int:
         del trained
         _free()
         full_launches = train_full(device, tmp)
+    elapsed("36-40")
     with tempfile.TemporaryDirectory(prefix="blurr_vla_train_") as tmp:
         t0 = time.monotonic()
         vla_launches, vla_run, vla_shapes, params, data = train_openvla_qlora(device, tmp)
@@ -5432,7 +6041,31 @@ def main() -> int:
                          what="the open-loop, GPTQ and closed-loop phases", by="an earlier phase",
                          exact=True)
     log(f"openloop-gptq: the phases took {time.monotonic() - t0:.1f} s")
-    runs = (launches, checkpoint_launches, batched_launches, backpressure_launches,
+    elapsed("36-53")
+    # the ranks' phases come last: each joins and leaves a process group in
+    # this process, and no earlier phase runs after one
+    t0 = time.monotonic()
+    with _RecordInt4Shapes() as ranks_int4, _RecordFlashShapes() as ranks_flash, \
+            _RecordInt8Shapes() as ranks_int8:
+        tp2_launches = served_tp2(device, "serve-tp2", "config/eval/bridge.yaml", "serve",
+                                  {"flash_attention": 17})
+        dp2_launches = served_dp2(device)
+        tp2_w4a8_launches = served_tp2(
+            device, "serve-tp2-w4a8", "config/eval/bridge_pool64_w4a8_steps1.yaml",
+            "serve-w4a8", {"flash_attention": 17, "int4_matmul": W4A8_STEP_LAUNCHES})
+        tp2_int8_launches = served_tp2(
+            device, "serve-tp2-int8", "config/eval/bridge_pool64_steps2.yaml", "serve-int8",
+            {"flash_attention": 17, "int8_matmul": INT8_STEP_LAUNCHES}, cache_fp=False)
+        tp2_openvla_launches = served_tp2_openvla(device)
+        with tempfile.TemporaryDirectory(prefix="blurr_dp2_") as tmp:
+            dp2_openloop_launches = openloop_dp2(device, tmp)
+    ranks_shapes_vs_plain(device, ranks_int4.seen, ranks_flash.seen, ranks_int8.seen, tp2)
+    profile_after_ranks(device)
+    log(f"parallel: the tensor- and data-parallel serving phases (55-61) took "
+        f"{time.monotonic() - t0:.1f} s")
+    elapsed("55-61")
+    runs = (tp2_launches, dp2_launches, tp2_w4a8_launches, tp2_int8_launches,
+            tp2_openvla_launches, dp2_openloop_launches, launches, checkpoint_launches, batched_launches, backpressure_launches,
             baseline_launches, w4a8_launches, batched_w4a8_launches, int8_launches,
             cached_launches, experiment_launches, eval_launches, frame_launches,
             async_launches, eval_batched_launches, eval_w4a8_launches, small_agent_launches,
@@ -5441,7 +6074,10 @@ def main() -> int:
             vla_launches, vla_resume_launches, vla_serve_launches, oft_launches, peft_launches,
             *scored_launches, *openloop_launches, gptq_launches, closed_loop_launches)
     total = {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
-    measured = {"flash_attention": flash, "int4_matmul": int4, "int8_matmul": int8,
+    # K1, K2 and K3 at the shapes a rank of the tp=2 paths gives them
+    measured = {"flash_attention": {**flash, "shapes_tp2": tp2["flash_attention"]},
+                "int4_matmul": {**int4, "shapes_tp2": tp2["int4_matmul"]},
+                "int8_matmul": {**int8, "shapes_tp2": tp2["int8_matmul"]},
                 **experiments}
     # the TPU kernel each replaces (file:line of its kernel body); K2 also
     # replaces the bitcast int4 kernels of the experiments, at one group

@@ -24,8 +24,16 @@ mse / mae over the whole chunk, mse over the first --act-steps rows (the
 executed prefix), per-dim mse, eef_l2 (the mean L2 error of the first 6
 dims per step) and gripper_agreement (the sign-match rate of the last dim).
 The flow noise of batch i is JAX's ``normal(fold_in(PRNGKey(seed), i))``
-(``ops/prng.py``), so reruns give the same numbers. --dp > 1 is refused
-(ROADMAP M14).
+(``ops/prng.py``), so reruns give the same numbers.
+
+--dp N > 1 scores each batch over N data ranks (JAX's 'data' mesh axis),
+one process each: this process is rank 0 and spawns the others
+(``blurr_tpu_torch/parallel/mesh.py``; gloo on the CPU or where ranks
+share a card, nccl where each has its own). Every rank builds the same
+model, draws the batch's whole noise and scores its batch-size / N rows;
+the error sums are reduced onto rank 0, which alone prints and writes. The
+per-example math is unchanged, so the metrics are --dp 1's (up to the
+rounding of a matmul at another row count). --batch-size must divide by N.
 """
 
 from __future__ import annotations
@@ -34,12 +42,15 @@ import argparse
 import json
 import sys
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
 if str(REPO_ROOT) not in sys.path:
     sys.path.insert(0, str(REPO_ROOT))
+
+from blurr_tpu_torch.utils.decorator import main_rank_only  # noqa: E402
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -58,7 +69,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--act-steps", type=int, default=4,
                    help="Executed-prefix length for the truncated metrics.")
     p.add_argument("--use-bf16", action="store_true")
-    p.add_argument("--dp", type=int, default=1, help="not ported (ROADMAP M14)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="Data-parallel shards over the 'data' ranks "
+                        "(needs batch-size divisible by dp; one process per "
+                        "rank; per-example math is unchanged, so metrics "
+                        "match single-device).")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--output-json", type=str, default="",
                    help="Also write the metrics dict to this path.")
@@ -128,17 +143,71 @@ def load_eval_batches(cfg, args):
         yield batch, live
 
 
-def main(argv=None) -> dict:
+def main(argv=None, rank_launches: Optional[list] = None) -> dict:
+    """Run the evaluation of ``argv``; with --dp > 1, ``rank_launches`` (a
+    list) gets each spawned data rank's kernel launch counts ({name:
+    count}), in rank order."""
     args = parse_args(argv)
-    if args.dp > 1:
-        sys.exit(f"--dp {args.dp}: data-parallel evaluation is not ported to the PyTorch "
-                 "port yet (ROADMAP M14)")
+    if args.dp > 1 and args.batch_size % args.dp:
+        sys.exit(f"--batch-size {args.batch_size} must be divisible by --dp {args.dp}")
+    if args.dp == 1:
+        return evaluate(args)
+    from blurr_tpu_torch.parallel.mesh import PG_TIMEOUT_S, Workers, free_tcp_init_method
+
+    init_method = free_tcp_init_method()
+    workers = Workers(args.dp, _rank_main, (args, init_method))
+    try:
+        metrics = _rank_eval(0, args, init_method)
+        replies = workers.replies(PG_TIMEOUT_S)
+        if rank_launches is not None:
+            rank_launches.extend(reply[1] for reply in replies)
+    except Exception as exc:
+        errs = workers.pending_errors()
+        if errs:
+            raise RuntimeError("; ".join(errs)) from exc
+        raise
+    finally:
+        workers.join(PG_TIMEOUT_S)
+    return metrics
+
+
+def _rank_main(rank: int, conn, args, init_method: str) -> None:
+    """A spawned data rank: score its rows, then report to rank 0 with its
+    kernels' launch counts."""
+    from blurr_tpu_torch.serving.server import SERVED_KERNELS
+
+    try:
+        _rank_eval(rank, args, init_method)
+    except BaseException as exc:
+        conn.send(("error", f"{type(exc).__name__}: {exc}"))
+        raise
+    conn.send(("ok", {name: fn.launches for name, fn in SERVED_KERNELS.items()}))
+
+
+def _rank_eval(rank: int, args, init_method: str):
+    import torch.distributed as dist
+
+    from blurr_tpu_torch.parallel.mesh import init_ranks, make_mesh
+
+    backend, device = init_ranks(rank, args.dp, init_method, args.device)
+    try:
+        return evaluate(args, make_mesh(data=args.dp), device)
+    finally:
+        dist.destroy_process_group()
+
+
+def evaluate(args, mesh=None, device=None):
+    """The metrics of ``args``' run: on one rank, or this data rank's rows
+    of every batch with the sums reduced onto rank 0 (which alone reports
+    and returns them; the others return None)."""
     import torch
 
     from blurr_tpu_torch import benchmarks as B
     from blurr_tpu_torch.ops import prng
+    from blurr_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, data_rows
 
-    device = torch.device(args.device)
+    mesh = mesh or Mesh()
+    device = torch.device(device or args.device)
     dtype = torch.bfloat16 if args.use_bf16 else torch.float32
     cfg = B.load_cfg(args.config)
     model = B.load_model(cfg, args.checkpoint, dtype, device)
@@ -157,6 +226,7 @@ def main(argv=None) -> dict:
     count_prefix = 0
     k = min(args.act_steps, n_tok)
     n_eval = 0
+    rows = args.batch_size // mesh.data
     for bidx, (batch, live) in enumerate(load_eval_batches(cfg, args)):
         ids, am = (torch.from_numpy(np.asarray(batch[name], np.int32)).to(device)
                    for name in ("input_ids", "attention_mask"))
@@ -164,8 +234,12 @@ def main(argv=None) -> dict:
                   for name in ("pixel_values", "proprios"))
         noise = prng.normal(prng.fold_in(key, bidx), (ids.shape[0], n_tok, act_dim), dtype,
                             device)
+        # this data rank's rows of the batch, and how many of them are live
+        live = min(max(live - mesh.data_rank * rows, 0), rows)
+        ids, am, px, pr, noise = (data_rows(t, mesh) for t in (ids, am, px, pr, noise))
         pred = infer(ids, am, px, pr, noise).float().cpu().numpy().astype(np.float64)[:live]
-        gt = np.asarray(batch["actions"], np.float64)[:live]
+        gt = data_rows(torch.from_numpy(np.asarray(batch["actions"], np.float64)),
+                       mesh).numpy()[:live]
         err = pred - gt
         se += (err ** 2).sum(axis=(0, 1))
         ae += np.abs(err).sum()
@@ -176,7 +250,23 @@ def main(argv=None) -> dict:
         count_steps += live * n_tok
         count_prefix += live * k
         n_eval += live
+    if mesh.data > 1:  # every data rank's sums onto rank 0 (fp64, on the host)
+        sums = torch.from_numpy(np.concatenate([se, [ae, se_prefix, eef_l2_sum, grip_match,
+                                                     grip_total, count_steps, count_prefix,
+                                                     n_eval]]))
+        sums = all_reduce_sum(sums, mesh.data_group).numpy()
+        if mesh.rank:
+            return None
+        se, (ae, se_prefix, eef_l2_sum) = sums[:act_dim], sums[act_dim:act_dim + 3]
+        grip_match, grip_total, count_steps, count_prefix, n_eval = (
+            int(v) for v in sums[act_dim + 3:])
+    return _report(args, se, ae, se_prefix, eef_l2_sum, grip_match, grip_total, count_steps,
+                   count_prefix, n_eval, n_tok, act_dim, k)
 
+
+@main_rank_only
+def _report(args, se, ae, se_prefix, eef_l2_sum, grip_match, grip_total, count_steps,
+            count_prefix, n_eval, n_tok, act_dim, k) -> dict:
     per_dim_mse = se / count_steps
     metrics = {
         "examples": n_eval,

@@ -21,8 +21,13 @@ action_dim] chunk). --max-batch, --batch-window-ms, --bucket-mode and
 tree (--model-id still gives the spec, the tokenizer and the statistics;
 its adapters run unmerged over its quantized bases), and
 scripts/serve_ctl_torch.py reload DIR swaps another one in while serving.
---tp / --dp > 1 are not ported yet and fail with the server's message
-naming the ROADMAP milestone.
+--tp N splits the weights over N ranks (tensor parallelism: LLaMA's heads,
+MLP, head and embedding, SigLIP's MLP), --dp N splits each dynamic batch
+over N ranks (data parallelism: a power of 2, --max-batch >= N); one
+process per rank, this one rank 0 (blurr_tpu_torch/parallel/mesh.py: gloo
+on the CPU or where ranks share a card, nccl where each has its own). On
+the CPU: --device cpu --tp 2; on one card, the same without --device cpu
+(two ranks then share cuda:0 over gloo).
 """
 
 from __future__ import annotations
@@ -68,8 +73,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="OFT: condition on the request's proprio field.")
     p.add_argument("--proprio-dim", type=int, default=8)
     p.add_argument("--checkpoint", type=str, default="")
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel over a (dp, tp) mesh — the capacity "
+                        "path for the 7B on cards too small to hold it.")
+    p.add_argument("--dp", type=int, default=1,
+                   help="Data-parallel batch split (power of 2, requires "
+                        "--max-batch >= dp).")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to serve on: cuda (default), cuda:1, or cpu "
                         "(the plain versions of the kernels)")

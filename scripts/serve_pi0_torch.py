@@ -29,9 +29,15 @@ sets joint.config.use_flash_attn.
 --batch-window-ms of each other are padded to the next power-of-2 bucket
 (--bucket-mode max: always N) and served by one step; --max-queue M > 0
 rejects a request with an "Overloaded" error while M wait unclaimed. The
-startup warmup runs every bucket. --tp / --dp > 1 are refused (ROADMAP
-M14). scripts/serve_ctl_torch.py reads a running server's stats and
-hot-reloads its weights.
+startup warmup runs every bucket. --tp N shards the weights over N ranks
+(tensor parallelism), --dp N splits each dynamic batch over N ranks (data
+parallelism; a power of 2 with --max-batch >= N); the two compose on a (dp,
+tp) mesh of dp x tp ranks, one process each, this one rank 0
+(blurr_tpu_torch/parallel/mesh.py: gloo on the CPU or where ranks share a
+card, nccl where each has its own). On the CPU: --device cpu --tp 2; on the
+one card, the same without --device cpu (two ranks then share cuda:0 over
+gloo). scripts/serve_ctl_torch.py reads a running
+server's stats and hot-reloads its weights.
 """
 
 from __future__ import annotations
@@ -72,8 +78,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-queue", type=int, default=0,
                    help="backpressure: reject a request while this many wait "
                         "unclaimed (0 admits everything)")
-    p.add_argument("--tp", type=int, default=1, help="tensor parallelism (not ported: M14)")
-    p.add_argument("--dp", type=int, default=1, help="data parallelism (not ported: M14)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel serving over a (1, tp) mesh of ranks "
+                        "(capacity path: per-card weight bytes divided by tp; "
+                        "heads/MLP split per blurr_tpu_torch/parallel/mesh.py).")
+    p.add_argument("--dp", type=int, default=1,
+                   help="Data-parallel serving over the 'data' ranks "
+                        "(throughput path: each dynamic batch splits over dp "
+                        "ranks; power of 2, requires --max-batch >= dp; "
+                        "composes with --tp on a (dp, tp) mesh).")
     return p.parse_args(argv)
 
 

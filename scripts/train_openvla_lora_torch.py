@@ -35,7 +35,7 @@ scripts/serve_openvla_torch.py --checkpoint and
 scripts/eval_openloop_vla_torch.py --checkpoint read; --save-state /
 --save-every / --resume-state save and resume the whole training state
 (directories of safetensors and JSON, not orbax). --dp, --tp > 1 and --fsdp
-are refused (ROADMAP M14).
+are refused: they are M14's training half (ROADMAP Queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -58,6 +58,10 @@ log = logging.getLogger("train_openvla_lora")
 
 AR_KEYS = ("input_ids", "attn_valid", "pixel_values", "labels")
 OFT_KEYS = ("input_ids", "attn_valid", "pixel_values", "actions")
+
+
+# M14's training half is not ported yet
+_NOT_PORTED = "not ported: M14's training half (ROADMAP Queue 1 item 6b)"
 
 
 def parse_args(argv=None):
@@ -89,9 +93,9 @@ def parse_args(argv=None):
     p.add_argument("--ema-decay", type=float, default=0.0)
     p.add_argument("--log-every", type=int, default=5)
     p.add_argument("--save-adapter", type=str, default="")
-    p.add_argument("--dp", type=int, default=1, help="not ported (ROADMAP M14)")
-    p.add_argument("--tp", type=int, default=1, help="not ported (ROADMAP M14)")
-    p.add_argument("--fsdp", action="store_true", help="not ported (ROADMAP M14)")
+    p.add_argument("--dp", type=int, default=1, help=_NOT_PORTED)
+    p.add_argument("--tp", type=int, default=1, help=_NOT_PORTED)
+    p.add_argument("--fsdp", action="store_true", help=_NOT_PORTED)
     p.add_argument("--save-params", type=str, default="")
     p.add_argument("--save-state", type=str, default="")
     p.add_argument("--save-every", type=int, default=0)
@@ -127,10 +131,11 @@ def _refuse_parallel(args) -> None:
     for name in ("dp", "tp"):
         if getattr(args, name) > 1:
             sys.exit(f"--{name} {getattr(args, name)}: multi-card training is not ported "
-                     "to the PyTorch trainer yet (ROADMAP M14)")
+                     "to the PyTorch trainer yet (M14's training half, ROADMAP Queue 1 item "
+                     "6b)")
     if args.fsdp:
         sys.exit("--fsdp: multi-card training is not ported to the PyTorch trainer yet "
-                 "(ROADMAP M14)")
+                 "(M14's training half, ROADMAP Queue 1 item 6b)")
 
 
 def ce_loss(model, input_ids, attn_valid, pixel_values, labels, remat=False):

@@ -28,7 +28,8 @@ scripts/serve_pi0_torch.py --checkpoint DIR serves and
 scripts/export_torch_checkpoint_torch.py turns into a reference .pt;
 --save-state / --save-every / --resume-state save and resume the whole
 training state (directories of safetensors and JSON, not orbax). --dp,
---tp, --sp, --pp, --fsdp and --multihost are refused (ROADMAP M14).
+--tp, --sp, --pp, --fsdp and --multihost are refused: they are M14's
+training half (ROADMAP Queue 1 item 6b); its serving half is ported.
 """
 
 from __future__ import annotations
@@ -49,6 +50,10 @@ if str(REPO_ROOT) not in sys.path:
     sys.path.insert(0, str(REPO_ROOT))
 
 log = logging.getLogger("train_pi0_flow")
+
+
+# M14's training half is not ported yet
+_NOT_PORTED = "not ported: M14's training half (ROADMAP Queue 1 item 6b)"
 
 
 def parse_args(argv=None):
@@ -97,9 +102,9 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     for flag in ("--dp", "--tp", "--sp", "--pp"):
-        p.add_argument(flag, type=int, default=0, help="not ported (ROADMAP M14)")
-    p.add_argument("--fsdp", action="store_true", help="not ported (ROADMAP M14)")
-    p.add_argument("--multihost", action="store_true", help="not ported (ROADMAP M14)")
+        p.add_argument(flag, type=int, default=0, help=_NOT_PORTED)
+    p.add_argument("--fsdp", action="store_true", help=_NOT_PORTED)
+    p.add_argument("--multihost", action="store_true", help=_NOT_PORTED)
     return p.parse_args(argv)
 
 
@@ -129,11 +134,12 @@ def _refuse_parallel(args) -> None:
     for name in ("dp", "tp", "sp", "pp"):
         if getattr(args, name) > 1:
             sys.exit(f"--{name} {getattr(args, name)}: multi-card training is not "
-                     "ported to the PyTorch trainer yet (ROADMAP M14)")
+                     "ported to the PyTorch trainer yet (M14's training half, ROADMAP Queue 1 "
+                     "item 6b)")
     for name in ("fsdp", "multihost"):
         if getattr(args, name):
             sys.exit(f"--{name}: multi-card training is not ported to the PyTorch "
-                     "trainer yet (ROADMAP M14)")
+                     "trainer yet (M14's training half, ROADMAP Queue 1 item 6b)")
 
 
 def _to_device(batch, device):

@@ -172,5 +172,5 @@ def test_missing_key_exits_match_jax(ckpt, tmp_path, monkeypatch):
             _run_port(argv)
         assert "missing keys" in str(texit.value.code)
         assert str(texit.value.code) == str(jexit.value.code)
-    with pytest.raises(SystemExit, match="M14"):
-        _run_port(["--config", CFG, "--checkpoint", ckpt, "--dp", "2"])
+    with pytest.raises(SystemExit, match="must be divisible by --dp 2"):
+        _run_port(["--config", CFG, "--checkpoint", ckpt, "--dp", "2", "--batch-size", "3"])

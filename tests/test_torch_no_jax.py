@@ -16,8 +16,12 @@ OpenVLA family: servers (bf16 and w4a8, AR and Jacobi, OFT with proprio)
 driven through the port's client, an HF snapshot written and served, and
 ``scripts/serve_openvla_torch.py``'s server; the OpenVLA-family eval CLIs
 on tiny random models, the streaming quantizer, the checkpoint checker on a
-``.pt`` it writes, ``ModuleSpec`` and the action-accuracy metric. Then a
-static check: no ``.py`` file of the port, nor ``chip_smoke.py`` or the
+``.pt`` it writes, ``ModuleSpec`` and the action-accuracy metric. A
+subprocess of its own serves a tensor-parallel (tp=2) tiny server on two
+``gloo`` ranks through the port's client and runs ``main_rank_only``.
+Then a static check: no ``.py``
+file of the port (``parallel/mesh.py``, ``parallel/tensor_parallel.py``
+and ``utils/decorator.py`` among them), nor ``chip_smoke.py`` or the
 port's fifteen scripts, has an import whose top-level module is ``jax`` or
 ``blurr_tpu``. A second subprocess runs a QLoRA training step and a LoRA
 run's export the same way, then the OpenVLA trainer (QLoRA w4a8 AR from a
@@ -263,6 +267,59 @@ def test_port_runs_without_jax_or_blurr_tpu():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+PARALLEL_SCRIPT = textwrap.dedent(
+    """
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["blurr_tpu"] = None
+    import tempfile
+    import threading
+    import numpy as np
+    from blurr_tpu_torch.parallel import mesh, tensor_parallel  # noqa: F401
+    from blurr_tpu_torch.presets import apply_preset, load_config
+    from blurr_tpu_torch.serving.client import ActionClient
+    from blurr_tpu_torch.serving.server import ActionServer
+    from blurr_tpu_torch.utils.decorator import main_rank_only
+
+    cfg = load_config("config/eval/bridge_tiny.yaml")
+    apply_preset(cfg, "blurr")
+    size = cfg["vision"]["config"]["image_size"]
+    with tempfile.TemporaryDirectory() as tmp:
+        srv = ActionServer(cfg, "random", device="cpu", tp=2,
+                           init_method=f"file://{tmp}/store")
+        ready = threading.Event()
+        t = threading.Thread(target=srv.serve_forever,
+                             kwargs={"port": 0, "ready_event": ready}, daemon=True)
+        t.start()
+        assert ready.wait(60)
+        with ActionClient(port=srv.port) as client:
+            act = client.predict(np.zeros((size, size, 3), np.uint8), "pick", [0.0] * 7)
+            assert client.stats()["tp"] == 2
+        srv.stop()
+        t.join(30)
+    assert act.shape == (4, 7) and np.isfinite(act).all()
+    assert main_rank_only(lambda: "ran")() == "ran"
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "blurr_tpu"))
+    assert all(sys.modules[m] is None for m in loaded), loaded
+    print("NO_JAX_PARALLEL_OK")
+    """
+)
+
+
+def test_parallel_serving_runs_without_jax_or_blurr_tpu():
+    """A tensor-parallel (tp=2) tiny server, its second rank a spawned
+    process, through the port's client, and ``main_rank_only``, with
+    ``jax`` and ``blurr_tpu`` unimportable in rank 0."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BLURR_PLATFORM", "BLURR_COMPILE_CACHE")}
+    proc = subprocess.run(
+        [sys.executable, "-c", PARALLEL_SCRIPT], cwd=REPO_ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "NO_JAX_PARALLEL_OK" in proc.stdout
 
 
 TRAIN_SCRIPT = textwrap.dedent(

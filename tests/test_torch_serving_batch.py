@@ -258,10 +258,16 @@ def test_unknown_bucket_mode_is_an_error():
         ActionServer(_cfg(), "random", device="cpu", max_batch=2, bucket_mode="pow3")
 
 
-@pytest.mark.parametrize("kw,match", [({"tp": 2}, "tp.*M14"), ({"dp": 2}, "dp.*M14")])
+@pytest.mark.parametrize("kw,match", [
+    ({"dp": 3, "max_batch": 4}, "power of 2"), ({"dp": 4, "max_batch": 2}, "max_batch >= dp"),
+    ({"dp": 2, "max_batch": 3, "bucket_mode": "max"}, "divisible by dp"),
+])
 def test_parallel_flags_name_their_milestone(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        ActionServer(_cfg(), "random", device="cpu", max_batch=2, **kw)
+    """The data-parallel checks of JAX's ``_init_parallel``, made before any
+    rank is spawned (M14's serving half is ported; the flags no longer
+    name a milestone)."""
+    with pytest.raises(ValueError, match=match):
+        ActionServer(_cfg(), "random", device="cpu", **kw)
 
 
 def test_max_queue_backpressure():

@@ -129,10 +129,12 @@ def test_token_cache_is_bounded():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"tp": 2}, "tp.*M14"), ({"dp": 2}, "dp.*M14"),
+    ({"dp": 3, "max_batch": 4}, "power of 2"), ({"dp": 2}, "max_batch >= dp"),
 ])
 def test_refused_flags_name_their_milestone(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """The data-parallel checks refuse before any rank is spawned (tp / dp
+    themselves are ported: tests/test_torch_parallel_serving.py)."""
+    with pytest.raises(ValueError, match=match):
         _server(**kw)
 
 
@@ -231,10 +233,10 @@ def test_cli_builds_the_server_and_refuses_what_the_server_refuses(tmp_path):
                 batched.max_queue) == (4, 0.005, "max", 3)
     finally:
         batched.stop()
-    for flag, match in (("--tp", "tp.*M14"), ("--dp", "dp.*M14")):
-        with pytest.raises(NotImplementedError, match=match):
-            serve_openvla_torch.build_server(serve_openvla_torch.parse_args(
-                ["--device", "cpu", flag, "2"]))
+    # --dp reaches the server, whose checks run before any rank is spawned
+    with pytest.raises(ValueError, match="max_batch >= dp"):
+        serve_openvla_torch.build_server(serve_openvla_torch.parse_args(
+            ["--device", "cpu", "--dp", "2"]))
     # --checkpoint serves a trained tree (refused before the trainer was
     # ported); a directory that is not one is refused
     trained_tree(tmp_path / "params")
@@ -261,9 +263,8 @@ def test_cli_builds_the_server_and_refuses_what_the_server_refuses(tmp_path):
         assert srv._buckets() == [4] and srv.device == torch.device("cpu")
     finally:
         srv.stop()
-    for flag in ("--tp", "--dp"):
-        with pytest.raises(NotImplementedError, match="M14"):
-            pi0.build_server(pi0.parse_args(tiny + [flag, "2"]))
+    with pytest.raises(ValueError, match="power of 2"):
+        pi0.build_server(pi0.parse_args(tiny + ["--dp", "3", "--max-batch", "4"]))
 
 
 def test_jax_and_port_servers_answer_alike_on_one_snapshot(tmp_path):
