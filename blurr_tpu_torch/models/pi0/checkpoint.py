@@ -53,6 +53,11 @@ state adds ``opt.safetensors`` (the AdamW moments, the accumulator and the
 EMA of each trainable parameter, by name) and ``state.json`` (the step,
 the counters and the ``torch.Generator`` state), written last. JAX reads
 none of these directories, nor the port JAX's orbax ones (ROADMAP Queue 3).
+A model sharded over a mesh of ranks (``mesh=``) writes the gathered
+one-card tree and state (every rank takes part in the gathers, rank 0
+writes, the others wait at a barrier; ``parallel/fsdp.py``), which serves
+on one card and resumes on any mesh: a restore cuts each one-card tensor
+to the rank's slice. Orbax writes the sharded arrays instead.
 """
 
 from __future__ import annotations
@@ -599,9 +604,9 @@ _KIND_OF = {W4A8Linear: "w4a8", W8A8Linear: "w8a8", Int8Linear: "int8",
 def _kind(mod) -> str:
     if isinstance(mod, LoRALinear):
         return "lora/" + _kind(mod.base)
-    if type(mod) is nn.Linear:
+    if isinstance(mod, nn.Linear):  # an FSDP-sharded module is a subclass of its own
         return "fp"
-    return _KIND_OF[type(mod)]
+    return next(k for cls, k in _KIND_OF.items() if isinstance(mod, cls))
 
 
 def linear_kinds(model: nn.Module) -> Dict[str, str]:
@@ -721,10 +726,37 @@ def _write_params(path: str, tensors: Dict[str, torch.Tensor], tree: Dict) -> No
     _write_json(os.path.join(path, _TREE_FILE), tree)
 
 
-def save_params(model: nn.Module, path: str) -> None:
+def _sharded_params_snapshot(model: nn.Module, mesh, extra=None):
+    """``_params_snapshot`` of the one-card model a sharded ``model`` is a
+    slice of (a collective of every rank: rank 0 gets (tensors, tree,
+    ``extra`` gathered), the others None)."""
+    from blurr_tpu_torch.parallel.fsdp import gather_state
+    from blurr_tpu_torch.parallel.tensor_parallel import one_card_kinds
+
+    tensors, groups = gather_state(model, mesh, extra)
+    if tensors is None:
+        return None
+    return tensors, {"format": _FORMAT, "version": 1, "modules": one_card_kinds(model)}, groups
+
+
+def _after_write(mesh) -> None:
+    """The other ranks wait here until rank 0 has written."""
+    if mesh is not None and mesh.data * mesh.model > 1:
+        torch.distributed.barrier()
+
+
+def save_params(model: nn.Module, path: str, mesh=None) -> None:
     """Write the model's parameter tree to the directory ``path``
-    (``params.safetensors`` + ``tree.json``; the module docstring)."""
-    _write_params(path, *_params_snapshot(model))
+    (``params.safetensors`` + ``tree.json``; the module docstring). A model
+    sharded over ``mesh`` writes the gathered one-card tree: every rank
+    calls it, rank 0 writes, the others wait."""
+    if mesh is None:
+        _write_params(path, *_params_snapshot(model))
+        return
+    snap = _sharded_params_snapshot(model, mesh)
+    if snap is not None:
+        _write_params(path, *snap[:2])
+    _after_write(mesh)
 
 
 def restore_params(model: nn.Module, path: str) -> nn.Module:
@@ -742,17 +774,31 @@ def restore_params(model: nn.Module, path: str) -> nn.Module:
 
 
 def _train_snapshot(model, optimizer, step: int, rng_state: torch.Tensor,
-                    accumulator=None, ema=None):
-    """CPU copies of everything ``save_train_state`` writes."""
-    params, tree = _params_snapshot(model)
+                    accumulator=None, ema=None, mesh=None):
+    """CPU copies of everything ``save_train_state`` writes (over a
+    ``mesh``: of the one-card tree, on rank 0; None on the others)."""
     names = {id(p): n for n, p in model.named_parameters()}
     trainable = [names[id(p)] for p in optimizer.params]
+    parts = (("mu", optimizer.mu), ("nu", optimizer.nu),
+             ("acc", accumulator.acc if accumulator is not None else ()),
+             ("ema", ema.ema if ema is not None else ()))
     opt = {}
-    for key, tensors in (("mu", optimizer.mu), ("nu", optimizer.nu),
-                         ("acc", accumulator.acc if accumulator is not None else ()),
-                         ("ema", ema.ema if ema is not None else ())):
-        for name, t in zip(trainable, tensors):
-            opt[f"{key}/{name}"] = _cpu_copy(t)
+    if mesh is None:
+        params, tree = _params_snapshot(model)
+        for key, tensors in parts:
+            for name, t in zip(trainable, tensors):
+                opt[f"{key}/{name}"] = _cpu_copy(t)
+    else:
+        from blurr_tpu_torch.parallel.fsdp import layout
+
+        snap = _sharded_params_snapshot(
+            model, mesh, {key: dict(zip(trainable, tensors)) for key, tensors in parts})
+        if snap is None:
+            return None
+        params, tree, groups = snap
+        opt = {f"{key}/{name}": t for key, group in groups.items() for name, t in group.items()}
+        where = layout(model, mesh)
+        trainable = [where[n].name for n in trainable]
     state = {
         "step": int(step), "trainable": trainable, "adam_count": optimizer.count,
         "accum_mini_step": accumulator.mini_step if accumulator is not None else None,
@@ -770,36 +816,63 @@ def _write_train(path: str, snapshot) -> None:
 
 
 def save_train_state(path: str, model, optimizer, step: int, rng_state: torch.Tensor,
-                     accumulator=None, ema=None) -> None:
+                     accumulator=None, ema=None, mesh=None) -> None:
     """Write the COMPLETE training state for an exact resume: the parameter
     tree, the AdamW moments and count, the accumulator and the EMA when
     there are, the step and the generator state (``rng_state``, what
     ``torch.Generator.get_state`` gives). The caller resynchronizes its data
-    stream to ``step``."""
-    _write_train(path, _train_snapshot(model, optimizer, step, rng_state, accumulator, ema))
+    stream to ``step``. A model sharded over ``mesh`` writes the gathered
+    one-card state (every rank calls it, rank 0 writes, the others wait),
+    which a run on any mesh resumes."""
+    snap = _train_snapshot(model, optimizer, step, rng_state, accumulator, ema, mesh)
+    if snap is not None:
+        _write_train(path, snap)
+    _after_write(mesh)
 
 
 @torch.no_grad()
-def restore_train_state(path: str, model, optimizer, accumulator=None, ema=None):
+def restore_train_state(path: str, model, optimizer, accumulator=None, ema=None, mesh=None):
     """Load a ``save_train_state`` directory into the model, the optimizer,
     the accumulator and the EMA (built from the same configuration) in
-    place. Returns (step, generator state)."""
+    place; over a ``mesh`` each one-card tensor is cut to the rank's slice
+    of it. Returns (step, generator state)."""
     state = _read_json(os.path.join(path, _STATE_FILE))
-    restore_params(model, path)
     names = {id(p): n for n, p in model.named_parameters()}
     trainable = [names[id(p)] for p in optimizer.params]
-    if trainable != state["trainable"]:
+    if mesh is None:
+        restore_params(model, path)
+        full = trainable
+
+        def cut(t, i):
+            return t
+    else:
+        from blurr_tpu_torch.parallel.fsdp import cut_state, cut_tensor, layout
+        from blurr_tpu_torch.parallel.tensor_parallel import one_card_kinds
+
+        tree = _read_json(os.path.join(path, _TREE_FILE))
+        if tree.get("modules") != one_card_kinds(model):
+            raise ValueError(f"{path}: the saved run's linears differ from this run's")
+        cut_state(model, mesh, read_safetensors(os.path.join(path, _PARAMS_FILE)))
+        where = layout(model, mesh)
+        full = [where[n].name for n in trainable]
+
+        def cut(t, i):
+            return cut_tensor(t, where[trainable[i]], optimizer.params[i], mesh)
+    if full != state["trainable"]:
         raise ValueError(f"{path}: the trainable parameters differ from the saved run's")
     opt = read_safetensors(os.path.join(path, _OPT_FILE))
-    optimizer.load_state_dict({"count": state["adam_count"],
-                               "mu": [opt[f"mu/{n}"] for n in trainable],
-                               "nu": [opt[f"nu/{n}"] for n in trainable]})
+
+    def group(key):
+        return [cut(opt[f"{key}/{n}"], i) for i, n in enumerate(full)]
+
+    optimizer.load_state_dict({"count": state["adam_count"], "mu": group("mu"),
+                               "nu": group("nu")})
     for part, key, count in ((accumulator, "acc", "accum_mini_step"),
                              (ema, "ema", "ema_count")):
         if (part is None) != (state[count] is None):
             raise ValueError(f"{path}: the saved run's {key} state does not match this run's")
         if part is not None:
-            part.load_state_dict({key: [opt[f"{key}/{n}"] for n in trainable],
+            part.load_state_dict({key: group(key),
                                   "mini_step" if key == "acc" else "count": state[count]})
     return state["step"], torch.tensor(state["rng"], dtype=torch.uint8)
 
@@ -816,10 +889,11 @@ class TrainCheckpointManager:
     from the newest complete step. ``close()`` drains the writes and raises
     a writer's error."""
 
-    def __init__(self, root: str, keep: int = 3):
+    def __init__(self, root: str, keep: int = 3, mesh=None):
         import queue
         import threading
 
+        self.mesh = mesh
         self.root = os.path.abspath(root)
         self.keep = max(1, int(keep))
         os.makedirs(self.root, exist_ok=True)
@@ -855,8 +929,9 @@ class TrainCheckpointManager:
              accumulator=None, ema=None) -> None:
         if self._error is not None:
             raise RuntimeError("an earlier checkpoint write failed") from self._error
-        self._queue.put((int(step), _train_snapshot(model, optimizer, step, rng_state,
-                                                    accumulator, ema)))
+        snap = _train_snapshot(model, optimizer, step, rng_state, accumulator, ema, self.mesh)
+        if snap is not None:  # over a mesh: rank 0's, the one-card state
+            self._queue.put((int(step), snap))
 
     def steps(self):
         """The complete steps, oldest first."""
@@ -867,6 +942,7 @@ class TrainCheckpointManager:
 
     def latest_step(self) -> Optional[int]:
         self._queue.join()
+        _after_write(self.mesh)  # every rank reads what rank 0 wrote
         steps = self.steps()
         return steps[-1] if steps else None
 
@@ -877,7 +953,7 @@ class TrainCheckpointManager:
         if step is None:
             raise FileNotFoundError("no complete checkpoint step in the manager root")
         return restore_train_state(os.path.join(self.root, str(step)), model, optimizer,
-                                   accumulator, ema)
+                                   accumulator, ema, self.mesh)
 
     def close(self) -> None:
         """Drain the queued writes and stop the writer."""

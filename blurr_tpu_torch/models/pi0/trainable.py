@@ -7,7 +7,11 @@ into ``requires_grad``, so a frozen parameter gets no gradient at all and
 the optimizer (``utils/optim.py:AdamW``) holds only the trainable ones. The
 proprio mixture IS the action module, so its parameters appear once, under
 the action mixture's names (JAX's canonical tied tree, whose proprio is
-None, resolved to the action leaves).
+None, resolved to the action leaves). The scopes are prefixes of the names,
+so they resolve on a model ``parallel/mesh.py:shard_params`` has sharded
+too (a TP wrapper's ``.local.`` paths keep the module's prefix), where the
+proprio mixture is still the action module, so its gradient sums into the
+same parameters (JAX's ``test_shard_params_preserves_weight_tying_and_mask``).
 """
 
 from __future__ import annotations

@@ -95,12 +95,19 @@ class LoRALinear(nn.Module):
         return getattr(self.base, "bias", None)
 
     def forward(self, x, activation_clip: Optional[float] = None):
-        if type(self.base) is nn.Linear:
+        return self.product(x, activation_clip, self.lora_a, self.lora_b)
+
+    def product(self, x, activation_clip, lora_a, lora_b):
+        """``forward`` with the factors given: the tensor-parallel wrappers
+        pass them through their differentiable collectives
+        (``parallel/tensor_parallel.py``)."""
+        plain = isinstance(self.base, nn.Linear)
+        if plain:
             y = F.linear(x, self.base.weight)
         else:
             y = linear(self.base, x, activation_clip)
-        y = y + lora_delta(x, self.lora_a, self.lora_b, self.lora_s)
-        if type(self.base) is nn.Linear and self.base.bias is not None:
+        y = y + lora_delta(x, lora_a, lora_b, self.lora_s)
+        if plain and self.base.bias is not None:
             y = y + self.base.bias
         return y
 

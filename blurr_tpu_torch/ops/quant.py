@@ -455,7 +455,7 @@ def linear(mod: nn.Module, x: torch.Tensor,
     """Apply a linear module with its mixture's clip: an ``nn.Linear``
     ignores it (as ``mm`` does for plain weights); the quantized modules and
     ``ops/lora.py:LoRALinear`` (which hands it to its base) take it."""
-    if type(mod) is nn.Linear:
+    if isinstance(mod, nn.Linear):
         return mod(x)
     return mod(x, activation_clip)
 

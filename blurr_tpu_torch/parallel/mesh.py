@@ -62,10 +62,31 @@ mixture's module, and OpenVLA's tied head reads the sharded embedding.
 axis, broadcast, and a tuple of tensors broadcast with its shapes) are the
 only calls into ``torch.distributed`` the TP wrappers and the servers
 make. A bf16 or fp16 tensor is reduced in fp32 and cast back. A group of
-one rank is ``None`` and every collective on it is the identity.
+one rank is ``None`` and every collective on it is the identity. They
+carry no gradient; training goes through their differentiable forms, four
+``torch.autograd.Function``s in Megatron's pattern, which GSPMD derives in
+JAX from the same shardings:
 
-Not ported here (ROADMAP Queue 1 item 6b): ``sp_constrain``,
-``init_multihost`` and ``_augment_fsdp``, which are training's.
+- ``copy_to_group``: forward the identity, backward a sum-all-reduce (a
+  whole input entering the rank's slice of the work: each rank's gradient
+  of it is a partial sum);
+- ``reduce_from_group``: forward a sum-all-reduce, backward the identity
+  (the rank's partial products summed; the loss after it is replicated, so
+  its gradient is whole on every rank);
+- ``gather_from_group``: forward an all-gather along an axis, backward the
+  rank's own slice of the (replicated) gradient;
+- ``scatter_to_group``: forward the rank's slice along an axis, backward an
+  all-gather of the ranks' gradients.
+
+``torch.distributed.nn.functional.all_reduce`` is not used: it all-reduces
+in its backward too, which with a loss replicated on every model rank makes
+each gradient tp times too large.
+
+**Training** (M14's training half): ``init_multihost`` (JAX ``mesh.py:61``)
+joins a launcher's process group; ``fsdp_dim`` is ``_augment_fsdp``'s
+choice of the axis a tensor shards on over the data ranks
+(``parallel/fsdp.py`` carries it out). Not ported here (ROADMAP Queue 1
+item 6b part 2): ``sp_constrain`` and the 'seq' axis.
 """
 
 from __future__ import annotations
@@ -73,6 +94,7 @@ from __future__ import annotations
 import datetime
 import logging
 import multiprocessing as mp
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -158,6 +180,52 @@ def free_tcp_init_method() -> str:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return f"tcp://127.0.0.1:{s.getsockname()[1]}"
+
+
+# the variables a launcher (torchrun, a cluster's job script) sets for each rank
+LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def init_multihost(device="cuda") -> int:
+    """Join the launcher's process group (JAX ``init_multihost``): the
+    rank, the world and the rendezvous come from ``LAUNCHER_ENV``
+    (``env://``), the rank computes on ``multihost_device`` (the card of its
+    local rank, or the CPU when ``device`` is the CPU), on the backend
+    ``pick_backend`` gives for the ranks of this host
+    (``LOCAL_WORLD_SIZE``, else the world). Returns the
+    rank. Without that environment, or with a world of one, it logs JAX's
+    warning and carries on single-process (rank 0): a genuine failure to
+    join must be visible, since N independent runs would all write the
+    same save directory."""
+    missing = [k for k in LAUNCHER_ENV if k not in os.environ]
+    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    if missing or world == 1:
+        reason = (f"no launcher environment ({', '.join(missing)} unset)" if missing
+                  else "WORLD_SIZE is 1")
+        log.warning("init_multihost: %s; continuing single-process (process_count=1). If "
+                    "this host is part of a multi-host job, start it with a launcher that "
+                    "sets %s.", reason, ", ".join(LAUNCHER_ENV))
+        return 0
+    rank, local = int(os.environ["RANK"]), int(os.environ["LOCAL_RANK"])
+    device = rank_device(device, local)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    backend = pick_backend(device, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    log.info("init_multihost: rank %d of %d (local rank %d) on %s, backend %s, env://%s:%s",
+             rank, world, local, device, backend, os.environ["MASTER_ADDR"],
+             os.environ["MASTER_PORT"])
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    return rank
+
+
+def multihost_device(device) -> torch.device:
+    """The device of this rank inside a launcher's group: ``rank_device``
+    of its local rank (``cuda:LOCAL_RANK % device_count``: the ranks of a
+    host with fewer cards than ranks share them), else ``device``."""
+    if dist.is_initialized() and "LOCAL_RANK" in os.environ:
+        return rank_device(device, int(os.environ["LOCAL_RANK"]))
+    return torch.device(device)
 
 
 @dataclass(frozen=True)
@@ -353,6 +421,103 @@ def broadcast_tensors(tensors: Optional[Sequence[torch.Tensor]], device,
                  for i, (dtype, shape) in enumerate(meta[0]))
 
 
+def _own(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's equal slice of ``x`` along ``dim`` over ``group``."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"an axis of {x.shape[dim]} does not split over {n} ranks")
+    w = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * w, w).contiguous()
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(g, ctx.group, ctx.dim), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _own(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``group``."""
+    return x if group is None else _Copy.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``; its gradient passed as it is."""
+    return x if group is None else _Reduce.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``; the gradient of this
+    rank's slice goes back to it."""
+    return x if group is None else _Gather.apply(x, group, dim)
+
+
+def scatter_to_group(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """This rank's equal slice of ``x`` along ``dim``; the ranks' gradients
+    gathered back into the whole."""
+    return x if group is None else _Scatter.apply(x, group, dim)
+
+
+def fsdp_dim(shape: Sequence[int], data: int, tp_dim: Optional[int] = None,
+             transposed: bool = False) -> Optional[int]:
+    """The axis of a tensor of the port's ``shape`` that FSDP shards over
+    ``data`` ranks (JAX ``_augment_fsdp``): the largest axis the TP rule
+    leaves free (``tp_dim`` is the port's axis it splits, if any) that
+    ``data`` divides, the first in JAX's axis order on a tie; None when
+    there is none (the tensor stays replicated). ``transposed`` marks an
+    ``nn.Linear`` weight, [out, in] where JAX holds [in, out]: JAX's last
+    axis is the port's dim 0. JAX's stacked layer axis [L, ...] has no
+    counterpart (the port holds each layer's tensors in its own module)."""
+    if data <= 1 or not shape:
+        return None
+    order = list(range(len(shape)))
+    if transposed:
+        order.reverse()  # the port's axes in JAX's order
+    best = None
+    for d in order:
+        if d != tp_dim and shape[d] >= data and shape[d] % data == 0:
+            if best is None or shape[d] > shape[best]:
+                best = d
+    return best
+
+
 # ---------------------------------------------------------------------------
 # Sharding a model
 # ---------------------------------------------------------------------------
@@ -398,4 +563,10 @@ def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
             parent, attr = _parent(model, path)
             setattr(parent, attr, nn.Parameter(tp.column_slice(p, mesh),
                                                requires_grad=p.requires_grad))
+    for path, mod in list(model.named_modules()):
+        # Pi-0's k and v stay whole (one KV head) under the rank's query heads
+        parts = path.split(".")
+        if "joint" in parts and parts[-1] in ("k_proj", "v_proj") and tp.is_linear(mod):
+            parent, attr = _parent(model, path)
+            setattr(parent, attr, tp.ReplicatedLinear(mod, mesh))
     return model

@@ -24,21 +24,36 @@ as JAX's ``cast_floating_preserving_scales``; ``autocast`` would cast
 per operation instead). The step takes its noise and flow time
 explicitly; ``sample_noise_and_t`` draws them from a ``torch.Generator``
 (normal noise, t ~ Beta(1.5, 1) as ``u ** (2/3)``), where JAX draws
-``normal(k1)`` and ``beta(k2, 1.5, 1)`` from the step's key. The mesh of
-ranks and the TP layers are ported for serving (``parallel/mesh.py``,
-``parallel/tensor_parallel.py``); training over them (the step's mesh,
-``donate``, ``pipeline`` and ``sp_axis``) is M14's training half, ROADMAP
-Queue 1 item 6b.
+``normal(k1)`` and ``beta(k2, 1.5, 1)`` from the step's key.
+
+**Over a mesh of ranks** (``mesh``; the model sharded by
+``parallel/mesh.py:shard_params`` and, under FSDP,
+``parallel/fsdp.py:shard_fsdp`` before the optimizer is built, as JAX's
+``tx.init`` runs after ``shard_params``): every rank is handed the GLOBAL
+batch and the global noise and t (every rank draws the same draws from the
+same generator state) and takes its data rank's rows (``data_rows``,
+JAX's ``batch_sharding``), so ``--dp N`` trains what ``--dp 1`` does. The
+model ranks compute the loss of their rows together through the TP layers'
+differentiable collectives. The gradients of replicated parameters are
+averaged over the data ranks (one sum-all-reduce per bucket, then / dp);
+an FSDP shard's gradient arrives summed by its gather's reduce-scatter and
+is divided likewise. The returned loss is the mean over the data ranks.
+Not ported: ``donate``, and ``pipeline`` and ``sp_axis`` (ROADMAP Queue 1
+item 6b part 2).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from blurr_tpu_torch.utils.optim import AdamW, GradAccumulator, ParamsEMA, cast_params
+
+# the elements of one bucket of the data ranks' gradient all-reduce
+GRAD_BUCKET = 1 << 25
 
 _BATCH_KEYS = ("input_ids", "attention_mask", "pixel_values", "proprios", "actions")
 
@@ -85,10 +100,33 @@ class _LossAndGrads(nn.Module):
         return loss, torch.autograd.grad(loss, wrt, allow_unused=True)
 
 
+def average_over_data(grads: List[Optional[torch.Tensor]], params, summed: Sequence[bool],
+                      mesh) -> List[torch.Tensor]:
+    """The mean over ``mesh``'s data ranks of each rank's gradient: those not
+    ``summed`` yet are sum-all-reduced in buckets of at most GRAD_BUCKET
+    elements of one dtype; every one is then divided by the number of data
+    ranks. A None gradient counts as zero."""
+    from blurr_tpu_torch.parallel.mesh import all_reduce_sum
+
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    todo = [i for i, done in enumerate(summed) if not done]
+    while todo:
+        dtype, bucket, n = grads[todo[0]].dtype, [], 0
+        for i in list(todo):
+            if grads[i].dtype == dtype and (not bucket or n + grads[i].numel() <= GRAD_BUCKET):
+                bucket.append(i)
+                n += grads[i].numel()
+                todo.remove(i)
+        flat = all_reduce_sum(torch.cat([grads[i].reshape(-1) for i in bucket]), mesh.data_group)
+        for i, part in zip(bucket, flat.split([grads[i].numel() for i in bucket])):
+            grads[i] = part.view_as(grads[i])
+    return [g / mesh.data for g in grads]
+
+
 def make_train_step(model: nn.Module, optimizer: AdamW, remat: bool = False,
                     compute_dtype: Optional[torch.dtype] = None, accum_steps: int = 1,
                     ema: Optional[ParamsEMA] = None, loss_fn: Callable = flow_loss,
-                    batch_keys: Sequence[str] = _BATCH_KEYS):
+                    batch_keys: Sequence[str] = _BATCH_KEYS, mesh=None):
     """``step(batch, *extra) -> loss`` (a 0-d fp32 tensor, left on the
     device): one micro-batch's ``loss_fn(model, *batch[batch_keys],
     *extra, remat=remat)`` and the gradients of ``optimizer.params``
@@ -96,15 +134,26 @@ def make_train_step(model: nn.Module, optimizer: AdamW, remat: bool = False,
     the parameters update on every k-th call with the mean of the k
     gradients (``GradAccumulator``, ``optax.MultiSteps``), and the EMA
     follows each update. ``step.accumulator`` holds the accumulator (None
-    for k = 1)."""
+    for k = 1). Over a ``mesh`` (the module docstring) ``batch`` and
+    ``extra`` are the global ones, every entry batch-first."""
     trainable = optimizer.params
     acc = GradAccumulator(trainable, accum_steps) if accum_steps > 1 else None
     holder = _LossAndGrads(model, loss_fn)
     keys = tuple(batch_keys)
+    data = mesh is not None and mesh.data > 1
+    if data:
+        from blurr_tpu_torch.parallel.fsdp import fsdp_dims
+        from blurr_tpu_torch.parallel.mesh import all_reduce_sum, data_rows
+
+        sharded = fsdp_dims(model)
+        names = {id(p): n for n, p in model.named_parameters()}
+        summed = [names[id(p)] in sharded for p in trainable]
 
     def step(batch: Dict[str, torch.Tensor], *extra: torch.Tensor):
         batch = cast_batch(batch, compute_dtype or param_dtype(model))
         args = tuple(batch[k] for k in keys) + extra
+        if data:
+            args = tuple(data_rows(a, mesh) for a in args)
         if compute_dtype is None:
             loss, grads = holder(args, remat, trainable)
         else:
@@ -114,6 +163,9 @@ def make_train_step(model: nn.Module, optimizer: AdamW, remat: bool = False,
             loss, grads = torch.func.functional_call(holder, params, (args, remat, trainable),
                                                      tie_weights=False)
         grads = list(grads)
+        if data:
+            grads = average_over_data(grads, trainable, summed, mesh)
+            loss = all_reduce_sum(loss.detach().reshape(1), mesh.data_group)[0] / mesh.data
         if acc is not None:
             grads = acc.add(grads)
             if grads is None:
@@ -125,3 +177,132 @@ def make_train_step(model: nn.Module, optimizer: AdamW, remat: bool = False,
 
     step.accumulator = acc
     return step
+
+
+# ---------------------------------------------------------------------------
+# The ranks of a trainer (scripts/train_pi0_flow_torch.py,
+# scripts/train_openvla_lora_torch.py)
+# ---------------------------------------------------------------------------
+
+# how long rank 0 waits for the other ranks' last reply after its own run
+RANKS_DEADLINE_S = 1800.0
+
+
+def kernel_launches() -> Dict[str, int]:
+    """{kernel name: launches so far} of the kernels a training step can
+    run (each wrapper's count)."""
+    from blurr_tpu_torch.ops.flash_attention import flash_attention
+    from blurr_tpu_torch.ops.int4_matmul import int4_matmul
+    from blurr_tpu_torch.ops.int8_matmul import int8_matmul
+
+    return {k.__name__: k.launches for k in (flash_attention, int4_matmul, int8_matmul)}
+
+
+def rank_summary(run) -> dict:
+    """What a rank of a training run reports (picklable): its losses, its
+    kernels' launches in the training steps, the bytes of the parameters
+    and buffers and of the optimizer's moments it holds, and its device's
+    peak allocation."""
+
+    def nbytes(ts):
+        return int(sum(t.numel() * t.element_size() for t in ts))
+
+    model, opt = run.model, run.optimizer
+    device = next(model.parameters()).device
+    return {
+        "rank": run.rank, "losses": [float(x) for x in run.losses],
+        "launches": dict(run.launches),
+        "param_bytes": nbytes([*model.parameters(), *model.buffers()]),
+        "moment_bytes": nbytes([*opt.mu, *opt.nu]),
+        "peak_bytes": (int(torch.cuda.max_memory_allocated(device)) if device.type == "cuda"
+                       else 0),
+    }
+
+
+def _rank_main(rank: int, conn, train: Callable, argv, world: int, init_method: str) -> None:
+    """A spawned rank of a trainer: the same run as rank 0's, its summary
+    sent back."""
+    try:
+        run = train(argv, rank=rank, world=world, init_method=init_method)
+        dist.barrier()
+        conn.send(("ok", rank_summary(run)))
+    except BaseException as exc:  # the reason goes to rank 0
+        import traceback
+
+        conn.send(("error", f"{type(exc).__name__}: {exc}\n{traceback.format_exc()}"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def join_mesh(rank: int, world: int, init_method, device, dp: int, tp: int):
+    """(this rank's device, its ``dp x tp`` mesh, or None for one rank) of
+    a trainer's rank: the process group joined at ``init_method`` (a
+    spawned group), or already joined (a launcher's, ``init_multihost``)."""
+    from blurr_tpu_torch.parallel.mesh import init_ranks, make_mesh, multihost_device
+
+    if world == 1:
+        return torch.device(device), None
+    if init_method is not None:
+        _, device = init_ranks(rank, world, init_method, device)
+    else:
+        device = multihost_device(device)
+    return device, make_mesh(dp, tp)
+
+
+def run_ranks(train: Callable, argv, dp: int, tp: int, multihost: bool, device):
+    """Run ``train(argv, rank=, world=, init_method=)`` (a trainer's whole
+    run; it returns a namespace) on ``dp * tp`` ranks and return rank 0's
+    namespace, its ``ranks`` the ``rank_summary`` of every rank.
+
+    ``multihost``: this process joins the launcher's process group
+    (``parallel/mesh.py:init_multihost``) and runs as the rank it is given;
+    the world must be ``dp * tp`` (without a launcher it logs JAX's warning
+    and goes on as below). Otherwise one rank runs as it is, and a group of
+    several is spawned by rank 0 (``Workers``), which joins them by a
+    deadline."""
+    import sys
+
+    from blurr_tpu_torch.parallel.mesh import (
+        PG_TIMEOUT_S,
+        Workers,
+        free_tcp_init_method,
+        init_multihost,
+    )
+
+    world = dp * tp
+    if multihost:
+        rank = init_multihost(device)
+        if dist.is_initialized():
+            try:
+                if dist.get_world_size() != world:
+                    sys.exit(f"--multihost: the launcher started {dist.get_world_size()} "
+                             f"processes, but --dp {dp} x --tp {tp} needs {world}")
+                run = train(argv, rank=rank, world=world, init_method=None)
+                run.ranks = [rank_summary(run)]
+                return run
+            finally:
+                dist.destroy_process_group()
+    if world == 1:
+        run = train(argv)
+        run.ranks = [rank_summary(run)]
+        return run
+    init_method = free_tcp_init_method()
+    workers = Workers(world, _rank_main, (train, argv, world, init_method))
+    try:
+        try:
+            run = train(argv, rank=0, world=world, init_method=init_method)
+            dist.barrier()
+        except BaseException as exc:
+            errs = workers.pending_errors()
+            if errs:
+                raise RuntimeError("; ".join(errs)) from exc
+            raise
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        replies = workers.replies(RANKS_DEADLINE_S)
+    finally:
+        workers.join(PG_TIMEOUT_S)
+    run.ranks = [rank_summary(run), *(r[1] for r in replies)]
+    return run

@@ -15,6 +15,8 @@ trainer chains (``scripts/train_pi0_flow.py``):
   trainable gradients only. The moments take each parameter's dtype, as
   optax's do; the update is optax's ``scale_by_adam`` ->
   ``add_decayed_weights`` -> ``scale_by_learning_rate`` -> ``apply_updates``.
+  Over a mesh of ranks the clip's norm sums each leaf's squares over the
+  axes it is split on.
 - ``GradAccumulator``: ``optax.MultiSteps`` (the running mean of k
   micro-gradients, one real update every k-th call).
 - ``ParamsEMA`` / ``extract_ema``: ``params_ema`` / ``extract_ema`` with
@@ -31,7 +33,7 @@ their gradient.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -129,9 +131,27 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
     return schedule
 
 
-def _global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """optax ``global_norm``: sqrt of the sum of every squared element (fp32)."""
-    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+def _global_norm(grads: Iterable[torch.Tensor], mesh=None,
+                 split: Optional[List[Tuple[bool, bool]]] = None) -> torch.Tensor:
+    """optax ``global_norm``: sqrt of the sum of every squared element (fp32).
+    Over a ``mesh`` of ranks, ``split[i]`` says whether gradient i is the
+    rank's slice over the model ranks and over the data ranks: a leaf's
+    squares are summed over each axis it is split on, so a replicated leaf
+    counts once and a sharded one by its shards (every rank gets the same
+    norm)."""
+    sq = [(g.float() ** 2).sum() for g in grads]
+    if mesh is None or split is None:
+        return torch.sqrt(sum(sq))
+    from blurr_tpu_torch.parallel.mesh import all_reduce_sum
+
+    zero = sq[0].new_zeros(()) if sq else torch.zeros(())
+    part = {key: sum((x for x, k in zip(sq, split) if k == key), zero)
+            for key in ((False, False), (True, False), (False, True), (True, True))}
+    over_model = all_reduce_sum(torch.stack([part[True, False], part[True, True]]),
+                                mesh.model_group)
+    over_data = all_reduce_sum(torch.stack([part[False, True], over_model[1]]),
+                               mesh.data_group)
+    return torch.sqrt(part[False, False] + over_model[0] + over_data[0] + over_data[1])
 
 
 class AdamW:
@@ -140,12 +160,17 @@ class AdamW:
     when ``grad_clip`` > 0, over ``params`` (the trainable ones only).
     ``step(grads)`` updates the parameters in place from one gradient each
     (None counts as zero). ``count`` is the number of updates made; the
-    learning rate of an update is ``schedule(count)`` before it."""
+    learning rate of an update is ``schedule(count)`` before it. Over a
+    ``mesh`` of ranks the parameters are the rank's shards (the moments are
+    too) and ``split`` says which axes each is split on, for the clip's
+    global norm (``_global_norm``)."""
 
     def __init__(self, params: Iterable[nn.Parameter], schedule, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4,
-                 grad_clip: float = 0.0):
+                 grad_clip: float = 0.0, mesh=None,
+                 split: Optional[List[Tuple[bool, bool]]] = None):
         self.params: List[nn.Parameter] = list(params)
+        self.mesh, self.split = mesh, split
         self.schedule = schedule
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         self.grad_clip = float(grad_clip)
@@ -157,7 +182,7 @@ class AdamW:
     def step(self, grads: List[Optional[torch.Tensor]]) -> None:
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
         if self.grad_clip > 0:
-            norm = _global_norm(grads)
+            norm = _global_norm(grads, self.mesh, self.split)
             keep = norm < self.grad_clip
             grads = [torch.where(keep, g, g / norm.to(g.dtype) * self.grad_clip)
                      for g in grads]

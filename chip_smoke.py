@@ -300,7 +300,7 @@ Phases (each prints its lines; any failure exits non-zero with no result):
              must read over that bound.
 32. eval-hf-7b-w4a8 - scripts/eval_hf_vla_simpler_torch.py's main()
              in-process: --model-id random-7b --quantization w4a8 --preset
-             blurr, 2 episodes of 4 steps on the fake env, whose make_env
+             blurr, 1 episode of 4 steps on the fake env, whose make_env
              records every action: K2 exactly 1,575 times a control step;
              every env action bridge_action_to_simpler(predict_action)
              recomputed on the same processed inputs; summary.json with the
@@ -439,9 +439,9 @@ served-int4-shapes holds their K2 shapes too.
 Tensor and data parallelism (M14's serving half): two ranks, one process
 each, sharing the card over gloo (NCCL refuses two ranks on one device);
 their times are two processes time-sharing one card. Phase 54 runs after
-phase 3; phases 55-61 run last, after phase 53 (each of 55-59 joins and
-leaves a process group in this process, and no earlier phase runs after
-one).
+phase 3; phases 55-59 run after phase 53 in one child process (each joins
+and leaves a process group there; this process never joins one), beside
+phases 62-65, then 60-61 here.
 54. tp2-kernels - K1 bf16 at a tp=2 rank's [1,4,277,256] and [1,4,97,256]
              (its 4 query heads over the one KV head) against its plain
              version; K2 at every tp=2 rank's column blocks of the pool64
@@ -480,17 +480,43 @@ one).
              each with the first mask it met there, K2 (bit-equal) and K3
              at those phase 54 did not hold.
 61. profile-after-ranks - no process group and no child process left
-             after phases 55-59 (the threads logged); then how many of 20
-             K6 launches torch.profiler sees, logged only (PERF.md §7: in
-             this process it has seen none after the parallel phases).
+             after phases 55-65 (the threads logged); then how many of 20
+             K6 launches torch.profiler sees, logged only (PERF.md §7: it
+             saw none here after the parallel phases, also since they run
+             in children and this process joins no process group).
+Training over ranks (M14's training half, part 1): each phase runs the
+trainer's own main(argv) in child processes, rank 0 included, which
+return every rank's losses, kernel launches in the steps, parameter,
+buffer and moment bytes and peak memory, and the K2 shapes of the ranks
+they ran. Losses against the one-card run of the same argv within
+PARALLEL_TRAIN_RTOL; every rank logs the mean over the data ranks.
+62. train-dp2-qlora-w4a8 - TRAIN_ARGS with --dp 2 --stop-after 3 on phase
+             37's data (written again from its seed) through --multihost:
+             two children with a launcher's variables (env://), at once
+             with 63 (and phases 55-59 beside 62-65); each rank K2 370 a
+             step on its row; against phase 37's first 3 losses.
+63. train-tp2-qlora-w4a8 - the same with --tp 2 (rank 0 spawns rank 1):
+             K2 370 a step on each rank's blocks; rank 0's resident bytes
+             against phase 37's (TP2_TRAIN_BYTES_MAX).
+64. train-fsdp-dp2 - bridge.yaml, action_expert, master-fp32, 2 steps, on
+             one card and at --dp 2 --fsdp at once: each FSDP rank's
+             parameter and moment bytes against one card's
+             (FSDP_BYTES_MAX), the losses against one card's.
+65. train-tp2-openvla-w8a8 - random-7b QLoRA w8a8, 2 steps, at --tp 2
+             against tp=1 of the same argv, at once.
+    train-ranks-int4-shapes - every K2 shape the ranks of 62-63 gave,
+             held bit-equal against the plain version, timed in a CUDA
+             graph beside its bound and a bf16 matmul of the dense weight.
 Then one JSON line of the kernels (launches summed over the served runs of
 phases 4-10 with the batched, backpressure and reload runs, the
 experiments run, the eval runs of phases 14-18 and 20, the text runs of
 phases 21-23, the OpenVLA runs of phases 25-30b, the eval CLIs' runs of
 phases 32-34, the training steps and served requests of phases 37-45 and
-the CLI, calibration, GPTQ and experiment runs of phases 48-51 and
-every rank's runs of phases 55-59, the counts set to 0 just before each;
-K1's, K2's and K3's entries add their tp=2 shapes under "shapes_tp2"; errors
+the CLI, calibration, GPTQ and experiment runs of phases 48-51,
+every rank's runs of phases 55-59 and every rank's training steps of
+phases 62-65, the counts set to 0 just before each; K1's, K2's and K3's
+entries add their tp=2 shapes under "shapes_tp2", K2's the shapes of the
+ranks of 62-63 under "shapes_train_ranks"; errors
 and times measured here: ms and plain_ms with CUDA events, graph_ms and
 plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
 function where there is one, at the first timed shape of each kernel;
@@ -500,7 +526,9 @@ their type, computed from those inputs), and last the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 It imports nothing of JAX nor of the JAX package, and builds everything
-from the checkout.
+from the checkout. It runs itself again under PYTHONHASHSEED=0 first: the
+stub tokenizers hash words with Python's salted hash, and the parallel
+phases' child processes must tokenize as this process did.
 """
 
 from __future__ import annotations
@@ -589,10 +617,10 @@ BATCHED_K1_SHAPES = [(2, 8, 1, 277, 277, 256), (8, 8, 1, 277, 277, 256)]
 MAX_W4A8_WEIGHT_BYTES = 3.0e9
 N_REQUESTS = 3
 # control steps timed after each eval-agent run, and the model steps a served
-# phase's median takes (cut from 20 and 10 to keep the whole script inside
-# its time limit with the parallel phases)
-AGENT_TIMED_STEPS = 10
-STEP_MEDIAN_STEPS = 5
+# phase's median takes (cut from 20 and 10, then from 10 and 5, to keep the
+# whole script inside its time limit with the parallel phases)
+AGENT_TIMED_STEPS = 5
+STEP_MEDIAN_STEPS = 3
 PI0_SHAPE = (1, 8, 1, 277, 277, 256)  # b, nh, kvh, sq, skv, d
 NAIVE_SHAPE = (1, 8, 1, 281, 281, 256)  # the naive step: 276 + proprio + 4 actions
 POOL64_SHAPE = (1, 8, 1, 97, 97, 256)
@@ -1947,7 +1975,7 @@ def served_openvla_batched(device) -> dict:
     label = "serve-batched-openvla"
     server = _openvla_server(label, "random-7b", device, quantization="w4a8", max_batch=4,
                              batch_window_ms=BATCH_WINDOW_MS)
-    frames = _openvla_frames()[:4]
+    frames = _openvla_frames(3)[:4]
     reqs = [(f, instr, [0.0] * 7) for f, instr in zip(frames, OPENVLA_BATCH_INSTRUCTIONS)]
     prepared = [server._prepare(*r) for r in reqs]
     lengths = [int(p[1].sum()) for p in prepared]
@@ -3287,7 +3315,7 @@ OPENVLA_INT4_SHAPES = [
     (288, 896, 896, 7), (288, 896, 128, 7), (288, 896, 4864, 7), (288, 4864, 896, 19),
 ]
 # requests at 224x224 (cut from 5); then one off-size 256x320 frame
-OPENVLA_FRAMES = 3
+OPENVLA_FRAMES = 2  # 224x224 frames a served OpenVLA phase answers (cut from 5, then 3)
 OPENVLA_INSTRUCTION = "put the spoon on the towel"
 # serve-batched-openvla: prompts of 4 token counts in one bucket
 OPENVLA_BATCH_INSTRUCTIONS = ("put the spoon on the towel", "pick up the carrot",
@@ -3457,9 +3485,11 @@ def served_int4_vs_plain(device, seen: set, held: set, label: str = "served-int4
     torch.cuda.empty_cache()
 
 
-def _openvla_frames():
+def _openvla_frames(n: int = OPENVLA_FRAMES):
+    """``n`` 224x224 frames, then one 256x320, drawn from one seed: the
+    first frames are the same whatever ``n``."""
     rng = np.random.RandomState(0)
-    return ([rng.randint(0, 256, (224, 224, 3), np.uint8) for _ in range(OPENVLA_FRAMES)]
+    return ([rng.randint(0, 256, (224, 224, 3), np.uint8) for _ in range(n)]
             + [rng.randint(0, 256, (256, 320, 3), np.uint8)])
 
 
@@ -3731,7 +3761,7 @@ def jacobi_fp32(device) -> None:
     label = "jacobi-fp32"
     server = _openvla_server(label, "random-7b", device, use_bf16=False)
     model = server.model
-    for i, frame in enumerate(_openvla_frames()[:3]):
+    for i, frame in enumerate(_openvla_frames(3)[:3]):
         ids, am, px = server._prepare(frame, OPENVLA_INSTRUCTION)
         inputs = model._inputs(ids, px, am)
         r = _jacobi_vs_ar(model, inputs)
@@ -3852,10 +3882,13 @@ def openvla_snapshot(device) -> dict:
 # The OpenVLA-family eval CLIs and the checkpoint checker
 # ---------------------------------------------------------------------------
 
-# the HF eval CLI's run: 2 episodes of 4 control steps on the fake env
-HF_EVAL_ARGS = ["--task", EVAL_TASK, "--n-eval-episode", "2", "--max-steps", "4",
-                "--preset", "blurr"]
-HF_EVAL_CALLS = 8  # 2 x 4 AR control steps; OFT: 2 x one [8, 7] chunk at --max-steps 8
+# the HF eval CLI's run: HF_EVAL_EPISODES episodes of 4 control steps on the
+# fake env (cut from 2 for the time limit)
+HF_EVAL_EPISODES = 1
+HF_EVAL_ARGS = ["--task", EVAL_TASK, "--n-eval-episode", str(HF_EVAL_EPISODES), "--max-steps",
+                "4", "--preset", "blurr"]
+# 4 AR control steps an episode; OFT: one [8, 7] chunk an episode at --max-steps 8
+HF_EVAL_CALLS = 4 * HF_EVAL_EPISODES
 # summary.json's keys, as the JAX script writes them
 HF_SUMMARY_KEYS = {
     "model_id", "preset", "quantization", "dtype", "torch_compile", "attn_implementation",
@@ -4010,8 +4043,8 @@ def _cli_subprocess(label, script: str, argv) -> None:
 
 def eval_hf_7b_w4a8(device) -> dict:
     """scripts/eval_hf_vla_simpler_torch.py's main() in-process at
-    OpenVLA-7B's widths, w4a8 drawn quantized on the card, 2 episodes of 4
-    steps: K2 1,575 times a control step, each env action the direct
+    OpenVLA-7B's widths, w4a8 drawn quantized on the card, HF_EVAL_EPISODES
+    episodes of 4 steps: K2 1,575 times a control step, each env action the direct
     recomputation's, summary.json with JAX's keys; the step's median and one
     step's device time with K2's share; then the same command as a
     subprocess."""
@@ -4180,7 +4213,7 @@ def eval_hf_snapshot(device) -> dict:
             if keys != {"bridge_orig"}:
                 raise RuntimeError(f"{sub}: unnorm keys {keys}, not bridge_orig")
             per = OPENVLA_OFT_LAUNCHES if oft else OPENVLA_AR_LAUNCHES
-            _check_eval_run(sub, run, launches, 2 if oft else HF_EVAL_CALLS,
+            _check_eval_run(sub, run, launches, HF_EVAL_EPISODES if oft else HF_EVAL_CALLS,
                             {"int4_matmul": per})
             if oft:
                 c = run.calls[0]
@@ -4216,7 +4249,7 @@ def eval_hf_snapshot(device) -> dict:
 
 def eval_prismatic(device) -> dict:
     """scripts/eval_prismatic_vla_simpler_torch.py's main() in-process at
-    MiniVLA's widths and depth, bf16: --checkpoint random (2 episodes),
+    MiniVLA's widths and depth, bf16: --checkpoint random (HF_EVAL_EPISODES),
     then a prismatic .pt of weights drawn on the card (the CLI's
     prismatic_state_dict, bf16) in the run_dir/checkpoints/ layout beside a
     dataset_statistics.json: loaded bit-equal to the drawn weights with no
@@ -4229,7 +4262,7 @@ def eval_prismatic(device) -> dict:
 
     label = "eval-prismatic"
     cli = _cli("eval_prismatic_vla_simpler_torch")
-    argv = ["--task", EVAL_TASK, "--n-eval-episode", "2", "--max-steps", "4"]
+    argv = ["--task", EVAL_TASK, "--n-eval-episode", str(HF_EVAL_EPISODES), "--max-steps", "4"]
     total = {name: 0 for name in KERNEL_NAMES}
     with tempfile.TemporaryDirectory(prefix="blurr_prismatic_") as tmp:
         run = _EvalRun()
@@ -4542,6 +4575,9 @@ def train_qlora_w4a8(device, tmp: str, held: set):
     peak = torch.cuda.max_memory_allocated()
     run.check(label, TRAIN_STEPS, {"int4_matmul": TRAIN_K2_PER_STEP})
     model = result.model
+    ONE_CARD[label] = {"losses": [st["loss"] for st in run.steps],
+                       "param_bytes": sum(t.numel() * t.element_size()
+                                          for t in (*model.parameters(), *model.buffers()))}
     log(f"{label}: main() in {secs:.1f} s; peak memory {peak} B ({peak / 2**30:.2f} GiB); "
         f"resident parameters and buffers {resident_bytes(model) / 1e9:.3f} GB; on {card()}")
     _train_profile(label, run.prof)
@@ -5654,11 +5690,12 @@ def ranks_shapes_vs_plain(device, int4: set, flash: dict, int8: set, tp2: dict) 
 
 
 def profile_after_ranks(device) -> None:
-    """Phase 61: what phases 55-59 leave in this process: no process group
+    """Phase 61: what phases 55-65 leave in this process: no process group
     and no child process (the threads are logged). Then what torch.profiler
     sees of K6's two kernels, logged and not held: in this script's process
     it has seen no device activity after the parallel phases (PERF.md §7),
-    a fault whose cause is not known."""
+    also since they run in child processes, a fault whose cause is not
+    known."""
     import multiprocessing
 
     from torch.profiler import ProfilerActivity, profile
@@ -5669,7 +5706,7 @@ def profile_after_ranks(device) -> None:
     label = "profile-after-ranks"
     group = torch.distributed.is_initialized()
     children = [p.name for p in multiprocessing.active_children()]
-    log(f"{label}: after phases 55-59: process group {group}, child processes {children}, "
+    log(f"{label}: after phases 55-65: process group {group}, child processes {children}, "
         f"threads {[t.name for t in threading.enumerate()]}")
     if group or children:
         raise RuntimeError(f"{label}: the parallel phases left a process group ({group}) or "
@@ -5920,11 +5957,272 @@ def openloop_dp2(device, tmp: str) -> dict:
     return {name: sum(c[name] for c in counts) for name in KERNEL_NAMES}
 
 
+# ---------------------------------------------------------------------------
+# M14's training half: data-, tensor-parallel and FSDP training (phases 62-65)
+# ---------------------------------------------------------------------------
+
+# every parallel training phase runs the trainer's own main(argv) in child
+# processes (rank 0 included): this process joins no process group
+CHILD_DEADLINE_S = 600.0
+# losses of a parallel run against the one-card run of the same argv: bf16
+# products of another row count (dp) and the row sums' other order (tp)
+# round otherwise, as the open-loop metrics at --dp 2 do (OPENLOOP_DP_RTOL);
+# the first step is a forward of fresh weights, the next two follow updates
+# of the warmup's 1e-6 learning rate
+PARALLEL_TRAIN_RTOL = 2e-2
+# a tp=2 rank's resident parameters and buffers against one card's: all but
+# Gemma's whole k and v, the norms, the action and proprio encoders and the
+# projector split in two
+TP2_TRAIN_BYTES_MAX = 0.6
+# an FSDP rank's parameter and moment bytes against the one-card run's (a
+# plain data-parallel rank holds the one card's): JAX's
+# test_fsdp_reduces_per_device_state_bytes
+FSDP_BYTES_MAX = 0.55
+FSDP_ARGS = ["--config", "config/eval/bridge.yaml", "--train-scope", "action_expert",
+             "--dtype", "master-fp32", "--batch-size", str(TRAIN_BATCH), "--seed", "0",
+             "--log-every", "1", "--steps", "2"]
+VLA_TP_ARGS = ["--model-id", "random-7b", "--quantize-base", "w8a8", "--lora-rank", "32",
+               "--batch-size", "2", "--steps", "2", "--log-every", "1"]
+# the one-card runs the parallel phases are held against, by phase
+ONE_CARD = {}
+
+
+def _child_main(fn, args, env, q) -> None:
+    """A spawned child: ``fn(*args)`` with ``env`` set, its result or its
+    error (as text) put on ``q``."""
+    os.environ.update(env)
+    try:
+        torch.cuda.set_device(0)
+        q.put(("ok", fn(*args)))
+    except BaseException as exc:
+        import traceback
+
+        q.put(("error", f"{type(exc).__name__}: {exc}\n{traceback.format_exc()}"))
+
+
+def _start_children(calls, deadline_s: float = CHILD_DEADLINE_S):
+    """Start each (fn, args, env) of ``calls`` in a spawned child process,
+    all at once (not daemons: a trainer's rank 0 spawns its other ranks);
+    ``_children_results`` reads them by the deadline."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    started = []
+    for fn, args, env in calls:
+        q = ctx.Queue()
+        p = ctx.Process(target=_child_main, args=(fn, args, env, q))
+        p.start()
+        started.append((p, q))
+    return started, time.monotonic() + deadline_s
+
+
+def _children_results(label, children) -> list:
+    """The results of ``_start_children``'s children in order, or raise
+    with a child's error; every child is joined (or killed) by the
+    deadline."""
+    import queue as queue_lib
+
+    started, deadline = children
+    out, errors = [], []
+    try:
+        for i, (p, q) in enumerate(started):
+            while True:
+                try:
+                    kind, value = q.get(timeout=1.0)
+                    break
+                except queue_lib.Empty:
+                    if not p.is_alive():
+                        kind, value = "error", f"child {i} died (exit code {p.exitcode})"
+                        break
+                    if time.monotonic() > deadline:
+                        kind, value = "error", f"child {i} did not answer by the deadline"
+                        break
+            if kind == "error":
+                errors.append(f"child {i}: {value}")
+            out.append(value)
+    finally:
+        for p, _ in started:
+            p.join(max(1.0, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join(5.0)
+    if errors:
+        raise RuntimeError(f"{label}: " + "\n".join(errors))
+    return out
+
+
+def _in_children(label, calls, deadline_s: float = CHILD_DEADLINE_S) -> list:
+    """Run each (fn, args, env) of ``calls`` in a spawned child process, all
+    at once, and return their results in order."""
+    return _children_results(label, _start_children(calls, deadline_s))
+
+
+def _train_child(script, argv):
+    """In a child: the trainer's main(argv) on the card, the K2 shapes this
+    process gave (rank 0's, or this rank's under --multihost) and every
+    rank's summary (``parallel/train.py:rank_summary``)."""
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with _RecordInt4Shapes() as rec:
+        run = _cli(script).main([*argv, "--device", "cuda"])
+    return {"ranks": run.ranks, "shapes": rec.seen, "seconds": time.monotonic() - t0}
+
+
+def _multihost_env(rank: int, world: int, port: int) -> dict:
+    """What a launcher (torchrun) sets for ``rank`` of a one-host group."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+            "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def _check_ranks(label, ranks, steps: int, per_step: dict, want_losses) -> list:
+    """Every rank's launches ``per_step`` times ``steps`` and its losses
+    equal to rank 0's; rank 0's against ``want_losses`` within
+    PARALLEL_TRAIN_RTOL. Returns the relative loss errors."""
+    for r in ranks:
+        log(f"{label}: rank {r['rank']}: losses {[round(x, 6) for x in r['losses']]}, launches "
+            f"{r['launches']}, parameters and buffers {r['param_bytes']} B, moments "
+            f"{r['moment_bytes']} B, peak {r['peak_bytes'] / 2**30:.2f} GiB; on {card()}")
+        want = {n: per_step.get(n, 0) * steps for n in ("flash_attention", "int4_matmul",
+                                                        "int8_matmul")}
+        if r["launches"] != want:
+            raise RuntimeError(f"{label}: rank {r['rank']} launched {r['launches']}, not {want}")
+        if r["losses"] != ranks[0]["losses"] or len(r["losses"]) != steps:
+            raise RuntimeError(f"{label}: rank {r['rank']}'s losses {r['losses']} against rank "
+                               f"0's {ranks[0]['losses']}")
+    got, want = np.asarray(ranks[0]["losses"]), np.asarray(want_losses[:steps])
+    rel = (np.abs(got - want) / np.abs(want)).tolist()
+    log(f"{label}: losses {got.tolist()} against one card's {want.tolist()}: relative "
+        f"{[f'{x:.2e}' for x in rel]} (tol {PARALLEL_TRAIN_RTOL:g})")
+    if not (np.isfinite(got).all() and max(rel) <= PARALLEL_TRAIN_RTOL):
+        raise RuntimeError(f"{label}: losses {got} against one card's {want}")
+    return rel
+
+
+def _train_launches(ranks) -> dict:
+    return {n: sum(r["launches"].get(n, 0) for r in ranks) for n in KERNEL_NAMES}
+
+
+def parallel_training(data: str) -> tuple:
+    """Phases 62-65 in three groups of children, each group at once and the
+    groups one after another: 62 and 63 (peaks ~50 GB), 64's one-card run
+    and FSDP ranks (~53 GB), 65's tp=1 and tp=2 (~37 GB); with phases
+    55-59's child beside them (~16 GB) the card's 80 GB holds each group.
+    Returns (the launches of every rank, the K2 shapes of 62's ranks and
+    63's rank 0)."""
+    from blurr_tpu_torch.parallel.mesh import free_tcp_init_method
+
+    port = int(free_tcp_init_method().rsplit(":", 1)[1])
+    qlora = [*TRAIN_ARGS, "--data", data, "--steps", str(TRAIN_STEPS), "--stop-after", "3"]
+    pi0, vla = "train_pi0_flow_torch", "train_openvla_lora_torch"
+    t0 = time.monotonic()
+    *dp2, tp2 = _in_children("parallel-training", [
+        *((_train_child, (pi0, [*qlora, "--dp", "2", "--multihost"]),
+           _multihost_env(r, 2, port)) for r in range(2)),
+        (_train_child, (pi0, [*qlora, "--tp", "2"]), {})])
+    t1 = time.monotonic()
+    fsdp1, fsdp2 = _in_children("parallel-training", [
+        (_train_child, (pi0, FSDP_ARGS), {}),
+        (_train_child, (pi0, [*FSDP_ARGS, "--dp", "2", "--fsdp"]), {})])
+    t2 = time.monotonic()
+    vla1, vla2 = _in_children("parallel-training", [
+        (_train_child, (vla, VLA_TP_ARGS), {}),
+        (_train_child, (vla, [*VLA_TP_ARGS, "--tp", "2"]), {})])
+    log(f"parallel-training: 62 and 63 at once in {t1 - t0:.1f} s (main() "
+        f"{[round(o['seconds'], 1) for o in (*dp2, tp2)]} s); 64's one-card run and FSDP ranks "
+        f"at once in {t2 - t1:.1f} s (main() {[round(o['seconds'], 1) for o in (fsdp1, fsdp2)]} "
+        f"s); 65's tp=1 and tp=2 at once in {time.monotonic() - t2:.1f} s (main() "
+        f"{[round(o['seconds'], 1) for o in (vla1, vla2)]} s)")
+    # 62 and 63: against phase 37's first three losses
+    want = ONE_CARD["train-qlora-w4a8"]
+    dp2_ranks = [o["ranks"][0] for o in dp2]
+    _check_ranks("train-dp2-qlora-w4a8", dp2_ranks, 3, {"int4_matmul": TRAIN_K2_PER_STEP},
+                 want["losses"])
+    label = "train-tp2-qlora-w4a8"
+    _check_ranks(label, tp2["ranks"], 3, {"int4_matmul": TRAIN_K2_PER_STEP}, want["losses"])
+    ratio = tp2["ranks"][0]["param_bytes"] / want["param_bytes"]
+    log(f"{label}: rank 0's resident parameters and buffers {tp2['ranks'][0]['param_bytes']} B "
+        f"against one card's {want['param_bytes']} B: {ratio:.3f}x (max {TP2_TRAIN_BYTES_MAX})")
+    if ratio > TP2_TRAIN_BYTES_MAX:
+        raise RuntimeError(f"{label}: rank 0 holds {ratio:.3f}x one card's bytes")
+    # 64: the FSDP ranks' state against the one-card run's
+    label = "train-fsdp-dp2"
+    base = fsdp1["ranks"][0]
+    _check_ranks(label + " (one card)", fsdp1["ranks"], 2, {}, base["losses"])
+    _check_ranks(label, fsdp2["ranks"], 2, {}, base["losses"])
+    whole = base["param_bytes"] + base["moment_bytes"]
+    held = [r["param_bytes"] + r["moment_bytes"] for r in fsdp2["ranks"]]
+    log(f"{label}: parameter and moment bytes per rank {held} against one card's {whole} B: "
+        f"{[f'{b / whole:.3f}' for b in held]}x (max {FSDP_BYTES_MAX})")
+    if max(held) > FSDP_BYTES_MAX * whole:
+        raise RuntimeError(f"{label}: an FSDP rank holds {max(held) / whole:.3f}x one card's")
+    # 65: OpenVLA-7B w8a8 at tp=2 against tp=1
+    label = "train-tp2-openvla-w8a8"
+    base = vla1["ranks"][0]
+    _check_ranks(label + " (tp=1)", vla1["ranks"], 2, {}, base["losses"])
+    _check_ranks(label, vla2["ranks"], 2, {}, base["losses"])
+    log(f"{label}: rank 0's parameters and buffers {vla2['ranks'][0]['param_bytes']} B against "
+        f"tp=1's {base['param_bytes']} B: {vla2['ranks'][0]['param_bytes'] / base['param_bytes']:.3f}x")
+    ranks = [r for out in (*dp2, tp2, fsdp1, fsdp2, vla1, vla2) for r in out["ranks"]]
+    return _train_launches(ranks), dp2[0]["shapes"] | dp2[1]["shapes"] | tp2["shapes"]
+
+
+def _serving_ranks(one_rank: dict) -> tuple:
+    """In a child: phases 55-59 (each joins and leaves a process group in
+    that process), against the one-process answers ``one_rank``. Returns
+    (each phase's launches, every shape rank 0 gave K2, K1 (its masks as
+    numpy arrays) and K3)."""
+    ONE_RANK.update(one_rank)
+    device = torch.device("cuda", 0)
+    phases = (
+        ("serve-tp2", lambda: served_tp2(device, "serve-tp2", "config/eval/bridge.yaml", "serve",
+                                         {"flash_attention": 17})),
+        ("serve-dp2", lambda: served_dp2(device)),
+        ("serve-tp2-w4a8", lambda: served_tp2(
+            device, "serve-tp2-w4a8", "config/eval/bridge_pool64_w4a8_steps1.yaml",
+            "serve-w4a8", {"flash_attention": 17, "int4_matmul": W4A8_STEP_LAUNCHES})),
+        ("serve-tp2-int8", lambda: served_tp2(
+            device, "serve-tp2-int8", "config/eval/bridge_pool64_steps2.yaml", "serve-int8",
+            {"flash_attention": 17, "int8_matmul": INT8_STEP_LAUNCHES}, cache_fp=False)),
+        ("serve-tp2-openvla", lambda: served_tp2_openvla(device)),
+    )
+    launches = []
+    with _RecordInt4Shapes() as int4, _RecordFlashShapes() as flash, \
+            _RecordInt8Shapes() as int8:
+        for label, phase in phases:
+            t0 = time.monotonic()
+            launches.append(phase())
+            log(f"{label}: the phase took {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        with tempfile.TemporaryDirectory(prefix="blurr_dp2_") as tmp:
+            launches.append(openloop_dp2(device, tmp))
+        log(f"openloop-dp2: the phase took {time.monotonic() - t0:.1f} s")
+    # numpy: a torch tensor put on a queue is shared through this process,
+    # which is gone by the time the parent reads it
+    return launches, int4.seen, {k: m.cpu().numpy() for k, m in flash.seen.items()}, int8.seen
+
+
+def _same_hashes_everywhere() -> None:
+    """Run this script again with PYTHONHASHSEED=0 unless it is set. The stub
+    tokenizers map words through Python's salted ``hash``, so without one
+    seed a child process (the parallel phases' ranks, rank 0 included)
+    tokenizes the same instruction into other ids than this process did
+    for the one-process answers and losses it is held against."""
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        os.environ["PYTHONHASHSEED"] = "0"
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.execv(sys.executable, [sys.executable, *sys.argv])
+
+
 def main() -> int:
+    from blurr_tpu_torch.presets import load_config
+
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a GPU",
               file=sys.stderr)
         return 1
+    _same_hashes_everywhere()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     t_start = time.monotonic()
@@ -6042,30 +6340,31 @@ def main() -> int:
                          exact=True)
     log(f"openloop-gptq: the phases took {time.monotonic() - t0:.1f} s")
     elapsed("36-53")
-    # the ranks' phases come last: each joins and leaves a process group in
-    # this process, and no earlier phase runs after one
+    # the ranks' phases come last, in child processes: this process joins
+    # no process group. Phases 55-59 (one child) run beside 62-65
     t0 = time.monotonic()
-    with _RecordInt4Shapes() as ranks_int4, _RecordFlashShapes() as ranks_flash, \
-            _RecordInt8Shapes() as ranks_int8:
-        tp2_launches = served_tp2(device, "serve-tp2", "config/eval/bridge.yaml", "serve",
-                                  {"flash_attention": 17})
-        dp2_launches = served_dp2(device)
-        tp2_w4a8_launches = served_tp2(
-            device, "serve-tp2-w4a8", "config/eval/bridge_pool64_w4a8_steps1.yaml",
-            "serve-w4a8", {"flash_attention": 17, "int4_matmul": W4A8_STEP_LAUNCHES})
-        tp2_int8_launches = served_tp2(
-            device, "serve-tp2-int8", "config/eval/bridge_pool64_steps2.yaml", "serve-int8",
-            {"flash_attention": 17, "int8_matmul": INT8_STEP_LAUNCHES}, cache_fp=False)
-        tp2_openvla_launches = served_tp2_openvla(device)
-        with tempfile.TemporaryDirectory(prefix="blurr_dp2_") as tmp:
-            dp2_openloop_launches = openloop_dp2(device, tmp)
-    ranks_shapes_vs_plain(device, ranks_int4.seen, ranks_flash.seen, ranks_int8.seen, tp2)
+    serving = _start_children([(_serving_ranks, (dict(ONE_RANK),), {})], deadline_s=900.0)
+    try:
+        with tempfile.TemporaryDirectory(prefix="blurr_train_ranks_") as tmp:
+            data = os.path.join(tmp, "shards")
+            _raw_shards(data, load_config("config/eval/bridge.yaml"))
+            train_ranks_launches, train_shapes = parallel_training(data)
+    except BaseException:
+        for p, _ in serving[0]:  # no child outlives a failed run
+            p.kill()
+        raise
+    log(f"parallel-training: phases 62-65 took {time.monotonic() - t0:.1f} s")
+    ((ranks_runs, ranks_int4, ranks_flash, ranks_int8),) = _children_results(
+        "parallel-serving", serving)
+    log(f"parallel: the serving phases 55-59 (beside 62-65) took {time.monotonic() - t0:.1f} s")
+    ranks_flash = {k: torch.from_numpy(m).to(device) for k, m in ranks_flash.items()}
+    ranks_shapes_vs_plain(device, ranks_int4, ranks_flash, ranks_int8, tp2)
     profile_after_ranks(device)
-    log(f"parallel: the tensor- and data-parallel serving phases (55-61) took "
-        f"{time.monotonic() - t0:.1f} s")
-    elapsed("55-61")
-    runs = (tp2_launches, dp2_launches, tp2_w4a8_launches, tp2_int8_launches,
-            tp2_openvla_launches, dp2_openloop_launches, launches, checkpoint_launches, batched_launches, backpressure_launches,
+    served_int4_vs_plain(device, train_shapes, set(), label="train-ranks-int4-shapes",
+                         what="the ranks of phases 62-63", by="an earlier phase", exact=True)
+    elapsed("55-65")
+    runs = (*ranks_runs, train_ranks_launches,
+            launches, checkpoint_launches, batched_launches, backpressure_launches,
             baseline_launches, w4a8_launches, batched_w4a8_launches, int8_launches,
             cached_launches, experiment_launches, eval_launches, frame_launches,
             async_launches, eval_batched_launches, eval_w4a8_launches, small_agent_launches,
@@ -6076,7 +6375,8 @@ def main() -> int:
     total = {name: sum(run[name] for run in runs) for name in KERNEL_NAMES}
     # K1, K2 and K3 at the shapes a rank of the tp=2 paths gives them
     measured = {"flash_attention": {**flash, "shapes_tp2": tp2["flash_attention"]},
-                "int4_matmul": {**int4, "shapes_tp2": tp2["int4_matmul"]},
+                "int4_matmul": {**int4, "shapes_tp2": tp2["int4_matmul"],
+                                "shapes_train_ranks": sorted(train_shapes)},
                 "int8_matmul": {**int8, "shapes_tp2": tp2["int8_matmul"]},
                 **experiments}
     # the TPU kernel each replaces (file:line of its kernel body); K2 also

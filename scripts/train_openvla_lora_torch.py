@@ -34,8 +34,13 @@ whole parameter tree (params.safetensors + tree.json), which
 scripts/serve_openvla_torch.py --checkpoint and
 scripts/eval_openloop_vla_torch.py --checkpoint read; --save-state /
 --save-every / --resume-state save and resume the whole training state
-(directories of safetensors and JSON, not orbax). --dp, --tp > 1 and --fsdp
-are refused: they are M14's training half (ROADMAP Queue 1 item 6b).
+(directories of safetensors and JSON, not orbax).
+
+--dp N, --tp M and --fsdp train over N x M ranks that rank 0 spawns
+(blurr_tpu_torch/parallel; scripts/train_pi0_flow_torch.py's docstring):
+each rank takes its rows of the same global batch, the LLM's heads, MLP
+columns and vocabulary split over the model ranks, and every save holds the
+gathered one-card tree. --tp with w4a8 is refused, as JAX refuses it.
 """
 
 from __future__ import annotations
@@ -60,8 +65,6 @@ AR_KEYS = ("input_ids", "attn_valid", "pixel_values", "labels")
 OFT_KEYS = ("input_ids", "attn_valid", "pixel_values", "actions")
 
 
-# M14's training half is not ported yet
-_NOT_PORTED = "not ported: M14's training half (ROADMAP Queue 1 item 6b)"
 
 
 def parse_args(argv=None):
@@ -93,9 +96,12 @@ def parse_args(argv=None):
     p.add_argument("--ema-decay", type=float, default=0.0)
     p.add_argument("--log-every", type=int, default=5)
     p.add_argument("--save-adapter", type=str, default="")
-    p.add_argument("--dp", type=int, default=1, help=_NOT_PORTED)
-    p.add_argument("--tp", type=int, default=1, help=_NOT_PORTED)
-    p.add_argument("--fsdp", action="store_true", help=_NOT_PORTED)
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks: each takes batch-size / dp rows")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (not with --quantize-base w4a8)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard the weights and moments over the data ranks; needs --dp > 1")
     p.add_argument("--save-params", type=str, default="")
     p.add_argument("--save-state", type=str, default="")
     p.add_argument("--save-every", type=int, default=0)
@@ -127,15 +133,17 @@ def synthetic_examples(n, image_hw, action_shape, seed, proprio_dim=0):
     return out
 
 
-def _refuse_parallel(args) -> None:
-    for name in ("dp", "tp"):
-        if getattr(args, name) > 1:
-            sys.exit(f"--{name} {getattr(args, name)}: multi-card training is not ported "
-                     "to the PyTorch trainer yet (M14's training half, ROADMAP Queue 1 item "
-                     "6b)")
-    if args.fsdp:
-        sys.exit("--fsdp: multi-card training is not ported to the PyTorch trainer yet "
-                 "(M14's training half, ROADMAP Queue 1 item 6b)")
+def _check_parallel(args) -> None:
+    """JAX's checks of the parallel flags, in JAX's words."""
+    if args.fsdp and args.dp <= 1:
+        sys.exit("--fsdp shards over the 'data' axis; it needs --dp > 1")
+    if args.quantize_base == "w4a8" and args.tp > 1:
+        sys.exit("--tp with w4a8: the block-major int4 packing does not "
+                 "TP-shard; use w8a8 or tp=1")
+    if args.dp < 1 or args.tp < 1:
+        sys.exit(f"--dp {args.dp} --tp {args.tp}: each needs at least one rank")
+    if args.batch_size % args.dp:
+        sys.exit(f"--batch-size {args.batch_size} must be divisible by --dp {args.dp}")
 
 
 def ce_loss(model, input_ids, attn_valid, pixel_values, labels, remat=False):
@@ -148,11 +156,24 @@ def l1_loss(model, input_ids, attn_valid, pixel_values, actions, proprio=None, r
 
 
 def main(argv=None):
-    """Train as the flags say. Returns a namespace of the model, the
-    optimizer, the EMA and the per-step losses (device tensors)."""
+    """Train as the flags say, on every rank. Returns rank 0's namespace of
+    the model, the optimizer, the EMA and the per-step losses (device
+    tensors), its ``ranks`` every rank's summary."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(message)s")
-    _refuse_parallel(args)
+    _check_parallel(args)
+    from blurr_tpu_torch.parallel.train import run_ranks
+
+    return run_ranks(train, argv, args.dp, args.tp, False, args.device)
+
+
+def train(argv, rank: int = 0, world: int = 1, init_method=None):
+    """One rank's run (``main``'s, on rank ``rank`` of ``world``)."""
+    args = parse_args(argv)
+    if rank:
+        logging.basicConfig(level=logging.WARNING)
+        logging.getLogger().setLevel(logging.WARNING)
     import torch
 
     from blurr_tpu_torch.data import is_sharded_dataset
@@ -171,7 +192,7 @@ def main(argv=None):
     )
     from blurr_tpu_torch.models.pi0.trainable import apply_mask
     from blurr_tpu_torch.ops.lora import inject_lora_tree, lora_trainable_mask, save_peft_adapter
-    from blurr_tpu_torch.parallel.train import make_train_step
+    from blurr_tpu_torch.parallel.train import join_mesh, make_train_step
     from blurr_tpu_torch.utils.optim import (
         AdamW,
         ParamsEMA,
@@ -179,7 +200,7 @@ def main(argv=None):
         warmup_cosine_decay_schedule,
     )
 
-    device = torch.device(args.device)
+    device, mesh = join_mesh(rank, world, init_method, args.device, args.dp, args.tp)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     try:
         built = build_openvla(args.model_id, device=device, dtype=dtype, oft=args.oft,
@@ -194,12 +215,23 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed + 7)
     inject_lora_tree(model.llama, gen, args.lora_rank, targets, args.lora_alpha or None,
                      dtype=dtype)
+    if mesh is not None:  # after the adapters, before the optimizer (as JAX)
+        from blurr_tpu_torch.parallel.fsdp import shard_fsdp, split_axes
+        from blurr_tpu_torch.parallel.mesh import shard_params
+
+        shard_params(model, mesh)
+        if args.fsdp:
+            shard_fsdp(model, mesh)
     mask = lora_trainable_mask(model)
     if args.oft:
         # the OFT modules train fully beside the factors (upstream OFT's recipe)
         aux = ("action_head.",) + (("proprio_projector.",) if args.use_proprio else ())
         mask = {n: m or n.startswith(aux) for n, m in mask.items()}
     trainable = apply_mask(model, mask)
+    split = None if mesh is None else split_axes(model, trainable, mesh)
+    if mesh is not None:
+        log.info("Mesh: dp %d x tp %d%s, rank 0 on %s", args.dp, args.tp,
+                 " (FSDP over the data ranks)" if args.fsdp else "", device)
     n_train = sum(p.numel() for p in trainable)
     n_total = sum(p.numel() for p in model.parameters()) + sum(b.numel() for b in model.buffers())
     log.info("Trainable LoRA parameters: %s of %s (%.3f%%)", f"{n_train:,}", f"{n_total:,}",
@@ -212,14 +244,14 @@ def main(argv=None):
         init_value=args.lr * 0.01, peak_value=args.lr,
         warmup_steps=min(-(-args.warmup_steps // k), total - 1), decay_steps=total,
         end_value=args.lr * 0.01)
-    optimizer = AdamW(trainable, schedule, grad_clip=args.grad_clip)
+    optimizer = AdamW(trainable, schedule, grad_clip=args.grad_clip, mesh=mesh, split=split)
     ema = ParamsEMA(trainable, args.ema_decay) if args.ema_decay > 0 else None
     if args.oft:
         loss_fn, keys = l1_loss, OFT_KEYS + (("proprio",) if args.use_proprio else ())
     else:
         loss_fn, keys = ce_loss, AR_KEYS
     train_step = make_train_step(model, optimizer, remat=args.remat, accum_steps=k, ema=ema,
-                                 loss_fn=loss_fn, batch_keys=keys)
+                                 loss_fn=loss_fn, batch_keys=keys, mesh=mesh)
 
     # ------------------------------------------------------------------
     # data
@@ -317,7 +349,8 @@ def main(argv=None):
     if args.save_every > 0:
         if not args.save_state:
             sys.exit("--save-every needs --save-state <manager root>")
-        ckpt_mgr = TrainCheckpointManager(args.save_state, keep=args.keep_checkpoints)
+        ckpt_mgr = TrainCheckpointManager(args.save_state, keep=args.keep_checkpoints,
+                                          mesh=mesh)
 
     # the step draws nothing: the generator state saved with a training
     # state is a placeholder (the data stream is a function of --seed)
@@ -329,12 +362,12 @@ def main(argv=None):
             same_root = ckpt_mgr is not None and os.path.abspath(
                 args.resume_state) == os.path.abspath(args.save_state)
             rmgr = ckpt_mgr if same_root else TrainCheckpointManager(
-                args.resume_state, keep=args.keep_checkpoints)
+                args.resume_state, keep=args.keep_checkpoints, mesh=mesh)
             start_step, _ = rmgr.restore(*parts)
             if rmgr is not ckpt_mgr:
                 rmgr.close()
         else:
-            start_step, _ = restore_train_state(args.resume_state, *parts)
+            start_step, _ = restore_train_state(args.resume_state, *parts, mesh=mesh)
         if loader is not None:
             loader.restore(start_step)
         else:
@@ -342,10 +375,13 @@ def main(argv=None):
                 draw_indices()
         log.info("Resumed training state from %s at step %d", args.resume_state, start_step)
 
+    from blurr_tpu_torch.parallel.train import kernel_launches
+
     t0 = time.time()
     loss = torch.full((), float("nan"))
     losses = []
     steps_done = start_step
+    before = kernel_launches()
     for it in range(start_step, args.steps):
         loss = train_step(next_batch())
         losses.append(loss)
@@ -359,7 +395,10 @@ def main(argv=None):
             log.info("step %d/%d loss %.5f elapsed %.1fs", it, args.steps, float(loss),
                      time.time() - t0)
 
-    if args.save_adapter:
+    launches = {key: n - before[key] for key, n in kernel_launches().items()}
+    if args.save_adapter and mesh is not None:
+        _save_adapter_sharded(model, mesh, ema, args)
+    elif args.save_adapter:
         n = save_peft_adapter(model.llama, args.save_adapter, base_model_name=str(args.model_id))
         log.info("Exported %d LoRA factor pairs to %s (PEFT format)", n, args.save_adapter)
         if ema is not None:
@@ -387,16 +426,70 @@ def main(argv=None):
             log.info("Saved training state to %s (latest step %d)", args.save_state, steps_done)
         else:
             save_train_state(args.save_state, model, optimizer, steps_done, rng_state,
-                             *parts[2:])
+                             *parts[2:], mesh=mesh)
             log.info("Saved training state to %s", args.save_state)
     if args.save_params:
-        save_params(model, args.save_params)
+        save_params(model, args.save_params, mesh=mesh)
         log.info("Saved serveable params to %s", args.save_params)
     if loader is not None:
         loader.close()
     log.info("Done. final loss %.5f", float(loss))
     return argparse.Namespace(model=model, optimizer=optimizer, ema=ema, losses=losses,
-                              steps_done=steps_done, args=args, spec=spec)
+                              steps_done=steps_done, args=args, spec=spec, rank=rank,
+                              mesh=mesh, launches=launches)
+
+
+
+def _save_adapter_sharded(model, mesh, ema, args) -> None:
+    """--save-adapter over a mesh: the PEFT directories (and OFT's aux
+    files) of the gathered one-card factors, written by rank 0 from stand-in
+    modules (every rank calls it)."""
+    import torch
+    from torch import nn
+
+    from blurr_tpu_torch.models.pi0.checkpoint import _after_write
+    from blurr_tpu_torch.ops.lora import LoRALinear, save_peft_adapter
+    from blurr_tpu_torch.parallel.fsdp import gather_state, unshard_module
+    from blurr_tpu_torch.utils.optim import extract_ema
+
+    extra = None if ema is None else {"ema": extract_ema(ema, model)}
+    tree, groups = gather_state(model, mesh, extra)
+    if args.oft:  # the OFT modules are whole under TP; FSDP shards gather here
+        aux = [unshard_module(model.action_head, mesh),
+               unshard_module(model.proprio_projector, mesh) if args.use_proprio else None]
+    if tree is not None:
+        def llama(values):
+            """The LLM's layers as ``save_peft_adapter`` reads them: each
+            adapted projection a LoRALinear of the one-card factors."""
+            layers = {}
+            for name, t in values.items():
+                parts = name.split(".")  # llama.layers.<i>.<proj>.lora_a
+                if parts[:2] == ["llama", "layers"] and parts[-1] in ("lora_a", "lora_b"):
+                    layers.setdefault(int(parts[2]), {}).setdefault(parts[3], {})[parts[-1]] = t
+            out = nn.Module()
+            out.layers = []
+            for i in sorted(layers):
+                layer = nn.Module()
+                for proj, ab in layers[i].items():
+                    s = tree[f"llama.layers.{i}.{proj}.lora_s"]
+                    setattr(layer, proj, LoRALinear(nn.Identity(), ab["lora_a"], ab["lora_b"], s))
+                out.layers.append(layer)
+            return out
+
+        n = save_peft_adapter(llama(tree), args.save_adapter, base_model_name=str(args.model_id))
+        log.info("Exported %d LoRA factor pairs to %s (PEFT format)", n, args.save_adapter)
+        if ema is not None:
+            save_peft_adapter(llama({**tree, **groups["ema"]}), args.save_adapter + "_ema",
+                              base_model_name=str(args.model_id))
+            log.info("Exported EMA factors to %s_ema", args.save_adapter)
+        if args.oft:
+            from blurr_tpu_torch.models.openvla.checkpoint import save_oft_aux_params
+
+            aux_dir = str(Path(args.save_adapter).parent)
+            with torch.no_grad():
+                save_oft_aux_params(aux_dir, *aux, step=args.steps)
+            log.info("Exported OFT aux checkpoints to %s", aux_dir)
+    _after_write(mesh)
 
 
 if __name__ == "__main__":

@@ -27,9 +27,21 @@ fp base; a QLoRA tree unmerged, with its adapters), which
 scripts/serve_pi0_torch.py --checkpoint DIR serves and
 scripts/export_torch_checkpoint_torch.py turns into a reference .pt;
 --save-state / --save-every / --resume-state save and resume the whole
-training state (directories of safetensors and JSON, not orbax). --dp,
---tp, --sp, --pp, --fsdp and --multihost are refused: they are M14's
-training half (ROADMAP Queue 1 item 6b); its serving half is ported.
+training state (directories of safetensors and JSON, not orbax).
+
+Parallel training (blurr_tpu_torch/parallel): --dp N splits each batch
+over N data ranks (the gradients averaged), --tp M splits the weights over
+M model ranks (the tensor-parallel layers), --fsdp shards every weight and
+moment over the data ranks too (needs --dp > 1). Rank 0 spawns the other
+dp x tp - 1 ranks (one process each, torch.distributed; on one card they
+share it over gloo); with --multihost this process instead joins the
+process group of a launcher (torchrun and the like: RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR, MASTER_PORT), whose world must be dp x tp. Every
+rank draws the same global batch, noise and flow time and takes its rows,
+so a run at --dp N follows the run at --dp 1. Logs and --metrics-csv come
+from rank 0; the saves hold the gathered one-card tree, which serves on
+one card and resumes on any mesh. --sp and --pp are refused (ROADMAP
+Queue 1 item 6b part 2).
 """
 
 from __future__ import annotations
@@ -52,8 +64,8 @@ if str(REPO_ROOT) not in sys.path:
 log = logging.getLogger("train_pi0_flow")
 
 
-# M14's training half is not ported yet
-_NOT_PORTED = "not ported: M14's training half (ROADMAP Queue 1 item 6b)"
+# sequence and pipeline parallelism are not ported yet
+_NOT_PORTED = "not ported: M14's training half, part 2 (ROADMAP Queue 1 item 6b part 2)"
 
 
 def parse_args(argv=None):
@@ -101,10 +113,19 @@ def parse_args(argv=None):
     p.add_argument("--log-every", type=int, default=5)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
-    for flag in ("--dp", "--tp", "--sp", "--pp"):
-        p.add_argument(flag, type=int, default=0, help=_NOT_PORTED)
-    p.add_argument("--fsdp", action="store_true", help=_NOT_PORTED)
-    p.add_argument("--multihost", action="store_true", help=_NOT_PORTED)
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks: each takes batch-size / dp rows")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks: attention heads, MLP columns, the "
+                        "vocabulary and w4a8 blocks split over them")
+    for flag in ("--sp", "--pp"):
+        p.add_argument(flag, type=int, default=1, help=_NOT_PORTED)
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard every weight and AdamW moment over the data ranks "
+                        "too (ZeRO-3); needs --dp > 1")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a launcher's process group (env://) instead of "
+                        "spawning the ranks")
     return p.parse_args(argv)
 
 
@@ -130,16 +151,19 @@ def synthetic_batch(cfg, bsz, rng):
     }
 
 
-def _refuse_parallel(args) -> None:
-    for name in ("dp", "tp", "sp", "pp"):
+def _check_parallel(args) -> None:
+    """JAX's checks of the parallel flags; --sp and --pp are not ported."""
+    for name in ("sp", "pp"):
         if getattr(args, name) > 1:
-            sys.exit(f"--{name} {getattr(args, name)}: multi-card training is not "
-                     "ported to the PyTorch trainer yet (M14's training half, ROADMAP Queue 1 "
-                     "item 6b)")
-    for name in ("fsdp", "multihost"):
-        if getattr(args, name):
-            sys.exit(f"--{name}: multi-card training is not ported to the PyTorch "
-                     "trainer yet (M14's training half, ROADMAP Queue 1 item 6b)")
+            sys.exit(f"--{name} {getattr(args, name)}: sequence and pipeline parallelism "
+                     "are not ported to the PyTorch trainer yet (M14's training half, part 2: "
+                     "ROADMAP Queue 1 item 6b part 2)")
+    if args.fsdp and args.dp <= 1:
+        sys.exit("--fsdp shards over the 'data' axis; it needs --dp > 1")
+    if args.dp < 1 or args.tp < 1:
+        sys.exit(f"--dp {args.dp} --tp {args.tp}: each needs at least one rank")
+    if args.batch_size % args.dp:
+        sys.exit(f"--batch-size {args.batch_size} must be divisible by --dp {args.dp}")
 
 
 def _to_device(batch, device):
@@ -179,11 +203,26 @@ def _inject_lora(model, args, device) -> None:
 
 
 def main(argv=None):
-    """Train as the flags say. Returns a namespace of the model, the
-    optimizer, the EMA and the per-step losses (device tensors)."""
+    """Train as the flags say, on every rank. Returns rank 0's namespace of
+    the model, the optimizer, the EMA and the per-step losses (device
+    tensors), its ``ranks`` every rank's summary
+    (``parallel/train.py:rank_summary``)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(message)s")
-    _refuse_parallel(args)
+    _check_parallel(args)
+    from blurr_tpu_torch.parallel.train import run_ranks
+
+    return run_ranks(train, argv, args.dp, args.tp, args.multihost, args.device)
+
+
+def train(argv, rank: int = 0, world: int = 1, init_method=None):
+    """One rank's run (``main``'s, on rank ``rank`` of ``world``: the
+    process group joined at ``init_method``, or already joined)."""
+    args = parse_args(argv)
+    if rank:
+        logging.basicConfig(level=logging.WARNING)
+        logging.getLogger().setLevel(logging.WARNING)
     import torch
 
     from blurr_tpu_torch.models.pi0.checkpoint import (
@@ -198,8 +237,13 @@ def main(argv=None):
     from blurr_tpu_torch.models.pi0.pizero import PiZero
     from blurr_tpu_torch.models.pi0.trainable import SCOPES, apply_mask
     from blurr_tpu_torch.ops.lora import lora_trainable_mask, merge_lora_tree
-    from blurr_tpu_torch.parallel.train import make_train_step, sample_noise_and_t
+    from blurr_tpu_torch.parallel.train import (
+        join_mesh,
+        make_train_step,
+        sample_noise_and_t,
+    )
     from blurr_tpu_torch.presets import load_config
+    from blurr_tpu_torch.utils.decorator import main_rank_only
     from blurr_tpu_torch.utils.optim import (
         AdamW,
         ParamsEMA,
@@ -210,7 +254,7 @@ def main(argv=None):
         warmup_cosine_decay_schedule,
     )
 
-    device = torch.device(args.device)
+    device, mesh = join_mesh(rank, world, init_method, args.device, args.dp, args.tp)
     cfg = load_config(args.config)
     model = PiZero(cfg, device=device, dtype=torch.float32)
     if str(args.checkpoint).lower() in {"random", "none", ""}:
@@ -231,9 +275,22 @@ def main(argv=None):
     elif args.dtype == "master-fp32":
         compute_dtype = torch.bfloat16
 
+    if mesh is not None:
+        # JAX shards after the adapters and the cast, and inits the
+        # optimizer after sharding: the moments take the shards' shapes
+        from blurr_tpu_torch.parallel.fsdp import shard_fsdp, split_axes
+        from blurr_tpu_torch.parallel.mesh import shard_params
+
+        shard_params(model, mesh)
+        if args.fsdp:
+            shard_fsdp(model, mesh)
     mask = (lora_trainable_mask(model) if args.lora_rank > 0
             else SCOPES[args.train_scope](model))
     trainable = apply_mask(model, mask)
+    split = None if mesh is None else split_axes(model, trainable, mesh)
+    if mesh is not None:
+        log.info("Mesh: dp %d x tp %d%s, rank 0 on %s", args.dp, args.tp,
+                 " (FSDP over the data ranks)" if args.fsdp else "", device)
     n_train = sum(p.numel() for p in trainable)
     log.info("Trainable parameters: %s (%s)", f"{n_train:,}",
              f"LoRA rank {args.lora_rank}" if args.lora_rank > 0 else args.train_scope)
@@ -250,10 +307,11 @@ def main(argv=None):
     log_schedule = cosine_annealing_warmup_restarts(
         first_cycle_steps=total_updates, max_lr=args.lr, min_lr=args.lr * 0.01,
         warmup_steps=warmup)
-    optimizer = AdamW(trainable, schedule, grad_clip=args.grad_clip)
+    optimizer = AdamW(trainable, schedule, grad_clip=args.grad_clip, mesh=mesh, split=split)
     ema = ParamsEMA(trainable, args.ema_decay) if args.ema_decay > 0 else None
     train_step = make_train_step(model, optimizer, remat=args.remat,
-                                 compute_dtype=compute_dtype, accum_steps=k, ema=ema)
+                                 compute_dtype=compute_dtype, accum_steps=k, ema=ema,
+                                 mesh=mesh)
     accumulator = train_step.accumulator
 
     from blurr_tpu_torch.data import is_sharded_dataset
@@ -296,7 +354,8 @@ def main(argv=None):
     if args.save_every > 0:
         if not args.save_state:
             sys.exit("--save-every needs --save-state <manager root>")
-        ckpt_mgr = TrainCheckpointManager(args.save_state, keep=args.keep_checkpoints)
+        ckpt_mgr = TrainCheckpointManager(args.save_state, keep=args.keep_checkpoints,
+                                          mesh=mesh)
 
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     start_step = 0
@@ -306,12 +365,12 @@ def main(argv=None):
             same_root = ckpt_mgr is not None and os.path.abspath(
                 args.resume_state) == os.path.abspath(args.save_state)
             rmgr = ckpt_mgr if same_root else TrainCheckpointManager(
-                args.resume_state, keep=args.keep_checkpoints)
+                args.resume_state, keep=args.keep_checkpoints, mesh=mesh)
             start_step, rng_state = rmgr.restore(*parts)
             if rmgr is not ckpt_mgr:
                 rmgr.close()
         else:
-            start_step, rng_state = restore_train_state(args.resume_state, *parts)
+            start_step, rng_state = restore_train_state(args.resume_state, *parts, mesh=mesh)
         gen.set_state(rng_state)
         if loader is not None:
             loader.restore(start_step)
@@ -341,6 +400,8 @@ def main(argv=None):
 
         @torch.no_grad()
         def run_validation():
+            from blurr_tpu_torch.parallel.mesh import all_reduce_sum, data_rows
+
             vdt = compute_dtype or next(
                 p.dtype for p in model.parameters() if p.is_floating_point())
             params = cast_params(model, compute_dtype) if compute_dtype else None
@@ -350,8 +411,14 @@ def main(argv=None):
                 tb = {key: v.to(vdt) if v.is_floating_point() else v for key, v in tb.items()}
                 args_ = (tb["input_ids"], tb["attention_mask"], tb["pixel_values"],
                          tb["proprios"], tb["actions"], t_f.to(device), x0_f.to(device))
+                # over the data ranks: each scores its rows of a batch that splits
+                split_rows = mesh is not None and args_[0].shape[0] % mesh.data == 0
+                if split_rows:
+                    args_ = tuple(data_rows(a, mesh) for a in args_)
                 loss_v = (model.flow_loss(*args_) if params is None
                           else torch.func.functional_call(model, params, args_))
+                if split_rows and mesh.data > 1:
+                    loss_v = all_reduce_sum(loss_v.float().reshape(1), mesh.data_group) / mesh.data
                 tot += float(loss_v)
             return tot / len(val_batches)
 
@@ -363,10 +430,13 @@ def main(argv=None):
         from blurr_tpu_torch.data import device_prefetch
 
         feed = device_prefetch(loader, depth=2, device=device)
+    from blurr_tpu_torch.parallel.train import kernel_launches
+
     t0 = time.time()
     loss = torch.full((), float("nan"))
     losses = []
     steps_done = start_step
+    before = kernel_launches()
     for step in range(start_step, args.steps):
         batch = next(feed) if feed is not None else _to_device(next_batch(), device)
         noise, t = sample_noise_and_t(gen, batch["actions"])
@@ -388,19 +458,11 @@ def main(argv=None):
             log.info("step %d/%d loss %.5f lr %.2e elapsed %.1fs",
                      step, args.steps, float(loss), lr, elapsed)
             if args.metrics_csv:
-                path = Path(args.metrics_csv)
-                path.parent.mkdir(parents=True, exist_ok=True)
-                new = not path.exists()
-                with path.open("a", newline="") as f:
-                    w = csv.writer(f)
-                    if new:
-                        w.writerow(["step", "loss", "lr", "wall_s", "samples_per_s",
-                                    "val_loss"])
-                    done = step - start_step + 1
-                    w.writerow([step, f"{float(loss):.6f}", f"{lr:.3e}", f"{elapsed:.2f}",
-                                f"{done * args.batch_size / max(elapsed, 1e-9):.2f}",
-                                "" if val is None else f"{val:.6f}"])
+                main_rank_only(_write_metrics)(
+                    args.metrics_csv, step, float(loss), lr, elapsed,
+                    (step - start_step + 1) * args.batch_size / max(elapsed, 1e-9), val)
 
+    launches = {k: n - before[k] for k, n in kernel_launches().items()}
     if run_validation is not None:
         log.info("Final validation loss %.5f", run_validation())
     if loader is not None:
@@ -411,6 +473,8 @@ def main(argv=None):
             log.info("QLoRA: saving the adapter tree unmerged")
 
         def save_final(values, path):
+            if mesh is not None:
+                return _save_sharded(model, mesh, cfg, values, merge, path)
             out = model
             if merge or values is not None:
                 out = copy.deepcopy(model)
@@ -436,11 +500,55 @@ def main(argv=None):
                      steps_done)
         else:
             save_train_state(args.save_state, model, optimizer, steps_done, gen.get_state(),
-                             accumulator, ema)
+                             accumulator, ema, mesh=mesh)
             log.info("Saved training state to %s", args.save_state)
     log.info("Done. final loss %.5f", float(loss))
     return argparse.Namespace(model=model, optimizer=optimizer, ema=ema, losses=losses,
-                              steps_done=steps_done, args=args)
+                              steps_done=steps_done, args=args, rank=rank, mesh=mesh,
+                              launches=launches)
+
+
+
+def _write_metrics(path, step, loss, lr, elapsed, samples_per_s, val) -> None:
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    new = not path.exists()
+    with path.open("a", newline="") as f:
+        w = csv.writer(f)
+        if new:
+            w.writerow(["step", "loss", "lr", "wall_s", "samples_per_s", "val_loss"])
+        w.writerow([step, f"{loss:.6f}", f"{lr:.3e}", f"{elapsed:.2f}", f"{samples_per_s:.2f}",
+                    "" if val is None else f"{val:.6f}"])
+
+
+def _save_sharded(model, mesh, cfg, values, merge: bool, path: str) -> None:
+    """--save-dir over a mesh: the gathered one-card tree (``values``, the
+    EMA's, in place of the parameters when given; LoRA merged into an fp
+    base with ``merge``, on a one-card model rank 0 rebuilds from it).
+    Every rank calls it; rank 0 writes."""
+    from blurr_tpu_torch.models.pi0.checkpoint import (
+        _after_write,
+        _load_tree,
+        _sharded_params_snapshot,
+        _write_params,
+        save_params,
+    )
+    from blurr_tpu_torch.models.pi0.pizero import PiZero
+    from blurr_tpu_torch.ops.lora import merge_lora_tree
+
+    snap = _sharded_params_snapshot(model, mesh, None if values is None else {"v": values})
+    if snap is not None:
+        tensors, tree, groups = snap
+        tensors.update(groups.get("v", {}))
+        if merge:
+            dtype = next(t.dtype for t in tensors.values() if t.is_floating_point())
+            one = PiZero(cfg, device="cpu", dtype=dtype)
+            _load_tree(one, tree["modules"], tensors)
+            merge_lora_tree(one)
+            save_params(one, path)
+        else:
+            _write_params(path, tensors, tree)
+    _after_write(mesh)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,8 @@ Then the port's CLI alone: QLoRA w4a8 and OFT with proprio from a sharded
 dataset (the int4 payloads unchanged, the factors moved), --accum-steps
 with --ema-decay (<dir>_ema written), exact resume from --save-state and
 from a --save-every root, --save-params served by the OpenVLA server and
-scored by the evaluator, .npz data, and the refused --dp, --tp and --fsdp.
+scored by the evaluator, .npz data, and --dp / --tp on two ranks (--fsdp
+alone refused with JAX's message).
 """
 
 import importlib
@@ -305,5 +306,13 @@ def test_npz_data_trains_and_oft_checks_its_shape(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"], ["--fsdp"]])
 def test_multi_card_flags_name_m14(flag):
-    with pytest.raises(SystemExit, match="M14"):
-        _train(*flag)
+    """M14's training half on the OpenVLA trainer: --dp 2 and --tp 2 train
+    on two ranks (the same losses on each); --fsdp alone is refused with
+    JAX's message."""
+    if flag == ["--fsdp"]:
+        with pytest.raises(SystemExit, match="needs --dp > 1"):
+            _train(*flag)
+        return
+    run = _train(*flag, "--steps", "1")
+    losses = [r["losses"] for r in run.ranks]
+    assert len(losses) == 2 and losses[0] == losses[1] and np.isfinite(losses[0]).all()

@@ -312,9 +312,20 @@ def test_cli_validation_and_metrics_csv(tmp_path, caplog, shards):
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--sp", "2"], ["--pp", "2"],
                                    ["--fsdp"], ["--multihost"]])
 def test_cli_refuses_multi_card_flags(flags, caplog):
-    with pytest.raises(SystemExit, match="M14") as err:
-        _main(["--config", TINY, "--steps", "1", *flags], caplog)
-    assert err.value.code != 0
+    """The parallel flags as JAX's trainer takes them: --dp 2 and --tp 2
+    train on two ranks (the same loss on each); --sp and --pp are refused,
+    naming the part of M14 not ported yet; --fsdp alone is refused with
+    JAX's message; --multihost without a launcher trains on one process."""
+    argv = ["--config", TINY, "--steps", "1", *flags]
+    if flags[0] in ("--sp", "--pp", "--fsdp"):
+        with pytest.raises(SystemExit, match="M14.*6b part 2|needs --dp > 1") as err:
+            _main(argv, caplog)
+        assert err.value.code != 0
+        return
+    result = _main(argv, caplog)
+    losses = [r["losses"] for r in result.ranks]
+    assert len(losses) == (1 if flags == ["--multihost"] else 2)
+    assert all(r == losses[0] for r in losses) and np.isfinite(losses[0]).all()
 
 
 def test_full_fine_tuning_scopes_freeze_the_rest(caplog):
