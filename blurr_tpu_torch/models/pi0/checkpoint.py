@@ -734,14 +734,20 @@ def _sharded_params_snapshot(model: nn.Module, mesh, extra=None):
     from blurr_tpu_torch.parallel.tensor_parallel import one_card_kinds
 
     tensors, groups = gather_state(model, mesh, extra)
+    kinds = one_card_kinds(model)
+    if mesh.pipe > 1:
+        from blurr_tpu_torch.parallel.pipeline import gather_stage_objects
+
+        stages = gather_stage_objects(kinds, mesh)
+        kinds = None if stages is None else {k: v for st in stages for k, v in st.items()}
     if tensors is None:
         return None
-    return tensors, {"format": _FORMAT, "version": 1, "modules": one_card_kinds(model)}, groups
+    return tensors, {"format": _FORMAT, "version": 1, "modules": kinds}, groups
 
 
 def _after_write(mesh) -> None:
     """The other ranks wait here until rank 0 has written."""
-    if mesh is not None and mesh.data * mesh.model > 1:
+    if mesh is not None and mesh.size > 1:
         torch.distributed.barrier()
 
 
@@ -793,12 +799,17 @@ def _train_snapshot(model, optimizer, step: int, rng_state: torch.Tensor,
 
         snap = _sharded_params_snapshot(
             model, mesh, {key: dict(zip(trainable, tensors)) for key, tensors in parts})
+        where = layout(model, mesh)
+        trainable = [where[n].name for n in trainable]
+        if mesh.pipe > 1:  # every stage's trainable layers
+            from blurr_tpu_torch.parallel.pipeline import gather_stage_objects
+
+            stages = gather_stage_objects(trainable, mesh)
+            trainable = None if stages is None else list(dict.fromkeys(sum(stages, [])))
         if snap is None:
             return None
         params, tree, groups = snap
         opt = {f"{key}/{name}": t for key, group in groups.items() for name, t in group.items()}
-        where = layout(model, mesh)
-        trainable = [where[n].name for n in trainable]
     state = {
         "step": int(step), "trainable": trainable, "adam_count": optimizer.count,
         "accum_mini_step": accumulator.mini_step if accumulator is not None else None,
@@ -830,6 +841,19 @@ def save_train_state(path: str, model, optimizer, step: int, rng_state: torch.Te
     _after_write(mesh)
 
 
+def _in_dropped(model: nn.Module, name: str) -> bool:
+    """Whether module ``name`` lies under a layer this pipeline stage
+    dropped (``parallel/pipeline.py:DroppedLayer``)."""
+    from blurr_tpu_torch.parallel.pipeline import DroppedLayer
+
+    mod = model
+    for part in name.split("."):
+        mod = getattr(mod, part, None)
+        if mod is None or isinstance(mod, DroppedLayer):
+            return isinstance(mod, DroppedLayer)
+    return False
+
+
 @torch.no_grad()
 def restore_train_state(path: str, model, optimizer, accumulator=None, ema=None, mesh=None):
     """Load a ``save_train_state`` directory into the model, the optimizer,
@@ -850,7 +874,10 @@ def restore_train_state(path: str, model, optimizer, accumulator=None, ema=None,
         from blurr_tpu_torch.parallel.tensor_parallel import one_card_kinds
 
         tree = _read_json(os.path.join(path, _TREE_FILE))
-        if tree.get("modules") != one_card_kinds(model):
+        saved = tree.get("modules") or {}
+        if mesh.pipe > 1:  # a stage holds its own layers' linears
+            saved = {k: v for k, v in saved.items() if not _in_dropped(model, k)}
+        if saved != one_card_kinds(model):
             raise ValueError(f"{path}: the saved run's linears differ from this run's")
         cut_state(model, mesh, read_safetensors(os.path.join(path, _PARAMS_FILE)))
         where = layout(model, mesh)
@@ -858,7 +885,10 @@ def restore_train_state(path: str, model, optimizer, accumulator=None, ema=None,
 
         def cut(t, i):
             return cut_tensor(t, where[trainable[i]], optimizer.params[i], mesh)
-    if full != state["trainable"]:
+    saved = state["trainable"]
+    if mesh is not None and mesh.pipe > 1:  # a stage restores its own layers' only
+        saved = [n for n in saved if not _in_dropped(model, n.rpartition(".")[0])]
+    if sorted(full) != sorted(saved):  # by name: the stages of a pipeline list theirs
         raise ValueError(f"{path}: the trainable parameters differ from the saved run's")
     opt = read_safetensors(os.path.join(path, _OPT_FILE))
 

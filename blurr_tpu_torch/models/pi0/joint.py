@@ -22,6 +22,12 @@ int8 / cached-fp / w8a8 / w4a8 modules of ``ops/quant.py``; each mixture
 clamps the activations of its quantized linears with its own
 ``activation_clip`` (JAX ``_clip_for``).
 
+The naive forward is ``naive_consts`` (rope tables, conditioning) and
+``naive_layers`` over a range of layers, which a pipeline stage runs on
+its own layers alone (``parallel/pipeline.py``); under sequence
+parallelism (``sp``) the vlm rows are the rank's token slice, whose
+queries read every rank's keys and values.
+
 An adaptive mixture (``adaptive_mode`` adaLN or adaLN-Zero) replaces its
 Gemma norms with ``AdaptiveRMSNorm``s of the flow-time conditioning
 ``time_cond`` [B, time_hidden_size]; adaLN-Zero also gates the attention
@@ -360,6 +366,90 @@ def decode(
     return apply_norm(action.final_norm, h, time_cond, eps)
 
 
+def naive_consts(spec: JointSpec, names: Sequence[str], position_ids: Dict[str, torch.Tensor],
+                 time_cond: Optional[torch.Tensor] = None,
+                 prefix_time_cond: Optional[torch.Tensor] = None):
+    """(ropes, conditioning) of each mixture for ``naive_layers``: the
+    RoPE tables of its position ids, and the time conditioning an adaptive
+    mixture reads (the action mixture ``time_cond``; the others
+    ``prefix_time_cond`` when given, else ``time_cond``)."""
+    ropes = {
+        n: rope_cos_sin(position_ids[n], spec.head_dim, spec.mixtures[n].rope_theta)
+        for n in names
+    }
+    tcs = {
+        n: time_cond if n == "action" or prefix_time_cond is None else prefix_time_cond
+        for n in names
+    }
+    return ropes, tcs
+
+
+def naive_layers(
+    mixtures: Dict[str, Mixture],
+    spec: JointSpec,
+    hs: Dict[str, torch.Tensor],  # each mixture's hidden states [B, S, H], scaled
+    ropes: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+    mask: torch.Tensor,  # bool [B, rows, T]: the rows of hs, in mixture order
+    tcs: Dict[str, Optional[torch.Tensor]],
+    layers: Sequence[int],
+    remat: bool = False,
+    capture: bool = False,
+    sp=None,
+):
+    """Layers ``layers`` of the naive forward (``naive_forward``) on the
+    hidden states ``hs``; returns (the hidden states after them, each
+    layer's captured inputs or None). In the model's last layer only the
+    action mixture's output is read, so the others skip their output
+    projection and MLP there, unless ``capture``.
+
+    ``sp`` (a mesh with a seq axis): ``hs["vlm"]`` and its rope tables are
+    the rank's token rows, and every other mixture's rows are whole on
+    every rank. Each layer's queries are the rank's rows over every
+    rank's vlm keys and values, gathered together through
+    ``gather_sum_from_group`` (the gradient of a rank's K/V is the sum of
+    every rank's), and the replicated rows' keys and values; ``mask`` is
+    cut to those query rows."""
+    names = list(hs)
+    eps = spec.rms_norm_eps
+    last = spec.num_hidden_layers - 1
+    split = sp is not None and sp.seq > 1
+    caps = [] if capture else None
+
+    def layer(i, *h):
+        hs = dict(zip(names, h))
+        lens = [x.shape[1] for x in h]
+        mods = {n: mixtures[n].layers[i] for n in names}
+        cap = {n: {} for n in names} if capture else dict.fromkeys(names)
+        parts = [
+            list(mods[n].qkv(hs[n], *ropes[n], spec, _clip_for(spec, n), tcs[n], cap[n]))
+            for n in names
+        ]
+        if split:
+            from blurr_tpu_torch.parallel.mesh import gather_sum_from_group
+
+            part = parts[names.index("vlm")]
+            kv = gather_sum_from_group(torch.cat(part[1:], dim=1), sp.seq_group, 2)
+            part[1:] = kv.chunk(2, dim=1)
+        q, k, v = (torch.cat(t, dim=2) for t in zip(*parts))
+        attn = merge_heads(_attention(spec, q, k, v, mask))
+        offset = 0
+        for n, s in zip(names, lens):
+            if i < last or n == "action" or capture:
+                hs[n] = mods[n].finish(
+                    hs[n], attn[:, offset : offset + s], eps, _clip_for(spec, n), tcs[n],
+                    cap[n],
+                )
+            offset += s
+        if capture:
+            caps.append(cap)
+        return tuple(hs[n] for n in names)
+
+    h = tuple(hs[n] for n in names)
+    for i in layers:
+        h = checkpoint(layer, i, *h, use_reentrant=False) if remat else layer(i, *h)
+    return dict(zip(names, h)), caps
+
+
 def naive_forward(
     mixtures: Dict[str, Mixture],  # {"vlm": ..., "proprio": ..., "action": ...}
     spec: JointSpec,
@@ -395,45 +485,10 @@ def naive_forward(
         raise ValueError("capture (GPTQ calibration) does not combine with remat")
     names = list(embeds)
     eps = spec.rms_norm_eps
-    lens = [embeds[n].shape[1] for n in names]
     hs = {n: scale_embeds(embeds[n]) for n in names}
-    ropes = {
-        n: rope_cos_sin(position_ids[n], spec.head_dim, spec.mixtures[n].rope_theta)
-        for n in names
-    }
-    tcs = {
-        n: time_cond if n == "action" or prefix_time_cond is None else prefix_time_cond
-        for n in names
-    }
-    last = spec.num_hidden_layers - 1
-    caps = [] if capture else None
-
-    def layer(i, *h):
-        hs = dict(zip(names, h))
-        layers = {n: mixtures[n].layers[i] for n in names}
-        cap = {n: {} for n in names} if capture else dict.fromkeys(names)
-        parts = [
-            layers[n].qkv(hs[n], *ropes[n], spec, _clip_for(spec, n), tcs[n], cap[n])
-            for n in names
-        ]
-        q, k, v = (torch.cat(t, dim=2) for t in zip(*parts))
-        attn = merge_heads(_attention(spec, q, k, v, full_mask))
-        offset = 0
-        for n, s in zip(names, lens):
-            if i < last or n == "action" or capture:
-                hs[n] = layers[n].finish(
-                    hs[n], attn[:, offset : offset + s], eps, _clip_for(spec, n), tcs[n],
-                    cap[n],
-                )
-            offset += s
-        if capture:
-            caps.append(cap)
-        return tuple(hs[n] for n in names)
-
-    h = tuple(hs[n] for n in names)
-    for i in range(spec.num_hidden_layers):
-        h = checkpoint(layer, i, *h, use_reentrant=False) if remat else layer(i, *h)
-    hs = dict(zip(names, h))
+    ropes, tcs = naive_consts(spec, names, position_ids, time_cond, prefix_time_cond)
+    hs, caps = naive_layers(mixtures, spec, hs, ropes, full_mask, tcs,
+                            range(spec.num_hidden_layers), remat, capture)
     out = apply_norm(mixtures["action"].final_norm, hs["action"], tcs["action"], eps)
     if capture:
         return out, {n: {key: torch.stack([c[n][key] for c in caps]) for key in caps[0][n]}

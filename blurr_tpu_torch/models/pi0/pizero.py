@@ -399,12 +399,24 @@ class PiZero(nn.Module):
     # Encoders
     # ------------------------------------------------------------------
 
-    def _embed_merge(self, input_ids, pixel_values, remat: bool = False) -> torch.Tensor:
+    def _embed_merge(self, input_ids, pixel_values, remat: bool = False,
+                     sp=None) -> torch.Tensor:
         """Text embedding with the scaled image features written at the
         image-token slots (always the first positions of the prompt).
-        ``remat`` checkpoints each SigLIP layer (training)."""
+        ``remat`` checkpoints each SigLIP layer (training). ``sp`` (a mesh
+        with a seq axis): SigLIP runs on the rank's patch rows, the image
+        features are put back together (``gather_sum_from_group``: the
+        rank's patch and token slices need not line up) and the rank keeps
+        its contiguous slice of the merged tokens."""
         s = self.spec
-        feats = self.multi_modal_projector(self.vision_tower(pixel_values, remat=remat))
+        feats = self.multi_modal_projector(self.vision_tower(pixel_values, remat=remat, sp=sp))
+        if sp is not None and sp.seq > 1:
+            from blurr_tpu_torch.parallel.mesh import gather_sum_from_group, sp_constrain
+
+            feats = gather_sum_from_group(feats, sp.seq_group, 1)
+            return sp_constrain(merge_embeds(self.embed_tokens, feats, input_ids,
+                                             s.image_token_index, s.pad_token_id,
+                                             self.vlm_hidden), sp)
         return merge_embeds(self.embed_tokens, feats, input_ids, s.image_token_index,
                             s.pad_token_id, self.vlm_hidden)
 
@@ -600,6 +612,8 @@ class PiZero(nn.Module):
         t: torch.Tensor,  # [B] flow time
         x0: torch.Tensor,  # noise, the shape of actions
         remat: bool = False,
+        pipeline=None,
+        sp=None,
     ) -> torch.Tensor:
         """The flow-matching loss (JAX ``PiZero.flow_loss``): the joint
         model's naive forward over image/text + proprio + the flow's point
@@ -609,31 +623,80 @@ class PiZero(nn.Module):
         ``remat`` recomputes each SigLIP and joint layer in the backward
         (``torch.utils.checkpoint``). The proprio mixture is the action
         module, so its gradient sums both mixtures' contributions, as JAX's
-        canonical tied tree gives."""
+        canonical tied tree gives.
+
+        ``pipeline`` (``parallel/pipeline.py:PipelineCtx``; the model cut by
+        ``shard_params_pipeline``) runs the GPipe schedule over the pipe
+        ranks: the batch in microbatches, each stage its joint layers, the
+        loss the same on every stage (``pipelined_flow_loss``). ``sp`` (a
+        mesh with a seq axis; JAX's ``sp_axis``) shards the SigLIP patches
+        and the vlm tokens over the seq ranks (``_embed_merge``,
+        ``flow_stage``); every rank returns the whole loss. The
+        two use different meshes: together they raise JAX's
+        ``ValueError``, before any collective."""
+        if sp is not None and pipeline is not None:
+            raise ValueError(
+                "sequence parallelism (sp_axis) and pipeline parallelism use "
+                "different meshes; compose sp with data/tensor axes instead"
+            )
+        inputs = (input_ids, attention_mask, pixel_values, proprios, actions, t, x0)
+        if pipeline is not None:
+            from blurr_tpu_torch.parallel.pipeline import pipelined_flow_loss
+
+            return pipelined_flow_loss(self, inputs, pipeline, remat)
+        return self.flow_stage(inputs, range(self.joint_spec.num_hidden_layers), remat=remat,
+                               sp=sp)
+
+    def _flow_error(self, hidden, actions, x0) -> torch.Tensor:
+        """The mean squared error of the velocity decoded from the action
+        mixture's final hidden states, in fp32."""
+        v_psi = self._decode_action(hidden)
+        d_psi = actions - (1 - self.spec.flow_sig_min) * x0
+        return torch.mean((v_psi.float() - d_psi.float()) ** 2)
+
+    def flow_stage(self, inputs, layers: range, carry=None, remat: bool = False, sp=None):
+        """``flow_loss``'s joint layers ``layers`` on ``inputs`` (its seven
+        arguments, or a pipeline microbatch's rows of them) over the hidden
+        states ``carry`` (vlm, proprio, action; the embeddings when
+        ``layers`` starts at 0). Returns the hidden states after them, or
+        the loss after the model's last layer. The mask, the positions and
+        the time conditioning are made here from ``inputs``' rows. ``sp``
+        (a mesh with a seq axis): the vlm rows, their positions and their
+        mask rows are the rank's contiguous slice of the tokens."""
+        input_ids, attention_mask, pixel_values, proprios, actions, t, x0 = inputs
         s = self.spec
-        bsz = input_ids.shape[0]
-        psi = self.psi_t(x0, actions, t).to(actions.dtype)
+        names = ("vlm", "proprio", "action")
+        time_emb = self._time_embedding(t).to(actions.dtype)
+        time_cond = time_emb if s.adaptive_mode else None
         full_mask = mask_lib.pi0_full_mask(
             attention_mask, s.max_image_text_tokens, s.num_proprio_tokens,
             s.num_action_tokens,
         )
-        vlm_pos, proprio_pos, action_pos = mask_lib.pi0_position_ids(
-            bsz, s.max_image_text_tokens, s.num_proprio_tokens,
+        positions = dict(zip(names, mask_lib.pi0_position_ids(
+            input_ids.shape[0], s.max_image_text_tokens, s.num_proprio_tokens,
             s.num_action_tokens, device=input_ids.device,
-        )
-        inputs_embeds = self._embed_merge(input_ids, pixel_values, remat=remat)
-        proprio_embeds = self._encode_proprio(proprios)
-        time_emb = self._time_embedding(t).to(actions.dtype)
-        hidden = joint_lib.naive_forward(
-            self.joint, self.joint_spec,
-            {"vlm": inputs_embeds, "proprio": proprio_embeds,
-             "action": self._encode_action(psi, time_emb)},
-            {"vlm": vlm_pos, "proprio": proprio_pos, "action": action_pos},
-            full_mask, time_emb if s.adaptive_mode else None, remat=remat,
-        )
-        v_psi = self._decode_action(hidden)
-        d_psi = actions - (1 - s.flow_sig_min) * x0
-        return torch.mean((v_psi.float() - d_psi.float()) ** 2)
+        )))
+        if sp is not None and sp.seq > 1:
+            from blurr_tpu_torch.parallel.mesh import sp_constrain
+
+            # the rank's queries: its slice of the vlm rows, then every other row
+            n_vlm = s.max_image_text_tokens
+            positions["vlm"] = sp_constrain(positions["vlm"], sp)
+            full_mask = torch.cat([sp_constrain(full_mask[:, :n_vlm], sp),
+                                   full_mask[:, n_vlm:]], dim=1)
+        ropes, tcs = joint_lib.naive_consts(self.joint_spec, names, positions, time_cond)
+        if layers.start == 0:
+            psi = self.psi_t(x0, actions, t).to(actions.dtype)
+            embeds = (self._embed_merge(input_ids, pixel_values, remat=remat, sp=sp),
+                      self._encode_proprio(proprios), self._encode_action(psi, time_emb))
+            carry = [joint_lib.scale_embeds(e) for e in embeds]
+        hs, _ = joint_lib.naive_layers(self.joint, self.joint_spec, dict(zip(names, carry)),
+                                       ropes, full_mask, tcs, layers, remat, sp=sp)
+        if layers.stop < self.joint_spec.num_hidden_layers:
+            return tuple(hs[n] for n in names)
+        out = joint_lib.apply_norm(self.joint["action"].final_norm, hs["action"],
+                                   tcs["action"], self.joint_spec.rms_norm_eps)
+        return self._flow_error(out, actions, x0)
 
     # ------------------------------------------------------------------
     # Text generation (the vlm mixture alone, append-mode cache)

@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from blurr_tpu_torch.ops.activations import gelu_tanh
 from blurr_tpu_torch.ops.attention import mha_flat
 from blurr_tpu_torch.ops.norms import layer_norm
+from blurr_tpu_torch.parallel.mesh import gather_sum_from_group, sp_constrain
 
 
 def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -54,14 +55,19 @@ class SiglipEncoderLayer(nn.Module):
         self.fc1 = nn.Linear(d, inter, **kw)
         self.fc2 = nn.Linear(inter, d, **kw)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, sp=None) -> torch.Tensor:
         """The heads are read from the projections' width: under tensor
-        parallelism q, k and v give this rank's heads."""
+        parallelism q, k and v give this rank's heads. Under sequence
+        parallelism (``sp``, the mesh) ``h`` is the rank's patch rows; the
+        attention reads every rank's keys and values, gathered together
+        through ``gather_sum_from_group`` (JAX ``siglip.py:105-129``)."""
         b, s, _ = h.shape
         hd = self.head_dim
         x = layer_norm(h, self.layer_norm1.weight, self.layer_norm1.bias, self.eps)
         q, k, v = (proj(x) for proj in (self.q_proj, self.k_proj, self.v_proj))
         q, k, v = (t.view(b, s, t.shape[-1] // hd, hd) for t in (q, k, v))
+        if sp is not None and sp.seq > 1:
+            k, v = gather_sum_from_group(torch.cat([k, v], dim=2), sp.seq_group, 1).chunk(2, 2)
         h = h + self.out_proj(mha_flat(q, k, v))
         x = layer_norm(h, self.layer_norm2.weight, self.layer_norm2.bias, self.eps)
         return h + self.fc2(gelu_tanh(self.fc1(x)))
@@ -87,13 +93,17 @@ class SiglipVisionModel(nn.Module):
         )
         self.post_layernorm = nn.LayerNorm(d, eps=self.eps, **kw)
 
-    def forward(self, pixel_values: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    def forward(self, pixel_values: torch.Tensor, remat: bool = False, sp=None) -> torch.Tensor:
         """``remat`` recomputes each encoder layer in the backward
-        (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` per layer)."""
-        h = self.patch_embedding(patchify(pixel_values, self.patch_size))
-        h = h + self.position_embedding[None]
+        (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` per layer).
+        ``sp`` (a mesh with a seq axis) gives [B, N_patches / seq, hidden]:
+        the rank's contiguous patch rows, whose LayerNorms, projections and
+        MLP run on those rows alone."""
+        patches = sp_constrain(patchify(pixel_values, self.patch_size), sp)
+        h = self.patch_embedding(patches)
+        h = h + sp_constrain(self.position_embedding[None], sp)
         for layer in self.layers:
-            h = checkpoint(layer, h, use_reentrant=False) if remat else layer(h)
+            h = checkpoint(layer, h, sp, use_reentrant=False) if remat else layer(h, sp)
         return layer_norm(
             h, self.post_layernorm.weight, self.post_layernorm.bias, self.eps
         )

@@ -17,11 +17,11 @@ gradients. Here ``shard_fsdp`` does it by hand, after ``shard_params``
   (``module.weight``), so every read in the forward, whichever module's
   code makes it, sees the whole tensor, while ``named_parameters``,
   ``state_dict`` and the optimizer see the shard. The gather of a tensor
-  that takes a gradient is a ``torch.autograd.Function`` whose backward is
-  a reduce-scatter (on gloo, which has none, a sum-all-reduce and the
-  rank's slice): the shard's gradient is the sum of the data ranks',
-  which the training step divides by their number. A frozen tensor is
-  gathered without autograd.
+  that takes a gradient is ``parallel/mesh.py:gather_sum_from_group``,
+  whose backward is a reduce-scatter (on gloo, which has none, a
+  sum-all-reduce and the rank's slice): the shard's gradient is the sum of
+  the data ranks', which the training step divides by their number. A
+  frozen tensor is gathered without autograd.
 
 The optimizer's moments, the accumulator and the EMA take the shards'
 shapes (``utils/optim.py``; they are built after the sharding, as JAX's
@@ -48,7 +48,13 @@ import torch.distributed as dist
 from torch import nn
 
 from blurr_tpu_torch.ops.quant import QUANTIZED_LINEARS
-from blurr_tpu_torch.parallel.mesh import Mesh, _own, all_gather, all_reduce_sum, fsdp_dim
+from blurr_tpu_torch.parallel.mesh import (
+    Mesh,
+    _own,
+    all_gather,
+    fsdp_dim,
+    gather_sum_from_group,
+)
 from blurr_tpu_torch.parallel.tensor_parallel import (
     W4A8Blocks,
     rule_axes,
@@ -60,28 +66,6 @@ _SHARDED_BUFFERS = ("q", "q8a", "q4", "fp", "s")
 _CLASSES: Dict[type, type] = {}
 
 
-def _reduce_scatter(g: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """The sum of ``g`` over ``group``, this rank's slice along ``dim``."""
-    if dist.get_backend(group) == "nccl":
-        n = dist.get_world_size(group)
-        src = g.movedim(dim, 0).float().contiguous()
-        out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
-        dist.reduce_scatter_tensor(out, src, group=group)
-        return out.to(g.dtype).movedim(0, dim).contiguous()
-    return _own(all_reduce_sum(g, group), group, dim)
-
-
-class _GatherShards(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, shard, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return all_gather(shard, group, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
-
-
 def _gathering_getattr(self, name: str):
     value = nn.Module.__getattr__(self, name)
     dim = self.__dict__["_fsdp_dims"].get(name)
@@ -89,7 +73,7 @@ def _gathering_getattr(self, name: str):
         return value
     group = self.__dict__["_fsdp_group"]
     if value.requires_grad:
-        return _GatherShards.apply(value, group, dim)
+        return gather_sum_from_group(value, group, dim)
     with torch.no_grad():
         return all_gather(value, group, dim)
 
@@ -236,9 +220,10 @@ def gather_state(model: nn.Module, mesh: Mesh,
     persistent buffer, {key: {one-card name: CPU tensor}} of each ``extra``
     group of tensors laid out as the named parameters (``{key: {sharded
     name: tensor}}``: the moments)). Every rank must call it; rank 0 gets
-    the trees, the others None."""
+    the trees, the others None. Over a pipe mesh each stage's layers come
+    from that stage (``parallel/pipeline.py:gather_stages``)."""
     where = layout(model, mesh)
-    keep = _keeps()
+    keep = _keeps() or (mesh.pipe > 1 and mesh.data_rank == 0)
     tree = {}
     for name, t in state_tensors(model).items():
         full = gather_tensor(t, where[name], mesh)
@@ -251,6 +236,12 @@ def gather_state(model: nn.Module, mesh: Mesh,
             full = gather_tensor(t, where[name], mesh)
             if keep:
                 groups[key][where[name].name] = full.to("cpu", copy=True)
+    if mesh.pipe > 1:
+        from blurr_tpu_torch.parallel.pipeline import gather_stages
+
+        tree = gather_stages(tree, mesh)
+        groups = {key: gather_stages(g, mesh) for key, g in groups.items()}
+        keep = tree is not None
     return (tree, groups) if keep else (None, None)
 
 
@@ -268,13 +259,19 @@ def cut_state(model: nn.Module, mesh: Mesh, tree: Dict[str, torch.Tensor]) -> nn
 
 
 def split_axes(model: nn.Module, params, mesh: Mesh):
-    """[(split over the model ranks, split over the data ranks)] of each of
-    ``params`` (parameters of the sharded ``model``): what
+    """[(split over the model ranks, split over the data ranks[, staged on
+    one pipe rank])] of each of ``params`` (parameters of the sharded
+    ``model``; the third entry on a pipeline mesh): what
     ``utils/optim.py:AdamW``'s clip needs for its global norm."""
     where = layout(model, mesh)
     names = {id(p): n for n, p in model.named_parameters()}
-    return [(where[names[id(p)]].tp_axis is not None, where[names[id(p)]].fsdp_axis is not None)
-            for p in params]
+    out = [(where[names[id(p)]].tp_axis is not None, where[names[id(p)]].fsdp_axis is not None)
+           for p in params]
+    if mesh.pipe > 1:
+        from blurr_tpu_torch.parallel.pipeline import is_staged
+
+        out = [(*axes, is_staged(names[id(p)])) for axes, p in zip(out, params)]
+    return out
 
 
 def unshard_module(mod: nn.Module, mesh: Mesh) -> nn.Module:

@@ -1,5 +1,5 @@
-"""Ranks, the (data, model) mesh, the tensor-parallel rule table and the
-collectives.
+"""Ranks, the (data, seq, model) and (data, pipe) meshes, the tensor-parallel
+rule table and the collectives.
 
 Counterpart of ``blurr_tpu/parallel/mesh.py`` for serving. JAX lays a
 ``('data', 'model')`` ``Mesh`` over the chips of one process and lets GSPMD
@@ -85,13 +85,39 @@ each gradient tp times too large.
 **Training** (M14's training half): ``init_multihost`` (JAX ``mesh.py:61``)
 joins a launcher's process group; ``fsdp_dim`` is ``_augment_fsdp``'s
 choice of the axis a tensor shards on over the data ranks
-(``parallel/fsdp.py`` carries it out). Not ported here (ROADMAP Queue 1
-item 6b part 2): ``sp_constrain`` and the 'seq' axis.
+(``parallel/fsdp.py`` carries it out).
+
+**Sequence and pipeline axes.** ``make_mesh(data, model, seq)`` adds JAX's
+'seq' axis: ``data x seq x model`` ranks, rank = (d * seq + s) * model + m,
+each with its seq group (the ``seq`` ranks that split the tokens of one
+data row and model column). ``parallel/pipeline.py:make_pipeline_mesh``
+lays out JAX's ``('data', 'pipe')`` grid, rank = d * pipe + p, with a pipe
+group. One ``Mesh`` holds either: rank = ((d * pipe + p) * seq + s) * model
++ m, with ``seq`` or ``pipe`` one. ``sp_constrain(x, mesh)`` is JAX's
+``sp_constrain``: the rank's contiguous 1/seq slice of the token axis (dim
+1). Two more differentiable collectives serve them:
+
+- ``gather_sum_from_group``: forward an all-gather along an axis, backward
+  a reduce-scatter of the SUM of the ranks' gradients. Sequence
+  parallelism gathers K/V with it: every rank's queries read every rank's
+  keys, so a K/V slice's gradient is the sum of all ranks' contributions
+  (``gather_from_group`` would keep only this rank's, too small and
+  silent). FSDP's weight gather is the same Function;
+- ``rotate_to_prev``: each rank's tensors go to the previous rank of the
+  group and the next rank's arrive (JAX's ``ppermute`` of ring attention),
+  backward the reverse rotation, on ``dist.batch_isend_irecv``.
+
+``send`` / ``recv`` carry the pipeline's hidden states and their
+gradients between stages. The point-to-point calls take CUDA tensors on
+``nccl``; on ``gloo``, whose ``send`` / ``recv`` / ``batch_isend_irecv``
+abort on a CUDA tensor, it goes through a host buffer (logged once a
+process).
 """
 
 from __future__ import annotations
 
 import datetime
+import itertools
 import logging
 import multiprocessing as mp
 import os
@@ -230,50 +256,100 @@ def multihost_device(device) -> torch.device:
 
 @dataclass(frozen=True)
 class Mesh:
-    """This rank's place in the ``data x model`` grid and its two groups
-    (None where the axis has one rank). Built by ``make_mesh``; a Mesh with
-    no groups still tells ``shard_params`` which slice a rank holds."""
+    """This rank's place in the ``data x pipe x seq x model`` grid and its
+    groups (None where the axis has one rank; ``seq`` or ``pipe`` is one).
+    Built by ``make_mesh`` or ``parallel/pipeline.py:make_pipeline_mesh``;
+    a Mesh with no groups still tells ``shard_params`` which slice a rank
+    holds."""
 
     data: int = 1
     model: int = 1
     rank: int = 0
     model_group: Optional[object] = None
     data_group: Optional[object] = None
+    seq: int = 1
+    pipe: int = 1
+    seq_group: Optional[object] = None
+    pipe_group: Optional[object] = None
+
+    @property
+    def size(self) -> int:
+        return self.data * self.pipe * self.seq * self.model
 
     @property
     def model_rank(self) -> int:
         return self.rank % self.model
 
     @property
+    def seq_rank(self) -> int:
+        return self.rank // self.model % self.seq
+
+    @property
+    def pipe_rank(self) -> int:
+        return self.rank // (self.model * self.seq) % self.pipe
+
+    @property
     def data_rank(self) -> int:
-        return self.rank // self.model
+        return self.rank // (self.model * self.seq * self.pipe)
 
 
-def make_mesh(data: int = 1, model: int = 1) -> Mesh:
-    """The ``data x model`` mesh over the initialised process group (rank =
-    d * model + m, as JAX's ``('data', 'model')`` grid). Every rank calls it
+def build_mesh(data: int = 1, model: int = 1, seq: int = 1, pipe: int = 1) -> Mesh:
+    """The grid over the initialised process group, rank = ((d * pipe + p)
+    * seq + s) * model + m, with a group for each axis of more than one
+    rank (the ranks that differ along it alone). Every rank calls it
     (``dist.new_group`` is collective)."""
-    world = data * model
+    if seq > 1 and pipe > 1:
+        raise ValueError("sequence parallelism (sp_axis) and pipeline parallelism use "
+                         "different meshes; compose sp with data/tensor axes instead")
+    world = data * pipe * seq * model
     if world == 1:
         return Mesh()
     if not dist.is_initialized() or dist.get_world_size() != world:
-        raise RuntimeError(f"make_mesh({data}, {model}) needs an initialised process group "
-                           f"of {world} ranks")
+        raise RuntimeError(f"a mesh of data {data} x pipe {pipe} x seq {seq} x model {model} "
+                           f"needs an initialised process group of {world} ranks")
     rank = dist.get_rank()
-    model_group = data_group = None
-    if model > 1:
-        for d in range(data):
-            ranks = [d * model + m for m in range(model)]
+    sizes = {"data": data, "pipe": pipe, "seq": seq, "model": model}
+    order = ("data", "pipe", "seq", "model")  # rank-major to minor
+
+    def rank_of(coords):
+        r = 0
+        for axis in order:
+            r = r * sizes[axis] + coords[axis]
+        return r
+
+    groups = {}
+    for axis in ("model", "data", "seq", "pipe"):  # the same order on every rank
+        if sizes[axis] == 1:
+            continue
+        others = [a for a in order if a != axis]
+        for fixed in itertools.product(*(range(sizes[a]) for a in others)):
+            coords = dict(zip(others, fixed))
+            ranks = [rank_of({**coords, axis: i}) for i in range(sizes[axis])]
             g = dist.new_group(ranks)
             if rank in ranks:
-                model_group = g
-    if data > 1:
-        for m in range(model):
-            ranks = [d * model + m for d in range(data)]
-            g = dist.new_group(ranks)
-            if rank in ranks:
-                data_group = g
-    return Mesh(data, model, rank, model_group, data_group)
+                groups[axis] = g
+    return Mesh(data, model, rank, groups.get("model"), groups.get("data"), seq, pipe,
+                groups.get("seq"), groups.get("pipe"))
+
+
+def make_mesh(data: int = 1, model: int = 1, seq: int = 1) -> Mesh:
+    """JAX's ``('data', 'seq', 'model')`` mesh over the initialised process
+    group (rank = (d * seq + s) * model + m); ``seq`` one gives the
+    ``data x model`` grid. Every rank calls it."""
+    return build_mesh(data=data, model=model, seq=seq)
+
+
+def sp_constrain(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """JAX's ``sp_constrain``: the rank's contiguous 1/seq slice of the
+    token axis (dim 1) of ``x`` [B, S, ...]; ``x`` itself without a seq
+    axis. Raises ``ValueError`` when the axis does not split."""
+    if mesh is None or mesh.seq == 1:
+        return x
+    n = x.shape[1]
+    if n % mesh.seq:
+        raise ValueError(f"an axis of {n} does not split over {mesh.seq} ranks")
+    w = n // mesh.seq
+    return x.narrow(1, mesh.seq_rank * w, w)
 
 
 def data_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -473,6 +549,121 @@ class _Scatter(torch.autograd.Function):
         return all_gather(g, ctx.group, ctx.dim), None, None
 
 
+def reduce_scatter(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of ``g`` over ``group``, this rank's equal slice along
+    ``dim`` (half in fp32; on gloo, which has no reduce-scatter, a
+    sum-all-reduce and the rank's slice)."""
+    if dist.get_backend(group) == "nccl":
+        n = dist.get_world_size(group)
+        src = g.movedim(dim, 0).float().contiguous()
+        out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=group)
+        return out.to(g.dtype).movedim(0, dim).contiguous()
+    return _own(all_reduce_sum(g, group), group, dim)
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+# gloo's point-to-point calls read a CUDA tensor's device pointer as a host
+# address (torch 2.11: the process aborts, "writev ... Bad address"), so a
+# CUDA tensor goes through a host buffer there
+_logged_host_p2p = []
+
+
+def _via_host(t: torch.Tensor, group) -> bool:
+    if not (t.is_cuda and dist.get_backend(group) == "gloo"):
+        return False
+    if not _logged_host_p2p:
+        _logged_host_p2p.append(True)
+        log.info("point-to-point transfers of CUDA tensors on gloo go through host buffers")
+    return True
+
+
+def group_peer(group, offset: int) -> int:
+    """The global rank of the rank ``offset`` places after this one in
+    ``group``, around the ring."""
+    n = dist.get_world_size(group)
+    return dist.get_global_rank(group, (dist.get_rank(group) + offset) % n)
+
+
+def exchange(sends: Sequence[Tuple[torch.Tensor, int]], recvs: Sequence[Tuple[torch.Tensor, int]],
+             group) -> None:
+    """Send each (tensor, global rank) of ``sends`` and fill each (buffer,
+    global rank) of ``recvs`` in place, all at once
+    (``dist.batch_isend_irecv``); returns when every transfer is done."""
+    ops, back = [], []
+    for t, peer in sends:
+        t = t.detach().contiguous()
+        if _via_host(t, group):
+            t = t.cpu()
+        ops.append(dist.P2POp(dist.isend, t, peer, group))
+    for buf, peer in recvs:
+        into = buf
+        if _via_host(buf, group):
+            into = torch.empty(buf.shape, dtype=buf.dtype)
+            back.append((buf, into))
+        ops.append(dist.P2POp(dist.irecv, into, peer, group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for buf, host in back:
+        buf.copy_(host)
+
+
+def send(tensors: Sequence[torch.Tensor], dst: int, group) -> None:
+    """``tensors`` to global rank ``dst`` of ``group`` (in order)."""
+    exchange([(t, dst) for t in tensors], (), group)
+
+
+def recv(like: Sequence[Tuple[Sequence[int], torch.dtype]], src: int, group, device
+         ) -> List[torch.Tensor]:
+    """Tensors of the (shape, dtype) of ``like`` from global rank ``src``
+    of ``group``, on ``device``."""
+    out = [torch.empty(tuple(shape), dtype=dtype, device=device) for shape, dtype in like]
+    exchange((), [(t, src) for t in out], group)
+    return out
+
+
+def rotated(tensors: Sequence[torch.Tensor], group, offset: int) -> List[torch.Tensor]:
+    """Each rank's ``tensors`` sent ``offset`` places back around the ring
+    of ``group``; what the rank ``offset`` places on sends arrives."""
+    if dist.get_world_size(group) == 1:
+        return [t.clone() for t in tensors]
+    to, frm = group_peer(group, -offset), group_peer(group, offset)
+    out = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in tensors]
+    exchange([(t, to) for t in tensors], [(b, frm) for b in out], group)
+    return out
+
+
+class _Rotate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        return tuple(rotated(tensors, group, 1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.zeros_like(g) if g is None else g for g in grads]
+        return (None, *rotated(grads, ctx.group, -1))
+
+
+def rotate_to_prev(tensors: Sequence[torch.Tensor], group) -> Tuple[torch.Tensor, ...]:
+    """Every rank's ``tensors`` go to the previous rank of ``group`` and the
+    next rank's arrive (JAX's ``ppermute`` with ``(i, i - 1)``); the
+    gradients go the other way. The tensors travel together, in one
+    exchange each way, so every rank's backward pairs them alike."""
+    return _Rotate.apply(group, *tensors)
+
+
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` as it is; its gradient summed over ``group``."""
     return x if group is None else _Copy.apply(x, group)
@@ -493,6 +684,13 @@ def scatter_to_group(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     """This rank's equal slice of ``x`` along ``dim``; the ranks' gradients
     gathered back into the whole."""
     return x if group is None else _Scatter.apply(x, group, dim)
+
+
+def gather_sum_from_group(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``; this rank's slice of
+    the SUM of the ranks' gradients goes back to it (every rank reads every
+    rank's slice, as sequence parallelism's K/V and FSDP's weights are)."""
+    return x if group is None else _GatherSum.apply(x, group, dim)
 
 
 def fsdp_dim(shape: Sequence[int], data: int, tp_dim: Optional[int] = None,

@@ -32,6 +32,8 @@ their gradient.
 
 from __future__ import annotations
 
+import itertools
+
 import math
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -132,26 +134,30 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 
 
 def _global_norm(grads: Iterable[torch.Tensor], mesh=None,
-                 split: Optional[List[Tuple[bool, bool]]] = None) -> torch.Tensor:
+                 split: Optional[List[Tuple[bool, ...]]] = None) -> torch.Tensor:
     """optax ``global_norm``: sqrt of the sum of every squared element (fp32).
     Over a ``mesh`` of ranks, ``split[i]`` says whether gradient i is the
-    rank's slice over the model ranks and over the data ranks: a leaf's
-    squares are summed over each axis it is split on, so a replicated leaf
-    counts once and a sharded one by its shards (every rank gets the same
-    norm)."""
+    rank's slice over the model ranks, over the data ranks and (a third
+    entry, on a pipeline mesh) over the pipe ranks (a staged layer's): a
+    leaf's squares are summed over each axis it is split on, so a
+    replicated leaf counts once and a sharded one by its shards (every rank
+    gets the same norm)."""
     sq = [(g.float() ** 2).sum() for g in grads]
     if mesh is None or split is None:
         return torch.sqrt(sum(sq))
     from blurr_tpu_torch.parallel.mesh import all_reduce_sum
 
+    axes = len(split[0]) if split else 2
+    groups = (mesh.model_group, mesh.data_group, mesh.pipe_group)[:axes]
     zero = sq[0].new_zeros(()) if sq else torch.zeros(())
-    part = {key: sum((x for x, k in zip(sq, split) if k == key), zero)
-            for key in ((False, False), (True, False), (False, True), (True, True))}
-    over_model = all_reduce_sum(torch.stack([part[True, False], part[True, True]]),
-                                mesh.model_group)
-    over_data = all_reduce_sum(torch.stack([part[False, True], over_model[1]]),
-                               mesh.data_group)
-    return torch.sqrt(part[False, False] + over_model[0] + over_data[0] + over_data[1])
+    keys = list(itertools.product((False, True), repeat=axes))
+    part = torch.stack([sum((x for x, k in zip(sq, split) if tuple(k) == key), zero)
+                        for key in keys])
+    for a, group in enumerate(groups):  # each key's sum over the axes it is split on
+        rows = [i for i, key in enumerate(keys) if key[a]]
+        part = part.index_put((torch.tensor(rows, device=part.device),),
+                              all_reduce_sum(part[rows], group))
+    return torch.sqrt(part.sum())
 
 
 class AdamW:

@@ -480,7 +480,7 @@ phases 62-65, then 60-61 here.
              each with the first mask it met there, K2 (bit-equal) and K3
              at those phase 54 did not hold.
 61. profile-after-ranks - no process group and no child process left
-             after phases 55-65 (the threads logged); then how many of 20
+             after phases 55-68 (the threads logged); then how many of 20
              K6 launches torch.profiler sees, logged only (PERF.md §7: it
              saw none here after the parallel phases, also since they run
              in children and this process joins no process group).
@@ -504,9 +504,30 @@ PARALLEL_TRAIN_RTOL; every rank logs the mean over the data ranks.
              (FSDP_BYTES_MAX), the losses against one card's.
 65. train-tp2-openvla-w8a8 - random-7b QLoRA w8a8, 2 steps, at --tp 2
              against tp=1 of the same argv, at once.
-    train-ranks-int4-shapes - every K2 shape the ranks of 62-63 gave,
-             held bit-equal against the plain version, timed in a CUDA
-             graph beside its bound and a bf16 matmul of the dense weight.
+Training over ranks, part 2 (pipeline and sequence parallelism, ring
+attention), in children as 62-65:
+66. train-pp2-qlora-w4a8 - TRAIN_ARGS with --pp 2 --stop-after 3 (rank 0
+             spawns stage 1; GPipe, 2 microbatches of one row): both
+             stages' losses equal and against phase 37's first 3; K2 378 a
+             step on stage 0 and 362 on stage 1 (PP2_K2_PER_STEP); each
+             stage's resident bytes against phase 37's; its --save-dir
+             (the gathered one-card tree) served on one card in the same
+             child: the adapters over the int4 bases, one request, K2 370.
+67. train-sp2-qlora-w4a8 - the same with --sp 2: K2 370 a step on each
+             rank, each rank's SigLIP and vlm layers logged at 128 of the
+             256 patches and 138 of the 276 tokens (the model's hooks).
+68. ring-attention-2 - two children, ranks of a gloo group on cuda:0:
+             ring_attention at [1,8,8192,256] over [1,1,8192,256] fp32,
+             clamp 50, causal, then with the last 512 keys masked; the
+             output and the gradients of sum(sin(out)) against
+             grouped_attention on rank 0 (one query head at a time) within
+             RING_OUT_TOL and RING_GRAD_RTOL / RING_GRAD_ATOL; a call's
+             time, its gloo exchanges' and the plain version's logged. 68
+             runs beside 65, 66 and 67 after it.
+    train-ranks-int4-shapes - every K2 shape the ranks of 62-63 and rank 0
+             of 66-67 gave, held bit-equal against the plain version,
+             timed in a CUDA graph beside its bound and a bf16 matmul of
+             the dense weight.
 Then one JSON line of the kernels (launches summed over the served runs of
 phases 4-10 with the batched, backpressure and reload runs, the
 experiments run, the eval runs of phases 14-18 and 20, the text runs of
@@ -514,9 +535,9 @@ phases 21-23, the OpenVLA runs of phases 25-30b, the eval CLIs' runs of
 phases 32-34, the training steps and served requests of phases 37-45 and
 the CLI, calibration, GPTQ and experiment runs of phases 48-51,
 every rank's runs of phases 55-59 and every rank's training steps of
-phases 62-65, the counts set to 0 just before each; K1's, K2's and K3's
+phases 62-67, the counts set to 0 just before each; K1's, K2's and K3's
 entries add their tp=2 shapes under "shapes_tp2", K2's the shapes of the
-ranks of 62-63 under "shapes_train_ranks"; errors
+ranks of 62-63 and 66-67 under "shapes_train_ranks"; errors
 and times measured here: ms and plain_ms with CUDA events, graph_ms and
 plain_graph_ms in a CUDA graph, library_ms of one PyTorch call of the same
 function where there is one, at the first timed shape of each kernel;
@@ -5690,7 +5711,7 @@ def ranks_shapes_vs_plain(device, int4: set, flash: dict, int8: set, tp2: dict) 
 
 
 def profile_after_ranks(device) -> None:
-    """Phase 61: what phases 55-65 leave in this process: no process group
+    """Phase 61: what phases 55-68 leave in this process: no process group
     and no child process (the threads are logged). Then what torch.profiler
     sees of K6's two kernels, logged and not held: in this script's process
     it has seen no device activity after the parallel phases (PERF.md §7),
@@ -5706,7 +5727,7 @@ def profile_after_ranks(device) -> None:
     label = "profile-after-ranks"
     group = torch.distributed.is_initialized()
     children = [p.name for p in multiprocessing.active_children()]
-    log(f"{label}: after phases 55-65: process group {group}, child processes {children}, "
+    log(f"{label}: after phases 55-68: process group {group}, child processes {children}, "
         f"threads {[t.name for t in threading.enumerate()]}")
     if group or children:
         raise RuntimeError(f"{label}: the parallel phases left a process group ({group}) or "
@@ -6075,16 +6096,18 @@ def _multihost_env(rank: int, world: int, port: int) -> dict:
             "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
 
 
-def _check_ranks(label, ranks, steps: int, per_step: dict, want_losses) -> list:
-    """Every rank's launches ``per_step`` times ``steps`` and its losses
-    equal to rank 0's; rank 0's against ``want_losses`` within
-    PARALLEL_TRAIN_RTOL. Returns the relative loss errors."""
+def _check_ranks(label, ranks, steps: int, per_step, want_losses) -> list:
+    """Every rank's launches ``per_step`` (a dict, or a list of one dict
+    per rank) times ``steps`` and its losses equal to rank 0's; rank 0's
+    against ``want_losses`` within PARALLEL_TRAIN_RTOL. Returns the
+    relative loss errors."""
     for r in ranks:
         log(f"{label}: rank {r['rank']}: losses {[round(x, 6) for x in r['losses']]}, launches "
             f"{r['launches']}, parameters and buffers {r['param_bytes']} B, moments "
             f"{r['moment_bytes']} B, peak {r['peak_bytes'] / 2**30:.2f} GiB; on {card()}")
-        want = {n: per_step.get(n, 0) * steps for n in ("flash_attention", "int4_matmul",
-                                                        "int8_matmul")}
+        counts = per_step[r["rank"]] if isinstance(per_step, list) else per_step
+        want = {n: counts.get(n, 0) * steps for n in ("flash_attention", "int4_matmul",
+                                                      "int8_matmul")}
         if r["launches"] != want:
             raise RuntimeError(f"{label}: rank {r['rank']} launched {r['launches']}, not {want}")
         if r["losses"] != ranks[0]["losses"] or len(r["losses"]) != steps:
@@ -6103,16 +6126,18 @@ def _train_launches(ranks) -> dict:
     return {n: sum(r["launches"].get(n, 0) for r in ranks) for n in KERNEL_NAMES}
 
 
-def parallel_training(data: str) -> tuple:
-    """Phases 62-65 in three groups of children, each group at once and the
+def parallel_training(data: str, tmp: str) -> tuple:
+    """Phases 62-68 in four groups of children, each group at once and the
     groups one after another: 62 and 63 (peaks ~50 GB), 64's one-card run
-    and FSDP ranks (~53 GB), 65's tp=1 and tp=2 (~37 GB); with phases
-    55-59's child beside them (~16 GB) the card's 80 GB holds each group.
-    Returns (the launches of every rank, the K2 shapes of 62's ranks and
-    63's rank 0)."""
+    and FSDP ranks (~53 GB), 65's tp=1 and tp=2 (~37 GB) with 68's two ring
+    ranks (~14 GB), 66 and 67 (~50 GB); with phases 55-59's child beside
+    them (~16 GB) the card's 80 GB holds each group. Returns (the launches
+    of every rank, the K2 shapes of 62's ranks and of 63's, 66's and 67's
+    rank 0)."""
     from blurr_tpu_torch.parallel.mesh import free_tcp_init_method
 
     port = int(free_tcp_init_method().rsplit(":", 1)[1])
+    ring_store = os.path.join(tmp, "ring_store")  # the ring ranks meet through a file
     qlora = [*TRAIN_ARGS, "--data", data, "--steps", str(TRAIN_STEPS), "--stop-after", "3"]
     pi0, vla = "train_pi0_flow_torch", "train_openvla_lora_torch"
     t0 = time.monotonic()
@@ -6125,14 +6150,17 @@ def parallel_training(data: str) -> tuple:
         (_train_child, (pi0, FSDP_ARGS), {}),
         (_train_child, (pi0, [*FSDP_ARGS, "--dp", "2", "--fsdp"]), {})])
     t2 = time.monotonic()
-    vla1, vla2 = _in_children("parallel-training", [
+    vla1, vla2, *ring = _in_children("parallel-training", [
         (_train_child, (vla, VLA_TP_ARGS), {}),
-        (_train_child, (vla, [*VLA_TP_ARGS, "--tp", "2"]), {})])
-    log(f"parallel-training: 62 and 63 at once in {t1 - t0:.1f} s (main() "
-        f"{[round(o['seconds'], 1) for o in (*dp2, tp2)]} s); 64's one-card run and FSDP ranks "
-        f"at once in {t2 - t1:.1f} s (main() {[round(o['seconds'], 1) for o in (fsdp1, fsdp2)]} "
-        f"s); 65's tp=1 and tp=2 at once in {time.monotonic() - t2:.1f} s (main() "
-        f"{[round(o['seconds'], 1) for o in (vla1, vla2)]} s)")
+        (_train_child, (vla, [*VLA_TP_ARGS, "--tp", "2"]), {}),
+        *((_ring_rank, (r, ring_store), {}) for r in range(2))])
+    t3 = time.monotonic()
+    pp2, sp2 = _in_children("parallel-training", [
+        (_pp_train_child, (pi0, [*qlora, "--pp", "2"], os.path.join(tmp, "pp2")), {}),
+        (_train_child, (pi0, [*qlora, "--sp", "2"]), {})])
+    log(f"parallel-training: 66 and 67 at once in {time.monotonic() - t3:.1f} s (main() "
+        f"{[round(o['seconds'], 1) for o in (pp2, sp2)]} s); 65 and 68 at once in "
+        f"{t3 - t2:.1f} s")
     # 62 and 63: against phase 37's first three losses
     want = ONE_CARD["train-qlora-w4a8"]
     dp2_ranks = [o["ranks"][0] for o in dp2]
@@ -6163,8 +6191,221 @@ def parallel_training(data: str) -> tuple:
     _check_ranks(label, vla2["ranks"], 2, {}, base["losses"])
     log(f"{label}: rank 0's parameters and buffers {vla2['ranks'][0]['param_bytes']} B against "
         f"tp=1's {base['param_bytes']} B: {vla2['ranks'][0]['param_bytes'] / base['param_bytes']:.3f}x")
-    ranks = [r for out in (*dp2, tp2, fsdp1, fsdp2, vla1, vla2) for r in out["ranks"]]
-    return _train_launches(ranks), dp2[0]["shapes"] | dp2[1]["shapes"] | tp2["shapes"]
+    # 66 and 67: against phase 37's first three losses; 68: against
+    # grouped_attention on one rank
+    _check_pp_sp(pp2, sp2)
+    _check_ring(ring)
+    ranks = [r for out in (*dp2, tp2, fsdp1, fsdp2, vla1, vla2, pp2, sp2) for r in out["ranks"]]
+    shapes = dp2[0]["shapes"] | dp2[1]["shapes"] | tp2["shapes"]
+    new = (pp2["shapes"] | sp2["shapes"]) - shapes
+    log(f"parallel-training: 66 and 67's rank 0 gave K2 {len(pp2['shapes'] | sp2['shapes'])} "
+        f"shapes, {len(new)} not given in 62-63{f': {sorted(new)}' if new else ''}")
+    return _train_launches(ranks), shapes | pp2["shapes"] | sp2["shapes"]
+
+
+# ---------------------------------------------------------------------------
+# M14's training half, part 2: pipeline and sequence parallelism and ring
+# attention (phases 66-68)
+# ---------------------------------------------------------------------------
+
+# K2 a step on each pipeline stage at bridge.yaml QLoRA w4a8, batch 2, 2
+# microbatches of one row: stage 0's 9 layers x 21 products x 2, stage 1's
+# less the last layer's 8 skipped (vlm and proprio: o, gate, up, down) x 2
+PP2_K2_PER_STEP = [9 * 21 * 2, (9 * 21 - 8) * 2]
+# ring attention at Pi-0's attention widths (8 query heads over the one KV
+# head of 256), fp32, the clamp 50, causal; the second case masks the
+# last RING_PAD keys by k_valid
+RING_SHAPE = (1, 8, 1, 8192, 256)
+RING_PAD = 512
+# the ring's output and input gradients against grouped_attention on one
+# rank at the same inputs: JAX's dryrun_multichip section 8 bounds (output
+# within atol + rtol |plain|, 5e-5 each; gradients atol 5e-5, rtol 5e-4)
+RING_OUT_TOL = 5e-5
+RING_GRAD_RTOL, RING_GRAD_ATOL = 5e-4, 5e-5
+
+
+def _pp_train_child(script, argv, save_dir):
+    """In a child: ``_train_child`` of the pipelined run, then its
+    --save-dir (rank 0 wrote the gathered one-card tree) on one card:
+    ActionServer (bridge.yaml blurr) with the adapters rebuilt over the int4
+    bases, one request through the client, K2 launches of it."""
+    from blurr_tpu_torch.ops.lora import LoRALinear
+    from blurr_tpu_torch.ops.quant import W4A8Linear
+    from blurr_tpu_torch.presets import apply_preset, load_config
+    from blurr_tpu_torch.serving.client import ActionClient
+    from blurr_tpu_torch.serving.server import ActionServer
+
+    out = _train_child(script, [*argv, "--save-dir", save_dir])
+    _free()
+    label = "train-pp2-serve"
+    cfg = load_config("config/eval/bridge.yaml")
+    apply_preset(cfg, "blurr")
+    t0 = time.monotonic()
+    server = ActionServer(cfg, save_dir, device=torch.device("cuda", 0), seed=0)
+    q = server.model.joint["vlm"].layers[0].q_proj
+    if not (isinstance(q, LoRALinear) and isinstance(q.base, W4A8Linear)):
+        raise RuntimeError(f"{label}: the adapter tree was not rebuilt")
+    thread = _start(server)
+    try:
+        size = cfg["vision"]["config"]["image_size"]
+        image = np.random.RandomState(0).randint(0, 256, (size, size, 3), np.uint8)
+        with ActionClient(port=server.port) as client:
+            client.predict(image, "put the spoon on the towel", [0.0] * 7)  # warm
+            _zero_counts()
+            action = client.predict(image, "put the spoon on the towel", [0.0] * 7)
+        launches = _counts()
+    finally:
+        _stop(server, thread)
+    _check_chunk(label, action)
+    out["served"] = {"seconds": time.monotonic() - t0, "launches": launches,
+                     "action": np.asarray(action)}
+    del server
+    _free()
+    return out
+
+
+def _ring_rank(rank: int, store: str) -> dict:
+    """In a child: rank ``rank`` of 2 on cuda:0 over gloo (the ranks meet
+    through the file ``store``), ring attention at RING_SHAPE through
+    ``ring_attention_whole`` (causal, clamp 50; then with the last
+    RING_PAD keys masked), the output and the gradients of
+    sum(sin(out)); rank 0 holds them against grouped_attention on the same
+    inputs (one query head at a time, to bound its memory) and times a
+    call, its gloo exchanges and the plain version's."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from blurr_tpu_torch.ops.attention import grouped_attention
+    from blurr_tpu_torch.ops.ring_attention import ring_attention_whole
+    from blurr_tpu_torch.parallel import mesh as t_mesh
+
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=120))
+    mesh = t_mesh.make_mesh(seq=2)
+    gloo = [0.0]
+    real = t_mesh.exchange
+
+    def timed_exchange(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real(*a)
+        gloo[0] += time.perf_counter() - t
+
+    t_mesh.exchange = timed_exchange
+    b, nh, kvh, s, d = RING_SHAPE
+    out = {}
+    try:
+        for case in ("causal", f"causal+pad{RING_PAD}"):
+            g = torch.Generator(device=device).manual_seed(11)
+            q, k, v = (torch.randn((b, h, s, d), generator=g, device=device)
+                       for h in (nh, kvh, kvh))
+            valid = None
+            if "pad" in case:
+                valid = torch.ones((b, s), dtype=torch.bool, device=device)
+                valid[:, s - RING_PAD:] = False
+            times, exch = [], []
+            with torch.no_grad():
+                for _ in range(3):
+                    gloo[0] = 0.0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ring_attention_whole(q, k, v, mesh, causal=True, k_valid=valid)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    exch.append(gloo[0])
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = ring_attention_whole(*leaves, mesh, causal=True, k_valid=valid)
+            grads = torch.autograd.grad(torch.sin(o).sum(), leaves)
+            o = o.detach()
+            res = {"ms": 1e3 * float(np.median(times)), "gloo_ms": 1e3 * float(np.median(exch))}
+            if rank == 0:
+                mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))[None]
+                if valid is not None:
+                    mask = mask & valid[:, None, :]
+                ref_grads = [torch.zeros_like(t) for t in (q, k, v)]
+                out_err = grad_err = 0.0
+                plain_ms = 0.0
+                for h in range(nh):  # one query head at a time: the same function
+                    qh, kh, vh = (t.clone().requires_grad_() for t in (q[:, h:h + 1], k, v))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ref = grouped_attention(qh, kh, vh, mask)
+                    torch.cuda.synchronize()
+                    plain_ms += 1e3 * (time.perf_counter() - t0)
+                    gq, gk, gv = torch.autograd.grad(torch.sin(ref).sum(), (qh, kh, vh))
+                    ref_grads[0][:, h:h + 1] = gq
+                    ref_grads[1] += gk
+                    ref_grads[2] += gv
+                    err = (o[:, h:h + 1] - ref.detach()).abs()
+                    out_err = max(out_err, float((err / (RING_OUT_TOL * (1 + ref.detach().abs()))
+                                                  ).max()))
+                    del ref, qh, kh, vh
+                for got, want in zip(grads, ref_grads):
+                    bound = RING_GRAD_ATOL + RING_GRAD_RTOL * want.abs()
+                    grad_err = max(grad_err, float(((got - want).abs() / bound).max()))
+                res.update(out_share=out_err, grad_share=grad_err, plain_ms=plain_ms,
+                           max_abs=float(max((a - w).abs().max() for a, w in
+                                             zip(grads, ref_grads))))
+                del ref_grads
+            out[case] = res
+            del q, k, v, leaves, o, grads
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        t_mesh.exchange = real
+        dist.destroy_process_group()
+    out["peak_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    return out
+
+
+def _check_ring(ranks) -> None:
+    """Phase 68's readings: every case's output and gradients within their
+    bounds (shares of the bound, ≤ 1), the times logged."""
+    label = "ring-attention-2"
+    b, nh, kvh, s, d = RING_SHAPE
+    for case in ranks[0]:
+        if case == "peak_bytes":
+            continue
+        r0, r1 = ranks[0][case], ranks[1][case]
+        log(f"{label}: {case} q [{b},{nh},{s},{d}] over k/v [{b},{kvh},{s},{d}] fp32, clamp 50, "
+            f"two ranks on one card (gloo, through host buffers): output at "
+            f"{r0['out_share']:.3g} of its bound ({RING_OUT_TOL:g} + {RING_OUT_TOL:g} |plain|), "
+            f"gradients at {r0['grad_share']:.3g} of theirs (atol {RING_GRAD_ATOL:g}, rtol "
+            f"{RING_GRAD_RTOL:g}; largest |error| {r0['max_abs']:.3g}); a call {r0['ms']:.2f} / "
+            f"{r1['ms']:.2f} ms on ranks 0 / 1, of it gloo {r0['gloo_ms']:.2f} / "
+            f"{r1['gloo_ms']:.2f} ms; grouped_attention on one rank (8 calls of one query "
+            f"head) {r0['plain_ms']:.2f} ms; on {card()}")
+        if not (r0["out_share"] <= 1.0 and r0["grad_share"] <= 1.0):
+            raise RuntimeError(f"{label}: {case} disagrees with grouped_attention")
+    log(f"{label}: peak {[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB a rank")
+
+
+def _check_pp_sp(pp2, sp2) -> None:
+    """Phases 66 and 67's readings against phase 37's one-card run."""
+    want = ONE_CARD["train-qlora-w4a8"]
+    label = "train-pp2-qlora-w4a8"
+    _check_ranks(label, pp2["ranks"], 3, [{"int4_matmul": n} for n in PP2_K2_PER_STEP],
+                 want["losses"])
+    for r in pp2["ranks"]:
+        log(f"{label}: stage {r['rank']}'s resident parameters and buffers {r['param_bytes']} B "
+            f"against one card's {want['param_bytes']} B: {r['param_bytes'] / want['param_bytes']:.3f}x")
+    served = pp2["served"]
+    log(f"train-pp2-serve: its --save-dir (the gathered one-card tree) served on one card in "
+        f"{served['seconds']:.1f} s: action {np.round(served['action'][0], 4).tolist()}..., "
+        f"K2 {served['launches']['int4_matmul']} a request")
+    if served["launches"]["int4_matmul"] != TRAIN_K2_PER_STEP:
+        raise RuntimeError(f"train-pp2-serve: K2 {served['launches']} a request")
+    label = "train-sp2-qlora-w4a8"
+    _check_ranks(label, sp2["ranks"], 3, {"int4_matmul": TRAIN_K2_PER_STEP}, want["losses"])
+    for r in sp2["ranks"]:
+        log(f"{label}: rank {r['rank']}: SigLIP rows a layer {sorted(set(r['rows']['siglip']))}, "
+            f"vlm rows a layer {sorted(set(r['rows']['vlm']))} (of 256 patches and 276 tokens); "
+            f"resident parameters and buffers {r['param_bytes'] / want['param_bytes']:.3f}x one "
+            "card's")
+        if set(r["rows"]["siglip"]) != {128} or set(r["rows"]["vlm"]) != {138}:
+            raise RuntimeError(f"{label}: rank {r['rank']} took rows {r['rows']}")
 
 
 def _serving_ranks(one_rank: dict) -> tuple:
@@ -6348,21 +6589,22 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="blurr_train_ranks_") as tmp:
             data = os.path.join(tmp, "shards")
             _raw_shards(data, load_config("config/eval/bridge.yaml"))
-            train_ranks_launches, train_shapes = parallel_training(data)
+            train_ranks_launches, train_shapes = parallel_training(data, tmp)
     except BaseException:
         for p, _ in serving[0]:  # no child outlives a failed run
             p.kill()
         raise
-    log(f"parallel-training: phases 62-65 took {time.monotonic() - t0:.1f} s")
+    log(f"parallel-training: phases 62-68 took {time.monotonic() - t0:.1f} s")
     ((ranks_runs, ranks_int4, ranks_flash, ranks_int8),) = _children_results(
         "parallel-serving", serving)
-    log(f"parallel: the serving phases 55-59 (beside 62-65) took {time.monotonic() - t0:.1f} s")
+    log(f"parallel: the serving phases 55-59 (beside 62-68) took {time.monotonic() - t0:.1f} s")
     ranks_flash = {k: torch.from_numpy(m).to(device) for k, m in ranks_flash.items()}
     ranks_shapes_vs_plain(device, ranks_int4, ranks_flash, ranks_int8, tp2)
     profile_after_ranks(device)
     served_int4_vs_plain(device, train_shapes, set(), label="train-ranks-int4-shapes",
-                         what="the ranks of phases 62-63", by="an earlier phase", exact=True)
-    elapsed("55-65")
+                         what="the ranks of phases 62-63 and 66-67", by="an earlier phase",
+                         exact=True)
+    elapsed("55-68")
     runs = (*ranks_runs, train_ranks_launches,
             launches, checkpoint_launches, batched_launches, backpressure_launches,
             baseline_launches, w4a8_launches, batched_w4a8_launches, int8_launches,

@@ -32,16 +32,18 @@ training state (directories of safetensors and JSON, not orbax).
 Parallel training (blurr_tpu_torch/parallel): --dp N splits each batch
 over N data ranks (the gradients averaged), --tp M splits the weights over
 M model ranks (the tensor-parallel layers), --fsdp shards every weight and
-moment over the data ranks too (needs --dp > 1). Rank 0 spawns the other
-dp x tp - 1 ranks (one process each, torch.distributed; on one card they
-share it over gloo); with --multihost this process instead joins the
+moment over the data ranks too (needs --dp > 1), --sp K splits the SigLIP
+patches and the vlm tokens over K sequence ranks (composes with --dp,
+--tp and --fsdp), --pp S splits the joint layers over S pipeline stages
+(GPipe, --pp-microbatches of the batch; composes with --dp only). Rank 0
+spawns the other ranks (one process each, torch.distributed; on one card
+they share it over gloo); with --multihost this process instead joins the
 process group of a launcher (torchrun and the like: RANK, WORLD_SIZE,
-LOCAL_RANK, MASTER_ADDR, MASTER_PORT), whose world must be dp x tp. Every
-rank draws the same global batch, noise and flow time and takes its rows,
-so a run at --dp N follows the run at --dp 1. Logs and --metrics-csv come
-from rank 0; the saves hold the gathered one-card tree, which serves on
-one card and resumes on any mesh. --sp and --pp are refused (ROADMAP
-Queue 1 item 6b part 2).
+LOCAL_RANK, MASTER_ADDR, MASTER_PORT), whose world must be dp x tp x sp
+(dp x pp under --pp). Every rank draws the same global batch, noise and
+flow time and takes its rows, so a parallel run follows the run on one
+card. Logs and --metrics-csv come from rank 0; the saves hold the gathered
+one-card tree, which serves on one card and resumes on any mesh.
 """
 
 from __future__ import annotations
@@ -62,10 +64,6 @@ if str(REPO_ROOT) not in sys.path:
     sys.path.insert(0, str(REPO_ROOT))
 
 log = logging.getLogger("train_pi0_flow")
-
-
-# sequence and pipeline parallelism are not ported yet
-_NOT_PORTED = "not ported: M14's training half, part 2 (ROADMAP Queue 1 item 6b part 2)"
 
 
 def parse_args(argv=None):
@@ -118,8 +116,17 @@ def parse_args(argv=None):
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ranks: attention heads, MLP columns, the "
                         "vocabulary and w4a8 blocks split over them")
-    for flag in ("--sp", "--pp"):
-        p.add_argument(flag, type=int, default=1, help=_NOT_PORTED)
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks: SigLIP patch tokens and the vlm tokens "
+                        "split over them, each rank's attention reading every rank's K/V; "
+                        "composes with --dp/--tp/--fsdp, not with --pp")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages: the joint layers split over them, the "
+                        "batch going through in microbatches (GPipe); composes with --dp "
+                        "only")
+    p.add_argument("--pp-microbatches", type=int, default=0,
+                   help="microbatch count for --pp (default: the largest valid divisor of "
+                        "the batch <= stages, or more while each keeps 8 rows)")
     p.add_argument("--fsdp", action="store_true",
                    help="shard every weight and AdamW moment over the data ranks "
                         "too (ZeRO-3); needs --dp > 1")
@@ -152,18 +159,27 @@ def synthetic_batch(cfg, bsz, rng):
 
 
 def _check_parallel(args) -> None:
-    """JAX's checks of the parallel flags; --sp and --pp are not ported."""
-    for name in ("sp", "pp"):
-        if getattr(args, name) > 1:
-            sys.exit(f"--{name} {getattr(args, name)}: sequence and pipeline parallelism "
-                     "are not ported to the PyTorch trainer yet (M14's training half, part 2: "
-                     "ROADMAP Queue 1 item 6b part 2)")
+    """JAX's checks of the parallel flags, with its messages."""
     if args.fsdp and args.dp <= 1:
         sys.exit("--fsdp shards over the 'data' axis; it needs --dp > 1")
-    if args.dp < 1 or args.tp < 1:
-        sys.exit(f"--dp {args.dp} --tp {args.tp}: each needs at least one rank")
+    if args.pp > 1 and (args.tp > 1 or args.sp > 1 or args.fsdp):
+        sys.exit("--pp composes with --dp only; drop --tp/--sp/--fsdp")
+    if min(args.dp, args.tp, args.sp, args.pp) < 1:
+        sys.exit(f"--dp {args.dp} --tp {args.tp} --sp {args.sp} --pp {args.pp}: each needs "
+                 "at least one rank")
     if args.batch_size % args.dp:
         sys.exit(f"--batch-size {args.batch_size} must be divisible by --dp {args.dp}")
+    if args.pp > 1:  # JAX's pipeline checks, before any rank starts
+        from blurr_tpu_torch.parallel.pipeline import UNEVEN_STAGES, microbatch_count
+        from blurr_tpu_torch.presets import load_config
+
+        try:
+            microbatch_count(args.batch_size, args.pp, args.dp, args.pp_microbatches or None)
+        except ValueError as exc:
+            sys.exit(str(exc))
+        n = load_config(args.config)["joint"]["config"]["num_hidden_layers"]
+        if n % args.pp:
+            sys.exit(UNEVEN_STAGES.format(path="joint.vlm.layers", n=n, stages=args.pp))
 
 
 def _to_device(batch, device):
@@ -213,7 +229,8 @@ def main(argv=None):
     _check_parallel(args)
     from blurr_tpu_torch.parallel.train import run_ranks
 
-    return run_ranks(train, argv, args.dp, args.tp, args.multihost, args.device)
+    return run_ranks(train, argv, args.dp, args.tp, args.multihost, args.device, sp=args.sp,
+                     pp=args.pp)
 
 
 def train(argv, rank: int = 0, world: int = 1, init_method=None):
@@ -240,6 +257,7 @@ def train(argv, rank: int = 0, world: int = 1, init_method=None):
     from blurr_tpu_torch.parallel.train import (
         join_mesh,
         make_train_step,
+        record_token_rows,
         sample_noise_and_t,
     )
     from blurr_tpu_torch.presets import load_config
@@ -254,7 +272,8 @@ def train(argv, rank: int = 0, world: int = 1, init_method=None):
         warmup_cosine_decay_schedule,
     )
 
-    device, mesh = join_mesh(rank, world, init_method, args.device, args.dp, args.tp)
+    device, mesh = join_mesh(rank, world, init_method, args.device, args.dp, args.tp, args.sp,
+                             args.pp)
     cfg = load_config(args.config)
     model = PiZero(cfg, device=device, dtype=torch.float32)
     if str(args.checkpoint).lower() in {"random", "none", ""}:
@@ -275,22 +294,37 @@ def train(argv, rank: int = 0, world: int = 1, init_method=None):
     elif args.dtype == "master-fp32":
         compute_dtype = torch.bfloat16
 
+    pipeline = None
     if mesh is not None:
         # JAX shards after the adapters and the cast, and inits the
         # optimizer after sharding: the moments take the shards' shapes
         from blurr_tpu_torch.parallel.fsdp import shard_fsdp, split_axes
         from blurr_tpu_torch.parallel.mesh import shard_params
+        from blurr_tpu_torch.parallel.pipeline import (
+            PipelineCtx,
+            microbatch_count,
+            shard_params_pipeline,
+        )
 
-        shard_params(model, mesh)
-        if args.fsdp:
-            shard_fsdp(model, mesh)
+        if args.pp > 1:
+            shard_params_pipeline(model, mesh)
+            pipeline = PipelineCtx(mesh, microbatches=args.pp_microbatches or None)
+            n_micro = microbatch_count(args.batch_size, args.pp, args.dp, pipeline.microbatches)
+        else:
+            shard_params(model, mesh)
+            if args.fsdp:
+                shard_fsdp(model, mesh)
     mask = (lora_trainable_mask(model) if args.lora_rank > 0
             else SCOPES[args.train_scope](model))
     trainable = apply_mask(model, mask)
     split = None if mesh is None else split_axes(model, trainable, mesh)
-    if mesh is not None:
-        log.info("Mesh: dp %d x tp %d%s, rank 0 on %s", args.dp, args.tp,
+    if pipeline is not None:
+        log.info("Mesh: dp %d x pp %d, %d microbatches of %d rows, rank 0 on %s", args.dp,
+                 args.pp, n_micro, args.batch_size // n_micro, device)
+    elif mesh is not None:
+        log.info("Mesh: dp %d x sp %d x tp %d%s, rank 0 on %s", args.dp, args.sp, args.tp,
                  " (FSDP over the data ranks)" if args.fsdp else "", device)
+    rows = record_token_rows(model) if args.sp > 1 else {}
     n_train = sum(p.numel() for p in trainable)
     log.info("Trainable parameters: %s (%s)", f"{n_train:,}",
              f"LoRA rank {args.lora_rank}" if args.lora_rank > 0 else args.train_scope)
@@ -311,7 +345,7 @@ def train(argv, rank: int = 0, world: int = 1, init_method=None):
     ema = ParamsEMA(trainable, args.ema_decay) if args.ema_decay > 0 else None
     train_step = make_train_step(model, optimizer, remat=args.remat,
                                  compute_dtype=compute_dtype, accum_steps=k, ema=ema,
-                                 mesh=mesh)
+                                 mesh=mesh, pipeline=pipeline)
     accumulator = train_step.accumulator
 
     from blurr_tpu_torch.data import is_sharded_dataset
@@ -415,8 +449,11 @@ def train(argv, rank: int = 0, world: int = 1, init_method=None):
                 split_rows = mesh is not None and args_[0].shape[0] % mesh.data == 0
                 if split_rows:
                     args_ = tuple(data_rows(a, mesh) for a in args_)
-                loss_v = (model.flow_loss(*args_) if params is None
-                          else torch.func.functional_call(model, params, args_))
+                kw = {"pipeline": pipeline} if pipeline is not None else {}
+                if args.sp > 1:
+                    kw["sp"] = mesh
+                loss_v = (model.flow_loss(*args_, **kw) if params is None
+                          else torch.func.functional_call(model, params, args_, kw))
                 if split_rows and mesh.data > 1:
                     loss_v = all_reduce_sum(loss_v.float().reshape(1), mesh.data_group) / mesh.data
                 tot += float(loss_v)
@@ -505,7 +542,7 @@ def train(argv, rank: int = 0, world: int = 1, init_method=None):
     log.info("Done. final loss %.5f", float(loss))
     return argparse.Namespace(model=model, optimizer=optimizer, ema=ema, losses=losses,
                               steps_done=steps_done, args=args, rank=rank, mesh=mesh,
-                              launches=launches)
+                              launches=launches, rows=rows)
 
 
 

@@ -18,7 +18,8 @@ driven through the port's client, an HF snapshot written and served, and
 on tiny random models, the streaming quantizer, the checkpoint checker on a
 ``.pt`` it writes, ``ModuleSpec`` and the action-accuracy metric. A
 subprocess of its own serves a tensor-parallel (tp=2) tiny server on two
-``gloo`` ranks through the port's client and runs ``main_rank_only``.
+``gloo`` ranks through the port's client, runs ``main_rank_only`` and
+trains ``--sp 2`` and ``--pp 2`` on two ranks each.
 Then a static check: no ``.py``
 file of the port (``parallel/mesh.py``, ``parallel/tensor_parallel.py``
 and ``utils/decorator.py`` among them), nor ``chip_smoke.py`` or the
@@ -301,6 +302,15 @@ PARALLEL_SCRIPT = textwrap.dedent(
         t.join(30)
     assert act.shape == (4, 7) and np.isfinite(act).all()
     assert main_rank_only(lambda: "ran")() == "ran"
+    # sequence- and pipeline-parallel training, each on two spawned ranks
+    sys.path.insert(0, "scripts")
+    import train_pi0_flow_torch
+    from blurr_tpu_torch.ops import ring_attention  # noqa: F401
+    for config, flags in (("bridge_tiny", ["--sp", "2"]), ("bridge_tiny_pp", ["--pp", "2"])):
+        run = train_pi0_flow_torch.main([
+            "--device", "cpu", "--config", f"config/eval/{config}.yaml", "--steps", "1",
+            "--train-scope", "action_expert", *flags])
+        assert len(run.ranks) == 2 and run.ranks[0]["losses"] == run.ranks[1]["losses"]
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "blurr_tpu"))
     assert all(sys.modules[m] is None for m in loaded), loaded
     print("NO_JAX_PARALLEL_OK")
@@ -310,8 +320,9 @@ PARALLEL_SCRIPT = textwrap.dedent(
 
 def test_parallel_serving_runs_without_jax_or_blurr_tpu():
     """A tensor-parallel (tp=2) tiny server, its second rank a spawned
-    process, through the port's client, and ``main_rank_only``, with
-    ``jax`` and ``blurr_tpu`` unimportable in rank 0."""
+    process, through the port's client, ``main_rank_only``, and the trainer
+    at ``--sp 2`` and ``--pp 2`` (ring attention imported), with ``jax``
+    and ``blurr_tpu`` unimportable in rank 0."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("BLURR_PLATFORM", "BLURR_COMPILE_CACHE")}
     proc = subprocess.run(

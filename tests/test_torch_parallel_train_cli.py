@@ -14,8 +14,8 @@ for bit. The runs go in parallel: the interrupted one in this process
 process on one thread, so the resumed run and the uninterrupted one add
 in the same order. Then JAX's checks and messages:
 ``--multihost`` without a launcher is JAX's warning and a one-process
-run; ``--fsdp`` without ``--dp > 1``, ``--sp`` / ``--pp`` (naming ROADMAP
-item 6b part 2), OpenVLA's ``--tp`` with w4a8, word for word.
+run; ``--fsdp`` without ``--dp > 1``, ``--pp`` with ``--sp`` or ``--tp``,
+OpenVLA's ``--tp`` with w4a8, word for word.
 """
 
 import logging
@@ -147,8 +147,10 @@ def test_multihost_without_a_launcher_is_jax_warning(caplog, monkeypatch):
 
 @pytest.mark.parametrize("script, flags, message", [
     ("train_pi0_flow_torch", ["--fsdp"], "--fsdp shards over the 'data' axis; it needs --dp > 1"),
-    ("train_pi0_flow_torch", ["--sp", "2"], "item 6b part 2"),
-    ("train_pi0_flow_torch", ["--pp", "2"], "item 6b part 2"),
+    ("train_pi0_flow_torch", ["--sp", "2", "--pp", "2"],
+     "--pp composes with --dp only; drop --tp/--sp/--fsdp"),
+    ("train_pi0_flow_torch", ["--pp", "2", "--tp", "2"],
+     "--pp composes with --dp only; drop --tp/--sp/--fsdp"),
     ("train_pi0_flow_torch", ["--dp", "2", "--batch-size", "3"], "divisible by --dp 2"),
     ("train_openvla_lora_torch", ["--fsdp"],
      "--fsdp shards over the 'data' axis; it needs --dp > 1"),

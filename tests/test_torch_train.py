@@ -237,7 +237,7 @@ def test_gradient_bound_separates_planted_faults(monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(t_lora.LoRALinear, "forward", _clip_on_adapter_too)
         clip_fault, _ = _reading(_port_grads(kind, t_lora.lora_trainable_mask)[0], jgrads)
-    real = t_joint.naive_forward
+    real = t_joint.naive_layers
 
     def untied(mixtures, *args, **kwargs):  # the proprio mixture's own copy
         mixtures = dict(mixtures)
@@ -245,7 +245,7 @@ def test_gradient_bound_separates_planted_faults(monkeypatch):
         return real(mixtures, *args, **kwargs)
 
     with monkeypatch.context() as m:
-        m.setattr(t_joint, "naive_forward", untied)
+        m.setattr(t_joint, "naive_layers", untied)
         tie_fault, _ = _reading(_port_grads(kind, t_lora.lora_trainable_mask)[0], jgrads)
     print(f"sound {sound:.3e}, clip on the adapter {clip_fault:.3e}, "
           f"proprio gradient dropped {tie_fault:.3e} (bound {GRAD_REL_TOL:g})")

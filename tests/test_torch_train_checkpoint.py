@@ -312,16 +312,24 @@ def test_cli_validation_and_metrics_csv(tmp_path, caplog, shards):
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--sp", "2"], ["--pp", "2"],
                                    ["--fsdp"], ["--multihost"]])
 def test_cli_refuses_multi_card_flags(flags, caplog):
-    """The parallel flags as JAX's trainer takes them: --dp 2 and --tp 2
-    train on two ranks (the same loss on each); --sp and --pp are refused,
-    naming the part of M14 not ported yet; --fsdp alone is refused with
-    JAX's message; --multihost without a launcher trains on one process."""
-    argv = ["--config", TINY, "--steps", "1", *flags]
-    if flags[0] in ("--sp", "--pp", "--fsdp"):
-        with pytest.raises(SystemExit, match="M14.*6b part 2|needs --dp > 1") as err:
+    """The parallel flags as JAX's trainer takes them: --dp 2, --tp 2,
+    --sp 2 and --pp 2 (on bridge_tiny_pp, whose 4 joint layers split over
+    2 stages) train on two ranks (the same loss on each); --sp and --pp
+    refuse the combinations JAX refuses, with its message; --fsdp alone is
+    refused with JAX's message; --multihost without a launcher trains on
+    one process."""
+    config = "config/eval/bridge_tiny_pp.yaml" if flags[0] == "--pp" else TINY
+    argv = ["--config", config, "--steps", "1", *flags]
+    if flags[0] == "--fsdp":
+        with pytest.raises(SystemExit, match="needs --dp > 1") as err:
             _main(argv, caplog)
         assert err.value.code != 0
         return
+    if flags[0] in ("--sp", "--pp"):
+        other = ["--pp", "2"] if flags[0] == "--sp" else ["--tp", "2"]
+        with pytest.raises(SystemExit) as err:
+            _main(argv + other, caplog)
+        assert str(err.value) == "--pp composes with --dp only; drop --tp/--sp/--fsdp"
     result = _main(argv, caplog)
     losses = [r["losses"] for r in result.ranks]
     assert len(losses) == (1 if flags == ["--multihost"] else 2)
